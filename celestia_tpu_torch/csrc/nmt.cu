@@ -1,0 +1,60 @@
+// K2 `nmt_leaf_digests` and K3 `nmt_combine_level`: the 4k namespaced
+// Merkle trees of an extended data square.
+//
+// Replaces: celestia_tpu/ops/nmt.py:83 `eds_prefixed_leaves` + :42
+// `leaf_digests` (K2), and :53 `combine_level` / :69 `nmt_roots` / :104
+// `eds_nmt_roots` (K3).
+//
+// Bound on the H100: integer issue of the SHA-256 compressions (9 per
+// 542-byte leaf, 3 per 181-byte node); the 2k x 2k x 512 EDS read is ~10 us
+// of HBM time at k = 128 against ~0.1 ms of hashing.
+// Design: K2 hashes every cell ONCE, one thread per cell, straight from the
+// EDS: the message `0x00 || prefix || share` is read in place (no 541-byte
+// prefixed leaf is built) into a (2k, 2k, 90) digest grid.  The JAX program
+// hashes each cell twice (row and transposed column trees); the grid read
+// by rows and by columns gives the same bytes for half the leaf work.  K3 is
+// one launch per level, one thread per parent node; its first level reads
+// the grid through two stride sets (rows for trees 0..2k, columns for
+// 2k..4k), later levels read the contiguous previous level.
+#include <cuda_runtime.h>
+
+#include "nmt.cuh"
+
+namespace {
+
+__global__ void nmt_leaf_kernel(const uint8_t* eds, uint8_t* out, uint32_t n2) {
+  const uint32_t cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= n2 * n2) return;
+  ctt::nmt_leaf_body(eds, out, n2, cell);
+}
+
+__global__ void nmt_combine_kernel(const uint8_t* in, uint8_t* out, uint64_t total,
+                                   uint32_t m_out, uint32_t split, uint64_t ts0, uint64_t ns0,
+                                   uint64_t ts1, uint64_t ns1) {
+  const uint64_t idx = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  ctt::nmt_combine_body(in, out, m_out, split, ts0, ns0, ts1, ns1, idx);
+}
+
+}  // namespace
+
+extern "C" int ctt_nmt_leaf_digests(const void* eds, void* out, int n2, void* stream) {
+  const int threads = 128;
+  const unsigned cells = static_cast<unsigned>(n2) * static_cast<unsigned>(n2);
+  nmt_leaf_kernel<<<(cells + threads - 1) / threads, threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(static_cast<const uint8_t*>(eds),
+                                                         static_cast<uint8_t*>(out), n2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ctt_nmt_combine_level(const void* in, void* out, long long ntrees, int m_out,
+                                     long long split, long long ts0, long long ns0,
+                                     long long ts1, long long ns1, void* stream) {
+  const int threads = 128;
+  const uint64_t total = static_cast<uint64_t>(ntrees) * static_cast<uint64_t>(m_out);
+  nmt_combine_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), total,
+      static_cast<uint32_t>(m_out), static_cast<uint32_t>(split), ts0, ns0, ts1, ns1);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,1 @@
+"""da layer of the celestia_tpu_torch port."""

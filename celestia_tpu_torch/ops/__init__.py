@@ -1,0 +1,1 @@
+"""ops layer of the celestia_tpu_torch port."""

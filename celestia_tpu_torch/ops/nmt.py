@@ -1,0 +1,314 @@
+"""Namespaced Merkle Trees and the RFC-6962 data-root tree over an EDS.
+
+Counterpart of ``celestia_tpu/ops/nmt.py``, with the same digest format
+(test/util/malicious/hasher.go:1-71):
+
+* leaf digest  = ns || ns || sha256(0x00 || ns || data)
+* node digest  = minNs || maxNs || sha256(0x01 || left || right)
+  with minNs = left.min and, because IgnoreMaxNamespace=true, maxNs =
+  left.max when right.min == 0xFF..FF (an all-parity right subtree), else
+  right.max.
+* empty root   = zeros(29) || zeros(29) || sha256("")
+
+Digests are 29+29+32 = 90 bytes.  All 4k axis trees of the extended
+square reduce together, level by level.  The leaf prefix rule mirrors
+nmt_wrapper.go:93-114: Q0 cells are prefixed with their own namespace,
+every cell outside Q0 with the parity namespace.
+
+On a CUDA tensor the EDS passes go through the kernels of ``csrc/nmt.cu``
+(K2 ``nmt_leaf_digests``, K3 ``nmt_combine_level``) and the data root
+through K1 (leaf hashes) and ``csrc/rfc6962.cu`` (K4 ``rfc6962_root``).
+On a CPU tensor each runs its plain PyTorch twin in this module.  Each EDS
+cell is hashed once, into a (2k, 2k, 90) grid that row trees read by rows
+and column trees by columns — the bytes the JAX program gets by hashing
+every cell twice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from celestia_tpu_torch import kernels
+from celestia_tpu_torch.appconsts import (
+    NAMESPACE_SIZE,
+    PARITY_SHARE_NAMESPACE_RAW,
+    SHARE_SIZE,
+)
+from celestia_tpu_torch.ops.sha256 import sha256, sha256_cuda, sha256_plain
+
+NMT_DIGEST_SIZE = 2 * NAMESPACE_SIZE + 32  # 90
+
+_PARITY_NS = np.frombuffer(PARITY_SHARE_NAMESPACE_RAW, dtype=np.uint8)
+
+# one K4 block holds the whole tree in shared memory (csrc/rfc6962.cu)
+RFC6962_MAX_LEAVES = 1024
+
+
+def _is_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def _check_pow2(n: int, what: str = "leaf count") -> None:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"{what} must be a power of two, got {n}")
+
+
+def _byte_column(t: torch.Tensor, value: int) -> torch.Tensor:
+    return torch.full(t.shape[:-1] + (1,), value, dtype=torch.uint8, device=t.device)
+
+
+def _leaf_digests_with(hash_fn, leaves: torch.Tensor) -> torch.Tensor:
+    ns = leaves[..., :NAMESPACE_SIZE]
+    h = hash_fn(torch.cat([_byte_column(leaves, 0), leaves], dim=-1))
+    return torch.cat([ns, ns, h], dim=-1)
+
+
+def leaf_digests(leaves: torch.Tensor) -> torch.Tensor:
+    """Hash namespaced leaves: uint8[..., L] -> uint8[..., 90].
+
+    ``leaves`` already carry their namespace prefix (ns || data)."""
+    return _leaf_digests_with(sha256, leaves)
+
+
+def combine_level_plain(nodes: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K3: uint8[..., m, 90] -> uint8[..., m//2, 90]."""
+    left = nodes[..., 0::2, :]
+    right = nodes[..., 1::2, :]
+    l_min = left[..., :NAMESPACE_SIZE]
+    l_max = left[..., NAMESPACE_SIZE : 2 * NAMESPACE_SIZE]
+    r_min = right[..., :NAMESPACE_SIZE]
+    r_max = right[..., NAMESPACE_SIZE : 2 * NAMESPACE_SIZE]
+    r_is_parity = (r_min == 0xFF).all(dim=-1, keepdim=True)  # IgnoreMaxNamespace
+    max_ns = torch.where(r_is_parity, l_max, r_max)
+    h = sha256_plain(torch.cat([_byte_column(left, 1), left, right], dim=-1))
+    return torch.cat([l_min, max_ns, h], dim=-1)
+
+
+def _combine_cuda(src, ntrees, m_out, split, strides0, strides1) -> torch.Tensor:
+    out = torch.empty((ntrees, m_out, NMT_DIGEST_SIZE), dtype=torch.uint8, device=src.device)
+    kernels.launch(
+        "nmt_combine_level", src.device, src.data_ptr(), out.data_ptr(),
+        ntrees, m_out, split, *strides0, *strides1,
+    )
+    return out
+
+
+def combine_level(nodes: torch.Tensor) -> torch.Tensor:
+    """One reduction level: uint8[..., m, 90] -> uint8[..., m//2, 90]."""
+    if _is_cpu(nodes):
+        return combine_level_plain(nodes)
+    kernels.check_cuda_tensor(nodes, "nodes")
+    m = nodes.shape[-2]
+    if nodes.shape[-1] != NMT_DIGEST_SIZE or m < 2 or m % 2:
+        raise ValueError(f"nodes must be [..., even m, 90], got {tuple(nodes.shape)}")
+    lead = tuple(nodes.shape[:-2])
+    ntrees = int(np.prod(lead))
+    stride = (m * NMT_DIGEST_SIZE, NMT_DIGEST_SIZE)
+    out = _combine_cuda(nodes, ntrees, m // 2, ntrees, stride, stride)
+    return out.reshape(lead + (m // 2, NMT_DIGEST_SIZE))
+
+
+def nmt_roots(leaves: torch.Tensor) -> torch.Tensor:
+    """Full NMT reduction: uint8[..., n, L] namespaced leaves -> uint8[..., 90].
+
+    n must be a power of two (EDS axes always are)."""
+    _check_pow2(leaves.shape[-2])
+    nodes = leaf_digests(leaves)
+    while nodes.shape[-2] > 1:
+        nodes = combine_level(nodes)
+    return nodes[..., 0, :]
+
+
+def _prefixed_rows(eds: torch.Tensor) -> torch.Tensor:
+    """uint8[2k, 2k, 512] -> uint8[2k, 2k, 29+512]: each cell with its prefix."""
+    n2 = eds.shape[0]
+    k = n2 // 2
+    own_ns = eds[..., :NAMESPACE_SIZE]
+    parity = torch.from_numpy(_PARITY_NS.copy()).to(eds.device).expand_as(own_ns)
+    r = torch.arange(n2, device=eds.device)
+    in_q0 = (r[:, None] < k) & (r[None, :] < k)
+    prefix = torch.where(in_q0[..., None], own_ns, parity)
+    return torch.cat([prefix, eds], dim=-1)
+
+
+def eds_prefixed_leaves(eds: torch.Tensor) -> torch.Tensor:
+    """The namespace-prefixed leaves of all row and column trees.
+
+    eds: uint8[2k, 2k, SHARE_SIZE] -> uint8[2, 2k, 2k, 29+SHARE_SIZE]
+    (axis 0: 0=row trees, 1=column trees; leaves ordered along each axis)."""
+    rows = _prefixed_rows(eds)
+    return torch.stack([rows, rows.transpose(0, 1)], dim=0)
+
+
+def _check_eds(eds: torch.Tensor) -> int:
+    n2 = eds.shape[0]
+    if eds.dim() != 3 or tuple(eds.shape) != (n2, n2, SHARE_SIZE) or n2 % 2:
+        raise ValueError(f"EDS must be [2k, 2k, {SHARE_SIZE}], got {tuple(eds.shape)}")
+    _check_pow2(n2 // 2, "square size")
+    return n2
+
+
+def eds_leaf_digests_plain(eds: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K2 on any device."""
+    _check_eds(eds)
+    return _leaf_digests_with(sha256_plain, _prefixed_rows(eds))
+
+
+def eds_leaf_digests(eds: torch.Tensor) -> torch.Tensor:
+    """K2: the leaf digest of every EDS cell, uint8[2k, 2k, 512] ->
+    uint8[2k, 2k, 90] (row r, column c = leaf c of row tree r = leaf r of
+    column tree c)."""
+    n2 = _check_eds(eds)
+    if _is_cpu(eds):
+        return eds_leaf_digests_plain(eds)
+    kernels.check_cuda_tensor(eds, "eds")
+    out = torch.empty((n2, n2, NMT_DIGEST_SIZE), dtype=torch.uint8, device=eds.device)
+    kernels.launch("nmt_leaf_digests", eds.device, eds.data_ptr(), out.data_ptr(), n2)
+    return out
+
+
+def combine_grid_plain(grid: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K3's first level on any device."""
+    return combine_level_plain(torch.cat([grid, grid.transpose(0, 1)], dim=0))
+
+
+def combine_grid(grid: torch.Tensor) -> torch.Tensor:
+    """K3's first level, read from the leaf grid: uint8[2k, 2k, 90] ->
+    uint8[4k, k, 90] (trees 0..2k are the rows, 2k..4k the columns)."""
+    if _is_cpu(grid):
+        return combine_grid_plain(grid)
+    n2 = grid.shape[0]
+    kernels.check_cuda_tensor(grid, "grid", (n2, n2, NMT_DIGEST_SIZE))
+    d = NMT_DIGEST_SIZE
+    return _combine_cuda(grid, 2 * n2, n2 // 2, n2, (n2 * d, d), (d, n2 * d))
+
+
+def _eds_roots(eds, leaf_fn, grid_fn, level_fn) -> torch.Tensor:
+    n2 = _check_eds(eds)
+    nodes = grid_fn(leaf_fn(eds))
+    while nodes.shape[-2] > 1:
+        nodes = level_fn(nodes)
+    return nodes[:, 0].reshape(2, n2, NMT_DIGEST_SIZE)
+
+
+def eds_nmt_roots_plain(eds: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K2 + K3 on any device: uint8[2k,2k,512] -> uint8[2, 2k, 90]."""
+    return _eds_roots(eds, eds_leaf_digests_plain, combine_grid_plain, combine_level_plain)
+
+
+def eds_nmt_roots(eds: torch.Tensor) -> torch.Tensor:
+    """All 4k NMT axis roots of an EDS: uint8[2k,2k,512] -> uint8[2, 2k, 90]."""
+    return _eds_roots(eds, eds_leaf_digests, combine_grid, combine_level)
+
+
+def empty_root_np() -> np.ndarray:
+    """EmptyRoot: zeros ns range + sha256 of the empty string."""
+    import hashlib
+
+    return np.frombuffer(
+        b"\x00" * (2 * NAMESPACE_SIZE) + hashlib.sha256(b"").digest(), dtype=np.uint8
+    )
+
+
+# ---------------------------------------------------------------------------
+# RFC-6962-style binary Merkle tree (tendermint/go-square merkle parity)
+# used for the data root over the 4k NMT axis roots
+# (pkg/da/data_availability_header.go:92-108).
+# ---------------------------------------------------------------------------
+
+
+def rfc6962_leaf_hashes_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the K1 leaf-hash launch on any device."""
+    return sha256_plain(torch.cat([_byte_column(leaves, 0), leaves], dim=-1))
+
+
+def rfc6962_leaf_hashes(leaves: torch.Tensor) -> torch.Tensor:
+    """uint8[..., n, L] -> uint8[..., n, 32]: sha256(0x00 || leaf).
+
+    On the card: K1 with a 0x00 prefix, reading the leaves in place."""
+    if _is_cpu(leaves):
+        return rfc6962_leaf_hashes_plain(leaves)
+    return sha256_cuda(leaves, prefix=0)
+
+
+def rfc6962_inner(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    return sha256(torch.cat([_byte_column(left, 1), left, right], dim=-1))
+
+
+def rfc6962_tree_plain(hashes: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K4 on any device: uint8[..., n, 32] leaf hashes ->
+    uint8[..., 32] root."""
+    nodes = hashes
+    while nodes.shape[-2] > 1:
+        left, right = nodes[..., 0::2, :], nodes[..., 1::2, :]
+        nodes = sha256_plain(torch.cat([_byte_column(left, 1), left, right], dim=-1))
+    return nodes[..., 0, :]
+
+
+def rfc6962_tree(hashes: torch.Tensor) -> torch.Tensor:
+    """K4: the RFC-6962 root over a power-of-two count of leaf hashes,
+    uint8[..., n, 32] -> uint8[..., 32]; on the card n <= 1024."""
+    n = hashes.shape[-2]
+    _check_pow2(n)
+    if _is_cpu(hashes):
+        return rfc6962_tree_plain(hashes)
+    kernels.check_cuda_tensor(hashes, "hashes")
+    if hashes.shape[-1] != 32 or n > RFC6962_MAX_LEAVES:
+        raise ValueError(
+            f"hashes must be [..., n <= {RFC6962_MAX_LEAVES}, 32], got {tuple(hashes.shape)}"
+        )
+    lead = tuple(hashes.shape[:-2])
+    batch = int(np.prod(lead))
+    out = torch.empty(lead + (32,), dtype=torch.uint8, device=hashes.device)
+    if batch:
+        kernels.launch("rfc6962_root", hashes.device, hashes.data_ptr(), out.data_ptr(), batch, n)
+    return out
+
+
+def rfc6962_root_pow2(leaves: torch.Tensor) -> torch.Tensor:
+    """Merkle root of a power-of-two number of equal-length leaves.
+
+    uint8[..., n, L] -> uint8[..., 32].  Matches tendermint's simple merkle
+    for power-of-two counts (split point = n/2 at every level)."""
+    _check_pow2(leaves.shape[-2])
+    return rfc6962_tree(rfc6962_leaf_hashes(leaves))
+
+
+def rfc6962_root_np(leaves: list) -> np.ndarray:
+    """Host reference for arbitrary leaf counts (tendermint split rule:
+    largest power of two strictly less than n)."""
+    import hashlib
+
+    def rec(items):
+        if len(items) == 0:
+            return hashlib.sha256(b"").digest()
+        if len(items) == 1:
+            return hashlib.sha256(b"\x00" + items[0]).digest()
+        split = 1
+        while split * 2 < len(items):
+            split *= 2
+        left = rec(items[:split])
+        right = rec(items[split:])
+        return hashlib.sha256(b"\x01" + left + right).digest()
+
+    return np.frombuffer(rec([bytes(x) for x in leaves]), dtype=np.uint8)
+
+
+def combine_digests_np(left: bytes, right: bytes) -> bytes:
+    """Host-side NMT node combine (for proof verification)."""
+    import hashlib
+
+    l_min, l_max = left[:NAMESPACE_SIZE], left[NAMESPACE_SIZE : 2 * NAMESPACE_SIZE]
+    r_min, r_max = right[:NAMESPACE_SIZE], right[NAMESPACE_SIZE : 2 * NAMESPACE_SIZE]
+    max_ns = l_max if r_min == bytes(_PARITY_NS) else r_max
+    h = hashlib.sha256(b"\x01" + left + right).digest()
+    return l_min + max_ns + h
+
+
+def leaf_digest_np(ns_prefixed_leaf: bytes) -> bytes:
+    """Host-side NMT leaf digest (for proof verification)."""
+    import hashlib
+
+    ns = ns_prefixed_leaf[:NAMESPACE_SIZE]
+    return ns + ns + hashlib.sha256(b"\x00" + ns_prefixed_leaf).digest()

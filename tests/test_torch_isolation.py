@@ -1,0 +1,93 @@
+"""The port stands alone: celestia_tpu_torch (and chip_smoke.py) import
+neither jax nor anything of celestia_tpu, and the port's main path runs
+with both unimportable."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "celestia_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    # exact top-level names: celestia_tpu_torch starts with celestia_tpu
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = sorted((ROOT / "celestia_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [
+        f"{f.relative_to(ROOT)}: {m}" for f in files for m in _imported_modules(f) if _forbidden(m)
+    ]
+    assert not bad, bad
+
+
+def test_forbidden_rule_is_exact():
+    assert _forbidden("celestia_tpu") and _forbidden("celestia_tpu.ops.gf256")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("celestia_tpu_torch.ops.gf256")
+
+
+def test_main_path_runs_with_jax_and_celestia_tpu_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['celestia_tpu'] = None\n"
+        "from celestia_tpu_torch.da import dah, golden, square\n"
+        "from celestia_tpu_torch.ops import gf256, nmt, rs, sha256\n"
+        "from celestia_tpu_torch import kernels\n"
+        "sq, txs, _ = square.build([b'\\x05' * 700, b'\\x06' * 900])\n"
+        "eds, hdr = dah.extend_block(sq, device='cpu')\n"
+        "hdr.validate_basic()\n"
+        "assert dah.min_data_availability_header(device='cpu').hash == golden.MIN_DAH_HASH\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
+        "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "print('OK', hdr.hash.hex())\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK ")
+
+
+def test_default_device_is_the_card():
+    from celestia_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device("cuda")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
