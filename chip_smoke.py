@@ -37,15 +37,17 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bandwidth and int8 tensor
-# rate; the int32 rate is 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
+# H100 SXM peaks: HBM3 bandwidth from NVIDIA's data sheet; the int32 rate is
+# 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 32-bit integer operations of one SHA-256 compression, counted from
-# csrc/sha256.cuh with rotates as one funnel shift and 3-input logic as one
-# LOP3: 48 schedule words x 11 + 64 rounds x 16 + 8 final adds.
-SHA_OPS_PER_COMPRESSION = 48 * 11 + 64 * 16 + 8
+# csrc/sha256.cuh as sm_90 issues them: a rotate is one funnel shift, 3-input
+# logic one LOP3, and up to three addends (an immediate among them) one
+# IADD3.  A schedule word is sigma0 and sigma1 (2 SHF + SHR + LOP3 each) and
+# 2 IADD3 = 10; a round is Sigma1 4 + ch 1 + t1 2 + Sigma0 4 + maj 1 + e 1 +
+# a 1 = 14; then 8 final adds.
+SHA_OPS_PER_COMPRESSION = 48 * 10 + 64 * 14 + 8
 
 REPLACES = {
     "sha256_batch": "celestia_tpu/ops/sha256.py:100",
@@ -70,6 +72,17 @@ def check(cond: bool, what: str) -> None:
 
 def compressions(msg_len: int) -> int:
     return (msg_len + 9 + 63) // 64
+
+
+def leopard_extend_ops(k: int) -> int:
+    """32-bit operations of the least-work form of the Leopard (leopard-ff8)
+    extension, counted low: per codeword of k shares an IFFT and an FFT of
+    (k/2)*log2(k) butterflies ``x ^= y*w; y ^= x`` each, on 512-byte shares,
+    at 3 operations per 4-byte word (the multiply counted as one, two XORs),
+    for the 3k codewords of Q1, Q2 and Q3.  The JAX package's bit-lift
+    matrix form, 2*(8k)^2*3k*512 int8 operations, does far more work."""
+    butterflies = 2 * (k // 2) * (k.bit_length() - 1)
+    return 3 * k * butterflies * (512 // 4) * 3
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -196,6 +209,7 @@ def main() -> int:
 
     # times at the main path's k = 128 shapes (per block)
     codec = gf256.active_codec()
+    check(codec == gf256.CODEC_LEOPARD, f"K5's bound counts the Leopard codec, active: {codec}")
     G = rs.encode_matrix_bits_tensor(k, codec, str(dev))
     # the bit-GEMM's B operand for the three quadrants: Q0's bit planes as
     # (8k, k*512), three times over
@@ -243,8 +257,7 @@ def main() -> int:
             lambda: rs.extend_plain(sq, codec),
             # the GEMM part only: G int8[8k, 8k] @ bits int8[8k, 3k*512]
             lambda: torch._int_mm(G, bits),
-            bound(k * k * 512 + n2 * n2 * 512,
-                  2 * (8 * k) * (8 * k) * 3 * k * 512, INT8_TENSOR_OPS_PER_S),
+            bound(k * k * 512 + n2 * n2 * 512, leopard_extend_ops(k), INT32_OPS_PER_S),
         ),
     }
     for name, (fast, plain, lib, (b_ms, b_by)) in timings.items():

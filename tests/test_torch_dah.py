@@ -25,11 +25,20 @@ def _random_square(seed: int, k: int) -> np.ndarray:
     return sq
 
 
+def _jax_program(k: int, codec: str, square: np.ndarray):
+    """The JAX package's fused program ``_extend_and_roots_fn(k, codec)``,
+    compiled at LLVM optimisation level 0: XLA's compile is almost all of
+    a case's time, level 0 shortens it, and the program's integer results
+    are the same."""
+    lowered = jdah._extend_and_roots_fn(k, codec).lower(square)
+    return lowered.compile(compiler_options={"xla_backend_optimization_level": 0})
+
+
 @pytest.mark.parametrize("codec_pair", gf256.CODECS, indirect=True)
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_extend_and_header_matches_jax(codec_pair, k):
     sq = _random_square(k, k)
-    eds_j, rows_j, cols_j, root_j = jdah._extend_and_roots_fn(k, codec_pair)(sq)
+    eds_j, rows_j, cols_j, root_j = _jax_program(k, codec_pair, sq)(sq)
     eds, hdr = dah.extend_and_header(sq, device="cpu")
     np.testing.assert_array_equal(eds.shares, np.asarray(eds_j))
     assert hdr.row_roots == tuple(r.tobytes() for r in np.asarray(rows_j))
