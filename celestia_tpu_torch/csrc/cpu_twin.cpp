@@ -1,5 +1,5 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
-// nmt.cuh, rs_extend.cuh), compiled by g++ and looped over the thread
+// nmt.cuh, rs_extend.cuh, das_gather.cuh), compiled by g++ and looped over the thread
 // indices on the host.  It lets the tests hold the kernels' arithmetic
 // against the JAX package on a machine without a card; it is never on the
 // port's path.  Build: g++ -O2 -std=c++17 -shared -fPIC cpu_twin.cpp.
@@ -7,6 +7,7 @@
 
 #include <vector>
 
+#include "das_gather.cuh"
 #include "nmt.cuh"
 #include "rs_extend.cuh"
 
@@ -34,17 +35,43 @@ void twin_nmt_combine_level(const uint8_t* in, uint8_t* out, long long ntrees, i
     ctt::nmt_combine_body(in, out, uint32_t(m_out), uint32_t(split), ts0, ns0, ts1, ns1, idx);
 }
 
-void twin_rfc6962_root(const uint8_t* leaves, uint8_t* out, int batch, int n) {
+// levels: uint8[batch, 2n - 1, 32] (leaf hashes first, root last), as
+// ctt_rfc6962_root writes them.
+void twin_rfc6962_levels(const uint8_t* leaves, uint8_t* levels, int batch, int n) {
   std::vector<uint8_t> nodes(size_t(n) * 32);
   for (int b = 0; b < batch; ++b) {
     memcpy(nodes.data(), leaves + size_t(b) * n * 32, size_t(n) * 32);
+    uint8_t* level = levels + size_t(b) * (2 * size_t(n) - 1) * 32;
+    memcpy(level, nodes.data(), size_t(n) * 32);
     for (uint32_t m = uint32_t(n); m > 1; m >>= 1) {
       std::vector<uint32_t> st(size_t(m / 2) * 8);
       for (uint32_t j = 0; j < m / 2; ++j) ctt::rfc6962_inner_body(nodes.data(), j, &st[8 * j]);
       for (uint32_t j = 0; j < m / 2; ++j) ctt::store_digest(&st[8 * j], nodes.data() + 32 * j);
+      level += size_t(m) * 32;
+      memcpy(level, nodes.data(), size_t(m / 2) * 32);
     }
-    memcpy(out + size_t(b) * 32, nodes.data(), 32);
   }
+}
+
+// The root alone: the last row of each tree's levels.
+void twin_rfc6962_root(const uint8_t* leaves, uint8_t* out, int batch, int n) {
+  const size_t rows = 2 * size_t(n) - 1;
+  std::vector<uint8_t> levels(size_t(batch) * rows * 32);
+  twin_rfc6962_levels(leaves, levels.data(), batch, n);
+  for (int b = 0; b < batch; ++b)
+    memcpy(out + size_t(b) * 32, levels.data() + (size_t(b) * rows + rows - 1) * 32, 32);
+}
+
+// srcs: n_srcs x 4 int64 (base pointer, row stride, item stride, width), as
+// ctt_das_proof_gather takes them; one "lane" per item.
+void twin_das_proof_gather(const long long* srcs, int n_srcs, const int32_t* items, int n_items,
+                           uint8_t* out) {
+  std::vector<ctt::GatherSrc> table(static_cast<size_t>(n_srcs));
+  for (int i = 0; i < n_srcs; ++i)
+    table[i] = ctt::GatherSrc{reinterpret_cast<const uint8_t*>(uintptr_t(srcs[4 * i])),
+                              uint64_t(srcs[4 * i + 1]), uint32_t(srcs[4 * i + 2]),
+                              uint32_t(srcs[4 * i + 3])};
+  for (int i = 0; i < n_items; ++i) ctt::das_gather_body(table.data(), items, out, i, 0, 1);
 }
 
 static void twin_axes(const uint8_t* in, uint8_t* out, const uint8_t* E, const uint8_t* gexp,

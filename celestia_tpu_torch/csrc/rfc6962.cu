@@ -12,6 +12,12 @@
 // level by level, thread j hashes `0x01 || node[2j] || node[2j+1]` (65 B)
 // and, after a barrier, writes the parent in place.  One launch per tree,
 // no round trip through HBM between levels.
+//
+// Output (K7a's root tree, celestia_tpu/ops/nmt.py:287
+// `rfc6962_level_stack`): every level is written from shared memory, as the
+// block builds it, into a packed uint8[batch, 2n - 1, 32] buffer -- the n
+// leaf hashes first, then n/2, ..., the root last -- so a data-root proof is
+// a gather of `level[j][(i >> j) ^ 1]` and the root is the last row.
 #include <cuda_runtime.h>
 
 #include "nmt.cuh"
@@ -20,11 +26,19 @@ namespace {
 
 constexpr uint32_t kMaxLeaves = 1024;
 
-__global__ void rfc6962_tree_kernel(const uint8_t* leaves, uint8_t* out, uint32_t n) {
+// Copy the level of `count` nodes now in shared memory to its place in the
+// packed levels buffer.
+__device__ void store_level(const uint8_t* nodes, uint8_t* level, uint32_t count) {
+  for (uint32_t i = threadIdx.x; i < count * 32u; i += blockDim.x) level[i] = nodes[i];
+}
+
+__global__ void rfc6962_tree_kernel(const uint8_t* leaves, uint8_t* levels, uint32_t n) {
   __shared__ __align__(16) uint8_t nodes[kMaxLeaves * 32];
   const uint8_t* src = leaves + static_cast<uint64_t>(blockIdx.x) * n * 32u;
+  uint8_t* level = levels + static_cast<uint64_t>(blockIdx.x) * (2u * n - 1u) * 32u;
   for (uint32_t i = threadIdx.x; i < n * 32u; i += blockDim.x) nodes[i] = src[i];
   __syncthreads();
+  store_level(nodes, level, n);
   for (uint32_t m = n; m > 1; m >>= 1) {
     const uint32_t j = threadIdx.x;
     const bool active = j < m / 2;
@@ -33,17 +47,20 @@ __global__ void rfc6962_tree_kernel(const uint8_t* leaves, uint8_t* out, uint32_
     __syncthreads();
     if (active) ctt::store_digest(st, nodes + 32u * j);
     __syncthreads();
+    // read-only until the next level's barrier, so no further barrier here
+    level += m * 32u;
+    store_level(nodes, level, m / 2);
   }
-  for (uint32_t i = threadIdx.x; i < 32u; i += blockDim.x)
-    out[static_cast<uint64_t>(blockIdx.x) * 32u + i] = nodes[i];
 }
 
 }  // namespace
 
-extern "C" int ctt_rfc6962_root(const void* leaves, void* out, int batch, int n, void* stream) {
+// levels_out: uint8[batch, 2n - 1, 32].
+extern "C" int ctt_rfc6962_root(const void* leaves, void* levels_out, int batch, int n,
+                                void* stream) {
   const int threads = n / 2 > 32 ? n / 2 : 32;
   rfc6962_tree_kernel<<<batch, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(leaves), static_cast<uint8_t*>(out),
+      static_cast<const uint8_t*>(leaves), static_cast<uint8_t*>(levels_out),
       static_cast<uint32_t>(n));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,13 +5,20 @@ pkg/da/data_availability_header.go (ExtendShares :65-75,
 NewDataAvailabilityHeader :44-63, Hash :92-108, ValidateBasic :134-177,
 MinDataAvailabilityHeader :179) and app/extend_block.go:14-32.
 
-On the card, :func:`extend_and_header` uploads the square once and
-launches RS extension (K5) -> NMT leaf digests (K2) -> one NMT level per
-launch (K3) -> RFC-6962 leaf hashes (K1) -> the data-root tree (K4), all on
-the current stream with no host sync between them; only the 4k axis roots
-and the 32-byte data root come back to the host, and the EDS stays on the
-card until its shares are read.  With ``device="cpu"`` the same
-composition runs the plain PyTorch twins.
+:func:`extend_and_header` goes through the device-resident plane
+(da/device_plane.py) on every device, as the JAX package does with an
+accelerator attached (its dah.py:540): the square is uploaded once, RS
+extension (K5) -> NMT leaf digests (K2) -> one NMT level per launch (K3)
+-> RFC-6962 leaf hashes (K1) -> the root tree (K4) run on the current
+stream with no host sync between them, only the 4k axis roots and the
+32-byte data root come back to the host, and the EDS and every level stay
+on the card, cached under the data root for DAS serving.  With
+``device="cpu"`` the same composition runs the plain PyTorch twins.
+
+An EDS on the card is fetched whole only when :attr:`ExtendedDataSquare.shares`
+is read; :meth:`ExtendedDataSquare.rows` copies only the rows asked for.
+:func:`full_eds_fetches` counts the whole-square fetches, so a run can show
+that a serving path never made one.
 """
 
 from __future__ import annotations
@@ -35,6 +42,21 @@ from celestia_tpu_torch.ops import rs
 from celestia_tpu_torch.utils.device import resolve_device
 
 NMT_ROOT_SIZE = nmt_ops.NMT_DIGEST_SIZE  # 90
+
+_fetch_lock = threading.Lock()
+_full_fetches = 0  # guarded by _fetch_lock
+
+
+def full_eds_fetches() -> int:
+    """Whole EDSs copied from a device to the host in this process."""
+    with _fetch_lock:
+        return _full_fetches
+
+
+def reset_full_eds_fetches() -> None:
+    global _full_fetches
+    with _fetch_lock:
+        _full_fetches = 0
 
 
 def _writable(arr) -> np.ndarray:
@@ -78,9 +100,22 @@ class ExtendedDataSquare:
 
     @property
     def shares(self) -> np.ndarray:
+        """All shares on the host (a whole-square copy from a device, once)."""
+        global _full_fetches
         if self._shares is None:
             self._shares = self._tensor.cpu().numpy()
+            with _fetch_lock:
+                _full_fetches += 1
         return self._shares
+
+    def rows(self, idxs) -> np.ndarray:
+        """Rows ``idxs`` on the host, uint8[len(idxs), 2k, 512]: from a
+        device only those rows are copied, in one transfer."""
+        idxs = [int(r) for r in idxs]
+        if self._shares is not None:
+            return self._shares[idxs]
+        index = torch.tensor(idxs, dtype=torch.long, device=self._tensor.device)
+        return self._tensor.index_select(0, index).cpu().numpy()
 
     @property
     def width(self) -> int:
@@ -93,7 +128,7 @@ class ExtendedDataSquare:
         return self.width // 2
 
     def row(self, r: int) -> np.ndarray:
-        return self.shares[r]
+        return self.rows([r])[0]
 
     def col(self, c: int) -> np.ndarray:
         return self.shares[:, c]
@@ -107,16 +142,6 @@ class ExtendedDataSquare:
         """Q0 as uint8[k*k, 512] (row-major original shares)."""
         k = self.square_size
         return self.quadrant(0).reshape(k * k, SHARE_SIZE)
-
-
-def extend_and_roots(square: torch.Tensor):
-    """The fused composition on the square's device:
-    uint8[k,k,512] -> (eds[2k,2k,512], roots[2,2k,90], data_root[32])."""
-    eds = rs.extend_square(square)
-    roots = nmt_ops.eds_nmt_roots(eds)  # (2, 2k, 90)
-    k = square.shape[0]
-    data_root = nmt_ops.rfc6962_root_pow2(roots.reshape(4 * k, NMT_ROOT_SIZE))
-    return eds, roots, data_root
 
 
 @dataclass(frozen=True)
@@ -217,23 +242,15 @@ def extend_shares(shares: np.ndarray, device=None) -> ExtendedDataSquare:
 def extend_and_header(
     square: np.ndarray, device=None
 ) -> Tuple[ExtendedDataSquare, DataAvailabilityHeader]:
-    """The fused hot path: original square uint8[k,k,512] -> (EDS, DAH).
+    """The fused hot path: original square uint8[k,k,512] -> (EDS, DAH),
+    through the device-resident plane (the block stays cached on its
+    device for DAS serving).
 
     ``device=None`` runs on the card and raises when there is none;
     ``device="cpu"`` runs the plain PyTorch twins."""
-    dev = resolve_device(device)
-    sq = _square_tensor(square, dev)
-    n2 = 2 * sq.shape[0]
-    eds, roots, data_root = extend_and_roots(sq)
-    # the one device->host transfer: 4k roots and the data root
-    host = torch.cat([roots.reshape(-1), data_root]).cpu().numpy()
-    rr = host[: 2 * n2 * NMT_ROOT_SIZE].reshape(2, n2, NMT_ROOT_SIZE)
-    dah = DataAvailabilityHeader(
-        tuple(rr[0, i].tobytes() for i in range(n2)),
-        tuple(rr[1, i].tobytes() for i in range(n2)),
-        host[2 * n2 * NMT_ROOT_SIZE :].tobytes(),
-    )
-    return ExtendedDataSquare(eds), dah
+    from celestia_tpu_torch.da import device_plane
+
+    return device_plane.extend_and_header(square, device=device)
 
 
 def new_data_availability_header(

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "ctt_nmt_combine_level": (_P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, _P),
     "ctt_rfc6962_root": (_P, _P, _I, _I, _P),
     "ctt_rs_extend": (_P, _P, _P, _P, _P, _I, _P),
+    "ctt_das_proof_gather": (_P, _I, _P, _I, _P, _P),
 }
 
 # kernel name -> C entry; the names chip_smoke.py and PERF.md report
@@ -55,6 +56,7 @@ KERNELS = {
     "nmt_combine_level": "ctt_nmt_combine_level",
     "rfc6962_root": "ctt_rfc6962_root",
     "rs_extend": "ctt_rs_extend",
+    "das_proof_gather": "ctt_das_proof_gather",
 }
 
 _lock = threading.Lock()

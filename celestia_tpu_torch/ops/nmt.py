@@ -22,6 +22,11 @@ On a CPU tensor each runs its plain PyTorch twin in this module.  Each EDS
 cell is hashed once, into a (2k, 2k, 90) grid that row trees read by rows
 and column trees by columns — the bytes the JAX program gets by hashing
 every cell twice.
+
+The level stacks that proofs are served from: :func:`nmt_level_stack` (K1
+leaf digests, then K3 once per level, over any leading batch dimension)
+and :func:`rfc6962_level_stack` (K1 leaf hashes, then K4 writing every
+level into one packed buffer, :func:`rfc6962_tree_levels`).
 """
 
 from __future__ import annotations
@@ -58,17 +63,17 @@ def _byte_column(t: torch.Tensor, value: int) -> torch.Tensor:
     return torch.full(t.shape[:-1] + (1,), value, dtype=torch.uint8, device=t.device)
 
 
-def _leaf_digests_with(hash_fn, leaves: torch.Tensor) -> torch.Tensor:
+def _leaf_digests_with(hash0_fn, leaves: torch.Tensor) -> torch.Tensor:
     ns = leaves[..., :NAMESPACE_SIZE]
-    h = hash_fn(torch.cat([_byte_column(leaves, 0), leaves], dim=-1))
-    return torch.cat([ns, ns, h], dim=-1)
+    return torch.cat([ns, ns, hash0_fn(leaves)], dim=-1)
 
 
 def leaf_digests(leaves: torch.Tensor) -> torch.Tensor:
     """Hash namespaced leaves: uint8[..., L] -> uint8[..., 90].
 
-    ``leaves`` already carry their namespace prefix (ns || data)."""
-    return _leaf_digests_with(sha256, leaves)
+    ``leaves`` already carry their namespace prefix (ns || data).  On the
+    card the hash is K1 with a 0x00 prefix, reading the leaves in place."""
+    return _leaf_digests_with(rfc6962_leaf_hashes, leaves)
 
 
 def combine_level_plain(nodes: torch.Tensor) -> torch.Tensor:
@@ -109,6 +114,35 @@ def combine_level(nodes: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead + (m // 2, NMT_DIGEST_SIZE))
 
 
+def _level_stack(leaves: torch.Tensor, leaf_fn, level_fn) -> list:
+    _check_pow2(leaves.shape[-2])
+    levels = [leaf_fn(leaves)]
+    while levels[-1].shape[-2] > 1:
+        levels.append(level_fn(levels[-1]))
+    return levels
+
+
+def nmt_level_stack_plain(leaves: torch.Tensor) -> list:
+    """Plain twin of :func:`nmt_level_stack` on any device."""
+    return _level_stack(
+        leaves, lambda x: _leaf_digests_with(rfc6962_leaf_hashes_plain, x), combine_level_plain
+    )
+
+
+def nmt_level_stack(leaves: torch.Tensor) -> list:
+    """All levels of the NMT: uint8[..., n, L] namespaced leaves ->
+    ``[leaf digests (..., n, 90), (..., n/2, 90), ..., root (..., 1, 90)]``.
+
+    Counterpart of ``celestia_tpu/ops/nmt.py:326``: what proof generation
+    reads (the sibling at every aligned span).  On the card: one K1 launch
+    for the leaf digests, then one K3 launch per level, each over every
+    tree of the leading dimensions."""
+    if _is_cpu(leaves):
+        return nmt_level_stack_plain(leaves)
+    kernels.check_cuda_tensor(leaves, "leaves")
+    return _level_stack(leaves, leaf_digests, combine_level)
+
+
 def nmt_roots(leaves: torch.Tensor) -> torch.Tensor:
     """Full NMT reduction: uint8[..., n, L] namespaced leaves -> uint8[..., 90].
 
@@ -120,16 +154,32 @@ def nmt_roots(leaves: torch.Tensor) -> torch.Tensor:
     return nodes[..., 0, :]
 
 
+def _prefix_leaves(block: torch.Tensor, row_ids: torch.Tensor, k: int) -> torch.Tensor:
+    """EDS rows uint8[R, 2k, 512] (EDS row indices ``row_ids``) ->
+    uint8[R, 2k, 29+512]: each cell with its prefix."""
+    own_ns = block[..., :NAMESPACE_SIZE]
+    parity = torch.from_numpy(_PARITY_NS.copy()).to(block.device).expand_as(own_ns)
+    c = torch.arange(block.shape[1], device=block.device)
+    in_q0 = (row_ids[:, None] < k) & (c[None, :] < k)
+    prefix = torch.where(in_q0[..., None], own_ns, parity)
+    return torch.cat([prefix, block], dim=-1)
+
+
 def _prefixed_rows(eds: torch.Tensor) -> torch.Tensor:
     """uint8[2k, 2k, 512] -> uint8[2k, 2k, 29+512]: each cell with its prefix."""
     n2 = eds.shape[0]
-    k = n2 // 2
-    own_ns = eds[..., :NAMESPACE_SIZE]
-    parity = torch.from_numpy(_PARITY_NS.copy()).to(eds.device).expand_as(own_ns)
-    r = torch.arange(n2, device=eds.device)
-    in_q0 = (r[:, None] < k) & (r[None, :] < k)
-    prefix = torch.where(in_q0[..., None], own_ns, parity)
-    return torch.cat([prefix, eds], dim=-1)
+    return _prefix_leaves(eds, torch.arange(n2, device=eds.device), n2 // 2)
+
+
+def eds_row_leaves(eds: torch.Tensor, rows) -> torch.Tensor:
+    """The namespace-prefixed leaves of the row trees ``rows`` of an EDS,
+    built on its device from those rows alone: uint8[R, 2k, 29+512]."""
+    n2 = _check_eds(eds)
+    rows = [int(r) for r in rows]
+    if not rows or min(rows) < 0 or max(rows) >= n2:
+        raise ValueError(f"rows must be a non-empty subset of 0..{n2 - 1}, got {rows}")
+    idx = torch.tensor(rows, device=eds.device)
+    return _prefix_leaves(eds.index_select(0, idx), idx, n2 // 2)
 
 
 def eds_prefixed_leaves(eds: torch.Tensor) -> torch.Tensor:
@@ -152,7 +202,7 @@ def _check_eds(eds: torch.Tensor) -> int:
 def eds_leaf_digests_plain(eds: torch.Tensor) -> torch.Tensor:
     """Plain twin of K2 on any device."""
     _check_eds(eds)
-    return _leaf_digests_with(sha256_plain, _prefixed_rows(eds))
+    return _leaf_digests_with(rfc6962_leaf_hashes_plain, _prefixed_rows(eds))
 
 
 def eds_leaf_digests(eds: torch.Tensor) -> torch.Tensor:
@@ -236,23 +286,29 @@ def rfc6962_inner(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return sha256(torch.cat([_byte_column(left, 1), left, right], dim=-1))
 
 
-def rfc6962_tree_plain(hashes: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K4 on any device: uint8[..., n, 32] leaf hashes ->
-    uint8[..., 32] root."""
-    nodes = hashes
-    while nodes.shape[-2] > 1:
+def _tree_levels_plain(hashes: torch.Tensor) -> list:
+    levels = [hashes]
+    while levels[-1].shape[-2] > 1:
+        nodes = levels[-1]
         left, right = nodes[..., 0::2, :], nodes[..., 1::2, :]
-        nodes = sha256_plain(torch.cat([_byte_column(left, 1), left, right], dim=-1))
-    return nodes[..., 0, :]
+        levels.append(sha256_plain(torch.cat([_byte_column(left, 1), left, right], dim=-1)))
+    return levels
 
 
-def rfc6962_tree(hashes: torch.Tensor) -> torch.Tensor:
-    """K4: the RFC-6962 root over a power-of-two count of leaf hashes,
-    uint8[..., n, 32] -> uint8[..., 32]; on the card n <= 1024."""
+def rfc6962_tree_levels_plain(hashes: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K4 on any device."""
+    _check_pow2(hashes.shape[-2])
+    return torch.cat(_tree_levels_plain(hashes), dim=-2)
+
+
+def rfc6962_tree_levels(hashes: torch.Tensor) -> torch.Tensor:
+    """K4: the RFC-6962 tree over a power-of-two count of leaf hashes,
+    uint8[..., n, 32] -> uint8[..., 2n - 1, 32], every level packed (the n
+    leaf hashes first, then n/2, ..., the root last); on the card n <= 1024."""
+    if _is_cpu(hashes):
+        return rfc6962_tree_levels_plain(hashes)
     n = hashes.shape[-2]
     _check_pow2(n)
-    if _is_cpu(hashes):
-        return rfc6962_tree_plain(hashes)
     kernels.check_cuda_tensor(hashes, "hashes")
     if hashes.shape[-1] != 32 or n > RFC6962_MAX_LEAVES:
         raise ValueError(
@@ -260,10 +316,52 @@ def rfc6962_tree(hashes: torch.Tensor) -> torch.Tensor:
         )
     lead = tuple(hashes.shape[:-2])
     batch = int(np.prod(lead))
-    out = torch.empty(lead + (32,), dtype=torch.uint8, device=hashes.device)
+    levels = torch.empty(lead + (2 * n - 1, 32), dtype=torch.uint8, device=hashes.device)
     if batch:
-        kernels.launch("rfc6962_root", hashes.device, hashes.data_ptr(), out.data_ptr(), batch, n)
-    return out
+        kernels.launch("rfc6962_root", hashes.device, hashes.data_ptr(), levels.data_ptr(), batch, n)
+    return levels
+
+
+def rfc6962_tree_plain(hashes: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`rfc6962_tree` on any device."""
+    return rfc6962_tree_levels_plain(hashes)[..., -1, :]
+
+
+def rfc6962_tree(hashes: torch.Tensor) -> torch.Tensor:
+    """The RFC-6962 root over a power-of-two count of leaf hashes,
+    uint8[..., n, 32] -> uint8[..., 32]: the last row of K4's levels."""
+    return rfc6962_tree_levels(hashes)[..., -1, :]
+
+
+def split_tree_levels(packed: torch.Tensor) -> list:
+    """Views of each level of a packed uint8[..., 2n - 1, 32] tree:
+    ``[(..., n, 32), (..., n/2, 32), ..., (..., 1, 32)]``."""
+    n = (packed.shape[-2] + 1) // 2
+    _check_pow2(n)
+    levels, off = [], 0
+    while n >= 1:
+        levels.append(packed[..., off : off + n, :])
+        off += n
+        n //= 2
+    return levels
+
+
+def rfc6962_level_stack_plain(leaves: torch.Tensor) -> list:
+    """Plain twin of :func:`rfc6962_level_stack` on any device."""
+    _check_pow2(leaves.shape[-2])
+    return _tree_levels_plain(rfc6962_leaf_hashes_plain(leaves))
+
+
+def rfc6962_level_stack(leaves: torch.Tensor) -> list:
+    """All levels of the RFC-6962 tree over a power-of-two count of
+    equal-length leaves: ``[leaf hashes (..., n, 32), ..., root (..., 1,
+    32)]`` (``celestia_tpu/ops/nmt.py:287``).  On the card: K1 for the leaf
+    hashes, then one K4 launch that writes every level; the levels are
+    views of its packed output."""
+    _check_pow2(leaves.shape[-2])
+    if _is_cpu(leaves):
+        return rfc6962_level_stack_plain(leaves)
+    return split_tree_levels(rfc6962_tree_levels(rfc6962_leaf_hashes(leaves)))
 
 
 def rfc6962_root_pow2(leaves: torch.Tensor) -> torch.Tensor:

@@ -8,17 +8,29 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit, and the nvcc build of
    ``celestia_tpu_torch/csrc/*.cu``;
 2. every CUDA kernel against its plain PyTorch twin on the card, at the
-   main path's shapes, byte for byte;
+   main path's shapes, byte for byte (K4 with its levels output at 512
+   leaves, K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block);
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
    points on the card;
-4. the main path: seeded BlobTx streams, proposer ``square.build`` ->
-   ``dah.extend_block`` on the card, validator ``square.construct`` ->
-   ``extend_block`` again, 4 blocks at max square size 64 and 4 at 128; the
-   two data roots must agree with each other and with the port's plain
-   path (``device="cpu"``).  Every kernel's launch count is reset just
-   before this phase and read just after; each must be > 0;
-5. the kernels line (JSON: time, bound, plain time, library time, launches)
-   and, last, ``{"ok": true, "device": {...}}``.
+4. the extension path: seeded BlobTx streams, proposer ``square.build`` ->
+   ``dah.extend_block`` on the card (through the device-resident plane),
+   validator ``square.construct`` -> ``extend_block`` again, 4 blocks at
+   max square size 64 and 4 at 128; the two data roots must agree with each
+   other and with the port's plain path (``device="cpu"``);
+4b. the serving path on the same 8 blocks, each extended through the plane
+   on the card: 64 seeded light clients x 16 samples as one
+   ``das.sample_proofs_batch`` of 1,024 cells served by the K7b gather,
+   every proof verified against the data root; namespace data for every
+   blob namespace and a share proof for every blob, equal to the plain
+   path's; the same cells after the card's entry is dropped, served from
+   the EDS on the card (K1 + K3 over the touched rows, K1 + K4 for the root
+   tree, one K7b gather: each launched), and by the host prover from the
+   plain path's EDS, all with equal bytes.  Serving a block on the card
+   must make no host-prover call and no whole-EDS fetch.  Each path's
+   launch counts are reset just before it and read just after; each kernel
+   of the path must be > 0;
+5. the kernels line (JSON: time, bound, plain time, library time, launches
+   summed over both paths) and, last, ``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port; nothing of JAX or of ``celestia_tpu``.
 It exits non-zero without a result when no CUDA device is present or the
@@ -55,6 +67,7 @@ REPLACES = {
     "nmt_combine_level": "celestia_tpu/ops/nmt.py:53",
     "rfc6962_root": "celestia_tpu/ops/nmt.py:272",
     "rs_extend": "celestia_tpu/ops/rs.py:64",
+    "das_proof_gather": "celestia_tpu/da/device_plane.py:286",
 }
 SOURCES = {
     "sha256_batch": "celestia_tpu_torch/csrc/sha256.cu",
@@ -62,7 +75,15 @@ SOURCES = {
     "nmt_combine_level": "celestia_tpu_torch/csrc/nmt.cu",
     "rfc6962_root": "celestia_tpu_torch/csrc/rfc6962.cu",
     "rs_extend": "celestia_tpu_torch/csrc/rs_extend.cu",
+    "das_proof_gather": "celestia_tpu_torch/csrc/das_gather.cu",
 }
+# the kernels each path must launch
+EXTEND_KERNELS = ("sha256_batch", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root",
+                  "rs_extend")
+SERVE_KERNELS = ("das_proof_gather",)
+# a block on the card with no cached entry (da/device_plane.py sample_proofs_from_eds)
+MISS_KERNELS = ("sha256_batch", "nmt_combine_level", "rfc6962_root", "das_proof_gather")
+CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 
 
 def check(cond: bool, what: str) -> None:
@@ -103,11 +124,13 @@ def main() -> int:
         return 2
     from celestia_tpu_torch import kernels
     from celestia_tpu_torch.appconsts import DEFAULT_GOV_MAX_SQUARE_SIZE
-    from celestia_tpu_torch.da import dah, golden
+    from celestia_tpu_torch.da import dah, das, device_plane, eds_cache, golden
+    from celestia_tpu_torch.da import namespace_data, proof
     from celestia_tpu_torch.da import square as square_mod
     from celestia_tpu_torch.da.blob import Blob, BlobTx
     from celestia_tpu_torch.da.namespace import Namespace
-    from celestia_tpu_torch.ops import gf256, nmt, rs
+    from celestia_tpu_torch.da.shares import sparse_shares_needed
+    from celestia_tpu_torch.ops import gather, gf256, nmt, rs
     from celestia_tpu_torch.ops.sha256 import sha256_cuda, sha256_plain
 
     dev = torch.device("cuda:0")
@@ -198,6 +221,45 @@ def main() -> int:
     host_root = nmt.rfc6962_root_np(list(rand_roots.cpu().numpy()))
     check(data_root.cpu().numpy().tobytes() == host_root.tobytes(),
           "rfc6962_root != rfc6962_root_np (hashlib)")
+    root_tree = nmt.rfc6962_tree_levels(leaf_hashes)
+    compare("rfc6962_root", root_tree, nmt.rfc6962_tree_levels_plain(leaf_hashes),
+            "levels output, 512 leaves")
+    for got, want in zip(nmt.rfc6962_level_stack(rand_roots),
+                         nmt.rfc6962_level_stack_plain(rand_roots)):
+        compare("rfc6962_root", got, want, f"rfc6962_level_stack level of {want.shape[0]}")
+    check(root_tree[-1].cpu().numpy().tobytes() == host_root.tobytes(),
+          "rfc6962_root levels output: root != rfc6962_root_np (hashlib)")
+
+    # K7b on a k = 128 block's plane entry, 1,024 cells (edges included)
+    eds_k, grid_k, levels_k, tree_k = device_plane._extend_levels(sq)
+    entry = device_plane.DevicePlaneEntry(k, bytes(32), eds_k, grid_k, levels_k, tree_k)
+    cells = [(0, 0), (0, n2 - 1), (n2 - 1, 0), (n2 - 1, n2 - 1)] + [
+        (int(r), int(c)) for r, c in rng.integers(0, n2, (CLIENTS * SAMPLES - 4, 2))
+    ]
+    g_sources = entry.gather_sources()
+    g_items = device_plane.proof_items(k, cells)
+    g_bytes = len(cells) * device_plane._cell_layout(k)[2]
+    compare("das_proof_gather", gather.das_proof_gather(g_sources, g_items, g_bytes),
+            gather.das_proof_gather_plain(g_sources, g_items, g_bytes), "1,024 cells at k=128")
+    g_items_dev = torch.from_numpy(g_items).to(dev)
+    g_out = torch.empty(g_bytes, dtype=torch.uint8, device=dev)
+    # library yardstick: one torch.index_select per source, each gathering its
+    # items as rows of a 2D view of the source
+    lib_select = []
+    for i, src in enumerate(g_sources):
+        mine = g_items[g_items[:, 0] == i].astype(np.int64)
+        if not len(mine):
+            continue
+        rows = src.tensor.reshape(-1)[src.offset:].view(-1, src.width) if src.row_stride == 0 \
+            else src.tensor.view(-1, src.width)
+        per_row = src.row_stride // src.width
+        lib_select.append((rows, upload(mine[:, 1] * per_row + mine[:, 2])))
+
+    def library_gather():
+        return [torch.index_select(rows, 0, idx) for rows, idx in lib_select]
+
+    lib_out = torch.cat([t.reshape(-1) for t in library_gather()])
+    check(lib_out.numel() == g_bytes, "index_select yardstick gathers another byte count")
 
     for codec in gf256.CODECS:
         for kk in (1, 2, 4, 8, 16, 32, 64, 128):
@@ -246,10 +308,10 @@ def main() -> int:
                   parents * compressions(181) * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
         ),
         "rfc6962_root": (
-            lambda: nmt.rfc6962_tree(leaf_hashes),
-            lambda: nmt.rfc6962_tree_plain(leaf_hashes),
+            lambda: nmt.rfc6962_tree_levels(leaf_hashes),
+            lambda: nmt.rfc6962_tree_levels_plain(leaf_hashes),
             None,
-            bound(4 * k * 32 + 32,
+            bound(4 * k * 32 + (8 * k - 1) * 32,
                   (4 * k - 1) * compressions(65) * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
         ),
         "rs_extend": (
@@ -258,6 +320,13 @@ def main() -> int:
             # the GEMM part only: G int8[8k, 8k] @ bits int8[8k, 3k*512]
             lambda: torch._int_mm(G, bits),
             bound(k * k * 512 + n2 * n2 * 512, leopard_extend_ops(k), INT32_OPS_PER_S),
+        ),
+        "das_proof_gather": (
+            lambda: gather.launch_gather(g_sources, g_items_dev, g_out),
+            lambda: gather.das_proof_gather_plain(g_sources, g_items, g_bytes),
+            library_gather,
+            # each gathered byte read once and written once, and the index table
+            bound(2 * g_bytes + g_items.nbytes, 0, INT32_OPS_PER_S),
         ),
     }
     for name, (fast, plain, lib, (b_ms, b_by)) in timings.items():
@@ -272,7 +341,24 @@ def main() -> int:
         print(f"{name}: {perf[name]['ms']:.4f} ms, plain {perf[name]['plain_ms']:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
-    del bits, q0_bits, G
+    # K1 + K3 over the rows of a proof (da/proof.py row_range_proofs): a
+    # namespace or blob spanning 5 rows of a k = 128 block
+    row_leaves = nmt.eds_row_leaves(eds, range(5))
+    for got, want in zip(nmt.nmt_level_stack(row_leaves), nmt.nmt_level_stack_plain(row_leaves)):
+        compare("nmt_combine_level", got, want, f"5-row level stack, level of {want.shape[-2]}")
+    rows_ms = time_ms(lambda: nmt.nmt_level_stack(row_leaves))
+    rows_plain_ms = time_ms(lambda: nmt.nmt_level_stack_plain(row_leaves), reps=3)
+    rows_bound, rows_by = bound(
+        row_leaves.numel() + 5 * (2 * n2 - 1) * 90,
+        5 * (n2 * compressions(542) + (n2 - 1) * compressions(181)) * SHA_OPS_PER_COMPRESSION,
+        INT32_OPS_PER_S,
+    )
+    print(f"nmt_level_stack, 5 rows at k=128 (K1 + {n2.bit_length() - 1} x K3): {rows_ms:.4f} ms, "
+          f"plain {rows_plain_ms:.3f} ms, bound {rows_bound:.4f} ms ({rows_by}), library none "
+          f"| {smi}")
+    results["row_level_stack_5_rows"] = {"ms": rows_ms, "plain_ms": rows_plain_ms,
+                                         "bound_ms": rows_bound, "bound_by": rows_by}
+    del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out, row_leaves
 
     # --- 3. Go-pinned goldens through the port's entry points on the card ---
     check(dah.min_data_availability_header().hash == golden.MIN_DAH_HASH, "MIN_DAH_HASH")
@@ -285,7 +371,7 @@ def main() -> int:
     check(dah128.hash == golden.DAH_128_HASH, "DAH_128_HASH via extend_and_header")
     print("goldens: MIN_DAH_HASH, DAH_2X2_HASH, DAH_128_HASH reproduced on the card")
 
-    # --- 4. main path --------------------------------------------------------
+    # --- 4. main path: extension -------------------------------------------
     def tx_stream(capacity_bytes: int):
         txs, total = [], 0
         while total < 1.25 * capacity_bytes:
@@ -312,12 +398,13 @@ def main() -> int:
         main_out.append((max_size, sq_p, block_txs, txs_v, eds_p, dah_p, dah_v))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
-    launches = kernels.launch_counts()
-    print(f"main path: {len(blocks)} blocks (proposer + validator) in {main_s:.2f} s; "
-          f"launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    extend_launches = kernels.launch_counts()
+    print(f"extension path: {len(blocks)} blocks (proposer + validator) in {main_s:.2f} s; "
+          f"launches {extend_launches}")
+    for name in EXTEND_KERNELS:
+        check(extend_launches[name] > 0, f"kernel {name} was not launched on the extension path")
 
+    plain_out = []
     for max_size, sq_p, block_txs, txs_v, eds_p, dah_p, dah_v in main_out:
         kk = sq_p.size
         check(kk == max_size, f"square filled to {kk}, expected {max_size}")
@@ -328,8 +415,9 @@ def main() -> int:
         check(shares.shape == (2 * kk, 2 * kk, 512), f"EDS shape {shares.shape}")
         check(np.array_equal(shares[:kk, :kk].reshape(kk * kk, 512), sq_p.to_array()),
               "EDS Q0 is not the square")
-        _, dah_plain = dah.extend_block(sq_p, device="cpu")
+        eds_plain, dah_plain = dah.extend_block(sq_p, device="cpu")
         check(dah_plain.hash == dah_p.hash, f"card and plain data roots differ at k={kk}")
+        plain_out.append((eds_plain, dah_plain))
         print(f"block k={kk} txs={len(block_txs)} data_root={dah_p.hash.hex()} "
               "proposer == validator == plain")
     results["data_roots"] = [o[5].hash.hex() for o in main_out]
@@ -351,9 +439,9 @@ def main() -> int:
             ev[0].record()
             sq_dev = dah._square_tensor(arr, dev)
             ev[1].record()
-            _, roots_dev, root_dev = dah.extend_and_roots(sq_dev)
+            _, _, levels_dev, tree_dev = device_plane._extend_levels(sq_dev)
             ev[2].record()
-            torch.cat([roots_dev.reshape(-1), root_dev]).cpu()
+            torch.cat([levels_dev[-1].reshape(-1), tree_dev[-1]]).cpu()
             ev[3].record()
             ev[3].synchronize()
             phases.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
@@ -368,6 +456,138 @@ def main() -> int:
               + f" | {smi}")
     results["extend_and_header_median_ms"] = medians
     results["extend_and_header_phases_ms"] = breakdown
+
+    # --- 4b. main path: serving ---------------------------------------------
+    def blob_ranges(sq_obj):
+        """(namespace, start, end) of every blob's shares in a square
+        (namespace padding shares start a sequence of length 0: skipped)."""
+        out, i = [], 0
+        while i < len(sq_obj.shares):
+            sh = sq_obj.shares[i]
+            if sh.namespace.is_reserved() or not sh.is_sequence_start or not sh.sequence_len():
+                i += 1
+                continue
+            n = sparse_shares_needed(sh.sequence_len())
+            out.append((sh.namespace.raw, i, i + n))
+            i += n
+        return out
+
+    kernels.reset_launch_counts()
+    t_serve = time.perf_counter()
+    serve_ms, split_inputs = {}, []
+    n_ns = n_share_proofs = 0
+    for b, ((max_size, sq_p, *_), (eds_plain, dah_plain)) in enumerate(zip(main_out, plain_out)):
+        kk = sq_p.size
+        eds_g, dah_g = dah.extend_block(sq_p)
+        check(dah_g.hash == dah_plain.hash, "plane data root differs from the plain path's")
+        entry = eds_cache.get_device_entry(dah_g.hash, dev)
+        check(entry is not None and entry.eds.is_cuda, "the block's plane entry is not on the card")
+        seeds = [args.seed * 100_000 + b * 1000 + i for i in range(CLIENTS)]
+        coords = [c for sd in seeds
+                  for c in das.LightClient(dah_g.hash, kk, seed=sd).pick_coordinates(SAMPLES)]
+        das.reset_host_prover_calls()
+        dah.reset_full_eds_fetches()
+        t0 = time.perf_counter()
+        warm = das.sample_proofs_batch(eds_g, dah_g, coords)
+        warm_s = time.perf_counter() - t0
+        for i, sd in enumerate(seeds):
+            mine = warm[i * SAMPLES : (i + 1) * SAMPLES]
+            res = das.LightClient(dah_g.hash, kk, seed=sd).sample(
+                fetch_batch=lambda cs, mine=mine: mine, n_samples=SAMPLES)
+            check(res.available and res.verified == SAMPLES,
+                  f"light client {sd}: {res.verified}/{SAMPLES} verified, {res.failed[:2]}")
+        ranges = blob_ranges(sq_p)
+        for ns in sorted({r[0] for r in ranges}):
+            got = namespace_data.get_shares_by_namespace(eds_g, dah_g, ns)
+            check(got.verify(dah_g), "namespace data does not verify")
+            want = namespace_data.get_shares_by_namespace(eds_plain, dah_plain, ns)
+            check(got.to_dict() == want.to_dict(), "namespace data differs from the plain path")
+            n_ns += 1
+        for _, start, end in ranges:
+            got = proof.new_share_inclusion_proof(eds_g, dah_g, start, end)
+            check(got.verify(dah_g.hash), "share proof does not verify")
+            want = proof.new_share_inclusion_proof(eds_plain, dah_plain, start, end)
+            check(got.to_dict() == want.to_dict(), "share proof differs from the plain path")
+            n_share_proofs += 1
+        check(das.host_prover_calls() == 0, "the host prover served a warm block")
+        check(dah.full_eds_fetches() == 0, "serving a warm block fetched the whole EDS")
+        # the same cells once the card's entry is gone: served from the EDS
+        # on the card, same bytes
+        check(eds_cache.drop_device_entry(dah_g.hash, dev), "the plane entry was not cached")
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        cold = das.sample_proofs_batch(eds_g, dah_g, coords)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        for name in MISS_KERNELS:
+            check(after[name] > before[name], f"kernel {name} was not launched on a miss on the card")
+        check(das.host_prover_calls() == 0, "the host prover served a block on the card")
+        check([p.to_dict() for p in cold] == [p.to_dict() for p in warm],
+              "proofs of a miss on the card differ from the gather's")
+        check(dah.full_eds_fetches() == 0, "a miss on the card fetched the whole EDS")
+        # and by the host prover, from the plain path's EDS with no entry
+        eds_cache.drop_device_entry(dah_plain.hash, "cpu")
+        t0 = time.perf_counter()
+        host = das.sample_proofs_batch(eds_plain, dah_plain, coords)
+        host_s = time.perf_counter() - t0
+        check(das.host_prover_calls() == 1, "the host prover did not serve the plain path's EDS")
+        check([p.to_dict() for p in host] == [p.to_dict() for p in warm],
+              "host prover and gather proofs differ")
+        serve_ms.setdefault(kk, []).append((warm_s * 1e3, cold_s * 1e3, host_s * 1e3))
+        if kk == 128:
+            split_inputs.append((entry, dah_g, coords, warm))
+        print(f"serve block k={kk}: {len(coords)} cells from the gather in {warm_s * 1e3:.2f} ms, "
+              f"from the EDS on the card (no entry) {cold_s * 1e3:.2f} ms, host prover "
+              f"{host_s * 1e3:.2f} ms; {len(ranges)} blobs in "
+              f"{len({r[0] for r in ranges})} namespaces proven and equal to the plain path")
+    torch.cuda.synchronize()
+    serve_launches = kernels.launch_counts()
+    print(f"serving path: {len(main_out)} blocks in {time.perf_counter() - t_serve:.2f} s; "
+          f"{n_ns} namespaces, {n_share_proofs} share proofs; launches {serve_launches}")
+    for name in SERVE_KERNELS:
+        check(serve_launches[name] > 0, f"kernel {name} was not launched on the serving path")
+    # the warm k = 128 calls again, phase by phase (outside the counted run)
+    split_ms = []
+    for entry, dah_g, coords, warm in split_inputs:
+        ph = [time.perf_counter()]
+        sources = entry.gather_sources()
+        items = device_plane.proof_items(entry.k, coords)
+        nbytes = len(coords) * device_plane._cell_layout(entry.k)[2]
+        gather.check_items(sources, items, nbytes)
+        ph.append(time.perf_counter())
+        items_dev = torch.from_numpy(items).to(dev)
+        out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        torch.cuda.synchronize()
+        ph.append(time.perf_counter())
+        gather.launch_gather(sources, items_dev, out)
+        torch.cuda.synchronize()
+        ph.append(time.perf_counter())
+        host = out.cpu().numpy()
+        ph.append(time.perf_counter())
+        again = device_plane.assemble_proofs(entry.k, dah_g, coords, host)
+        ph.append(time.perf_counter())
+        check(again == warm, "phase-by-phase gather differs")
+        split_ms.append([(ph[i + 1] - ph[i]) * 1e3 for i in range(5)])
+    del split_inputs
+    serve_medians = {
+        kk: {"gather_ms": statistics.median(w for w, _, _ in v),
+             "card_miss_ms": statistics.median(c for _, c, _ in v),
+             "host_prover_ms": statistics.median(h for _, _, h in v)}
+        for kk, v in serve_ms.items()
+    }
+    split = dict(zip(("index_build_ms", "upload_ms", "gather_ms", "fetch_ms", "assembly_ms"),
+                     (statistics.median(s[i] for s in split_ms) for i in range(5))))
+    for kk, m in serve_medians.items():
+        print(f"sample_proofs_batch k={kk}, {CLIENTS * SAMPLES} cells: median "
+              f"{m['gather_ms']:.3f} ms warm (gather), {m['card_miss_ms']:.3f} ms from the EDS on "
+              f"the card (no entry), {m['host_prover_ms']:.3f} ms host prover "
+              f"| {smi}")
+    print(f"sample_proofs_batch k=128 phases (median of {len(split_ms)}): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in split.items()) + f" | {smi}")
+    results["sample_proofs_batch_ms"] = serve_medians
+    results["sample_proofs_batch_phases_ms"] = split
+    launches = {name: extend_launches[name] + serve_launches[name] for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------
     line = {"kernels": [

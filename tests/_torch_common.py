@@ -1,6 +1,8 @@
 """Fixtures shared by the tests/test_torch_*.py files (import them by name
 into a test module; pytest picks fixtures up from the module namespace)."""
 
+from contextlib import contextmanager
+
 import pytest
 import torch
 
@@ -8,16 +10,24 @@ from celestia_tpu.ops import gf256 as jgf256
 from celestia_tpu_torch.ops import gf256
 
 
-@pytest.fixture
-def codec_pair(request):
+@contextmanager
+def pinned_codec(codec: str):
     """Pin both packages to one codec; restore both afterwards."""
-    codec = request.param
     saved = (jgf256.active_codec(), gf256.active_codec())
     jgf256.set_active_codec(codec, force=True)
     gf256.set_active_codec(codec, force=True)
-    yield codec
-    jgf256.set_active_codec(saved[0], force=True)
-    gf256.set_active_codec(saved[1], force=True)
+    try:
+        yield codec
+    finally:
+        jgf256.set_active_codec(saved[0], force=True)
+        gf256.set_active_codec(saved[1], force=True)
+
+
+@pytest.fixture
+def codec_pair(request):
+    """Pin both packages to one codec; restore both afterwards."""
+    with pinned_codec(request.param) as codec:
+        yield codec
 
 
 @pytest.fixture(autouse=True, scope="module")

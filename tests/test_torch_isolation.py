@@ -51,12 +51,30 @@ def test_main_path_runs_with_jax_and_celestia_tpu_unimportable():
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['celestia_tpu'] = None\n"
         "from celestia_tpu_torch.da import dah, golden, square\n"
-        "from celestia_tpu_torch.ops import gf256, nmt, rs, sha256\n"
+        "from celestia_tpu_torch.da import das, device_plane, eds_cache, namespace_data, proof\n"
+        "from celestia_tpu_torch.ops import gather, gf256, nmt, rs, sha256\n"
+        "from celestia_tpu_torch.utils import lru\n"
         "from celestia_tpu_torch import kernels\n"
         "sq, txs, _ = square.build([b'\\x05' * 700, b'\\x06' * 900])\n"
         "eds, hdr = dah.extend_block(sq, device='cpu')\n"
         "hdr.validate_basic()\n"
         "assert dah.min_data_availability_header(device='cpu').hash == golden.MIN_DAH_HASH\n"
+        "# a k = 2 serving round trip: DAS from the plane, then from the host\n"
+        "rng = __import__('numpy').random.default_rng(3)\n"
+        "sq2 = rng.integers(0, 256, (2, 2, 512), dtype='uint8')\n"
+        "sq2[..., :29] = 0\n"
+        "eds2, hdr2 = dah.extend_and_header(sq2, device='cpu')\n"
+        "cells = [(r, c) for r in range(4) for c in range(4)]\n"
+        "warm = das.sample_proofs_batch(eds2, hdr2, cells)\n"
+        "assert das.host_prover_calls() == 0 and all(p.verify(hdr2.hash) for p in warm)\n"
+        "assert eds_cache.drop_device_entry(hdr2.hash)\n"
+        "assert das.sample_proofs_batch(eds2, hdr2, cells) == warm\n"
+        "assert das.host_prover_calls() == 1\n"
+        "assert device_plane.sample_proofs_from_eds(eds2.tensor, hdr2, cells) == warm\n"
+        "assert proof.new_share_inclusion_proof(eds2, hdr2, 0, 3).verify(hdr2.hash)\n"
+        "nd = namespace_data.get_shares_by_namespace(eds2, hdr2, bytes(sq2[0, 0, :29]))\n"
+        "assert nd.verify(hdr2) and nd.rows\n"
+        "assert 'eds_device' in lru.registry_stats()['caches']\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
         "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
         "               if v is not None)\n"
