@@ -1,5 +1,6 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
-// nmt.cuh, rs_extend.cuh, das_gather.cuh), compiled by g++ and looped over the thread
+// nmt.cuh, rs_extend.cuh, rs_decode.cuh, das_gather.cuh), compiled by g++ and
+// looped over the thread
 // indices on the host.  It lets the tests hold the kernels' arithmetic
 // against the JAX package on a machine without a card; it is never on the
 // port's path.  Build: g++ -O2 -std=c++17 -shared -fPIC cpu_twin.cpp.
@@ -9,6 +10,7 @@
 
 #include "das_gather.cuh"
 #include "nmt.cuh"
+#include "rs_decode.cuh"
 #include "rs_extend.cuh"
 
 extern "C" {
@@ -23,16 +25,27 @@ void twin_sha256_batch(const uint8_t* msgs, uint8_t* out, long long n, int L, in
   }
 }
 
-void twin_nmt_leaf_digests(const uint8_t* eds, uint8_t* out, int n2) {
-  for (uint32_t cell = 0; cell < uint32_t(n2) * uint32_t(n2); ++cell)
+void twin_nmt_leaf_digests_batched(const uint8_t* eds, uint8_t* out, int n2, int batch) {
+  for (uint32_t cell = 0; cell < uint32_t(batch) * uint32_t(n2) * uint32_t(n2); ++cell)
     ctt::nmt_leaf_body(eds, out, uint32_t(n2), cell);
+}
+
+void twin_nmt_leaf_digests(const uint8_t* eds, uint8_t* out, int n2) {
+  twin_nmt_leaf_digests_batched(eds, out, n2, 1);
+}
+
+void twin_nmt_combine_level_batched(const uint8_t* in, uint8_t* out, long long ntrees, int m_out,
+                                    long long split, long long ts0, long long ns0, long long ts1,
+                                    long long ns1, long long tpb, long long bs) {
+  for (uint64_t idx = 0; idx < uint64_t(ntrees) * uint64_t(m_out); ++idx)
+    ctt::nmt_combine_body(in, out, uint32_t(m_out), uint32_t(split), ts0, ns0, ts1, ns1, tpb, bs,
+                          idx);
 }
 
 void twin_nmt_combine_level(const uint8_t* in, uint8_t* out, long long ntrees, int m_out,
                             long long split, long long ts0, long long ns0, long long ts1,
                             long long ns1) {
-  for (uint64_t idx = 0; idx < uint64_t(ntrees) * uint64_t(m_out); ++idx)
-    ctt::nmt_combine_body(in, out, uint32_t(m_out), uint32_t(split), ts0, ns0, ts1, ns1, idx);
+  twin_nmt_combine_level_batched(in, out, ntrees, m_out, split, ts0, ns0, ts1, ns1, ntrees, 0);
 }
 
 // levels: uint8[batch, 2n - 1, 32] (leaf hashes first, root last), as
@@ -92,16 +105,83 @@ static void twin_axes(const uint8_t* in, uint8_t* out, const uint8_t* E, const u
   }
 }
 
+// squares uint8[n, k, k, 512] -> eds uint8[n, 2k, 2k, 512] in the order of
+// ctt_rs_extend_batched's launches: every square's Q0 copy, then Q1 and Q2
+// of each square (blockIdx.z = 2b + set), then Q3 of each.
+void twin_rs_extend_batched(const uint8_t* squares, uint8_t* eds, const uint8_t* E,
+                            const uint8_t* gexp, const uint8_t* glog, int k, int n) {
+  const uint64_t S = 512, K = uint64_t(k), sq_bytes = K * K * S, eds_bytes = 4 * K * K * S;
+  for (int b = 0; b < n; ++b)
+    for (uint64_t r = 0; r < K; ++r)
+      memcpy(eds + b * eds_bytes + r * 2 * K * S, squares + b * sq_bytes + r * K * S, K * S);
+  for (int b = 0; b < n; ++b) {
+    const uint8_t* q0 = squares + b * sq_bytes;
+    uint8_t* out = eds + b * eds_bytes;
+    twin_axes(q0, out + K * S, E, gexp, glog, k, K * S, S, 2 * K * S, S);
+    twin_axes(q0, out + K * 2 * K * S, E, gexp, glog, k, S, K * S, S, 2 * K * S);
+  }
+  for (int b = 0; b < n; ++b) {
+    uint8_t* q1 = eds + b * eds_bytes + K * S;
+    twin_axes(q1, q1 + 2 * K * K * S, E, gexp, glog, k, S, 2 * K * S, S, 2 * K * S);  // -> Q3
+  }
+}
+
 void twin_rs_extend(const uint8_t* square, uint8_t* eds, const uint8_t* E, const uint8_t* gexp,
                     const uint8_t* glog, int k) {
-  const uint64_t S = 512, K = uint64_t(k);
-  for (uint64_t r = 0; r < K; ++r) memcpy(eds + r * 2 * K * S, square + r * K * S, K * S);
-  uint8_t* q1 = eds + K * S;
-  uint8_t* q2 = eds + K * 2 * K * S;
-  uint8_t* q3 = q2 + K * S;
-  twin_axes(square, q1, E, gexp, glog, k, K * S, S, 2 * K * S, S);
-  twin_axes(square, q2, E, gexp, glog, k, S, K * S, S, 2 * K * S);
-  twin_axes(q1, q3, E, gexp, glog, k, S, 2 * K * S, S, 2 * K * S);
+  twin_rs_extend_batched(square, eds, E, gexp, glog, k, 1);
+}
+
+// K8a: one "block" per axis, as ctt_rs_decode_matrices launches them.
+void twin_rs_decode_matrices(const uint8_t* known, uint8_t* D, const uint8_t* gexp,
+                             const uint8_t* glog, int n, int k, int xor_const) {
+  std::vector<uint8_t> src(static_cast<size_t>(k));
+  std::vector<uint16_t> denom(static_cast<size_t>(k));
+  for (int a = 0; a < n; ++a) {
+    for (int j = 0; j < k; ++j) src[j] = uint8_t(known[size_t(a) * k + j] ^ xor_const);
+    for (int j = 0; j < k; ++j) denom[j] = uint16_t(ctt::rs_denom_log(src.data(), k, j, glog));
+    for (int i = 0; i < 2 * k; ++i)
+      ctt::rs_decode_row(src.data(), denom.data(), k, uint32_t(i ^ xor_const), gexp, glog,
+                         D + (size_t(a) * 2 * k + i) * k);
+  }
+}
+
+// K8b: the blocks of ctt_rs_decode_axes one after another.
+void twin_rs_decode_axes(uint8_t* eds, const uint8_t* D, const uint8_t* known,
+                         const int32_t* axes, const uint8_t* gexp, const uint8_t* glog, int n,
+                         int k, int cols) {
+  const uint64_t S = 512, n2 = 2 * uint64_t(k);
+  const uint64_t as = cols ? S : n2 * S, ps = cols ? n2 * S : S;
+  std::vector<uint8_t> exp_t(ctt::kExpEntries), opos(static_cast<size_t>(k));
+  std::vector<uint16_t> log_t(256), logD(ctt::kRsOutPerBlock * size_t(k));
+  for (uint32_t i = 0; i < ctt::kExpEntries; ++i) exp_t[i] = ctt::rs_exp_entry(gexp, i);
+  for (uint32_t v = 0; v < 256; ++v) log_t[v] = ctt::rs_log_entry(glog, v);
+  for (int a = 0; a < n; ++a) {
+    const uint8_t* kpos = known + size_t(a) * k;
+    const uint8_t* Da = D + size_t(a) * 2 * k * k;
+    ctt::rs_unknown_positions(kpos, k, opos.data());
+    if (!ctt::rs_axis_in_bounds(kpos, k, axes[a])) continue;
+    for (uint32_t i0 = 0; i0 < uint32_t(k); i0 += ctt::kRsOutPerBlock) {
+      const uint32_t nout = k - i0 < ctt::kRsOutPerBlock ? k - i0 : ctt::kRsOutPerBlock;
+      for (uint32_t idx = 0; idx < nout * k; ++idx)
+        logD[idx] = ctt::rs_log_entry(glog, Da[opos[i0 + idx / k] * k + idx % k]);
+      for (uint32_t t = 0; t < 128; ++t)
+        ctt::rs_decode_body(eds, logD.data(), kpos, opos.data() + i0, nout, k, as, ps,
+                            uint32_t(axes[a]), t, exp_t.data(), log_t.data());
+    }
+  }
+}
+
+// K8c: the warp vote as an OR over the 32 lanes of each cell.
+void twin_rs_repair_verdicts(const uint8_t* repaired, const uint8_t* recomputed,
+                             const uint8_t* provided, const uint8_t* avail, uint8_t* mismatch,
+                             uint8_t* provided_mismatch, int cells) {
+  for (int c = 0; c < cells; ++c) {
+    uint32_t bits = 0;
+    for (uint32_t lane = 0; lane < ctt::kVerdictLanes; ++lane)
+      bits |= ctt::rs_verdict_lane(repaired, recomputed, provided, uint64_t(c), lane);
+    mismatch[c] = (bits & 1u) ? 1 : 0;
+    provided_mismatch[c] = (avail[c] && (bits & 2u)) ? 1 : 0;
+  }
 }
 
 }  // extern "C"

@@ -53,12 +53,13 @@ struct PairSrc {
   }
 };
 
-// K2: the leaf digest of EDS cell `cell` (row-major over n2 x n2) into
-// out[cell] of a (n2, n2, 90) grid.  Each cell is hashed once: row tree r
-// reads grid row r, column tree c reads grid column c -- the same bytes
-// the JAX program hashes twice (ops/nmt.py:100).
+// K2: the leaf digest of EDS cell `cell` (row-major over n2 x n2, and over
+// a batch of squares before that) into out[cell] of a (..., n2, n2, 90)
+// grid.  Each cell is hashed once: row tree r reads grid row r, column tree
+// c reads grid column c -- the same bytes the JAX program hashes twice
+// (ops/nmt.py:100).
 CTT_HD void nmt_leaf_body(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_t cell) {
-  const uint32_t r = cell / n2, c = cell % n2, k = n2 / 2;
+  const uint32_t r = (cell / n2) % n2, c = cell % n2, k = n2 / 2;
   const bool q0 = r < k && c < k;
   const uint8_t* share = eds + static_cast<uint64_t>(cell) * kShare;
   uint32_t st[8];
@@ -72,16 +73,19 @@ CTT_HD void nmt_leaf_body(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_
   store_digest(st, o + 2 * kNs);
 }
 
-// K3: parent `idx` of one level.  Output is contiguous (ntrees, m_out, 90);
-// input tree t's node i lies at t*ts + i*ns with (ts, ns) = (ts0, ns0) for
-// t < split and ((t - split)*ts1, ns1) beyond, so the first level can read
-// the leaf grid by rows (trees 0..2k) and by columns (trees 2k..4k).
+// K3: parent `idx` of one level.  Output is contiguous (ntrees, m_out, 90).
+// Trees come in groups of `tpb` whose inputs lie `bs` bytes apart; tree u
+// of a group has node i at u*ts + i*ns with (ts, ns) = (ts0, ns0) for
+// u < split and ((u - split)*ts1, ns1) beyond, so the first level can read
+// a leaf grid by rows (trees 0..2k) and by columns (trees 2k..4k), for one
+// grid (tpb = ntrees) or a batch of grids (tpb = 4k).
 CTT_HD void nmt_combine_body(const uint8_t* in, uint8_t* out, uint32_t m_out, uint32_t split,
                              uint64_t ts0, uint64_t ns0, uint64_t ts1, uint64_t ns1,
-                             uint64_t idx) {
+                             uint64_t tpb, uint64_t bs, uint64_t idx) {
   const uint64_t t = idx / m_out, j = idx % m_out;
-  const uint64_t base = t < split ? t * ts0 : (t - split) * ts1;
-  const uint64_t ns = t < split ? ns0 : ns1;
+  const uint64_t g = t / tpb, u = t % tpb;
+  const uint64_t base = g * bs + (u < split ? u * ts0 : (u - split) * ts1);
+  const uint64_t ns = u < split ? ns0 : ns1;
   const uint8_t* l = in + base + 2 * j * ns;
   const uint8_t* r = l + ns;
   uint32_t st[8];

@@ -18,6 +18,12 @@
 // bytes, feed 8 accumulators.
 // Launch 1 computes Q1 and Q2 (blockIdx.z picks the stride set), launch 2
 // Q3 from Q1; Q0 is one 2D device copy.  All on the caller's stream.
+//
+// K5b `rs_extend_batched` (ctt_rs_extend_batched) replaces
+// celestia_tpu/ops/rs.py:102 `_extend_batched_fn` (jax.vmap of `_extend`)
+// under :107 `extend_squares_batched`: the same two launches over a batch
+// of n squares, blockIdx.z = square * (stride sets) + set, and one 2D copy
+// of Q0 per square.
 #include <cuda_runtime.h>
 
 #include "rs_extend.cuh"
@@ -36,13 +42,16 @@ struct AxisSet {
   uint64_t as, ps, oas, ops;
 };
 
+// blockIdx.z = b * nsets + set: stride set `set` of square b, whose input
+// and output lie ibs and obs bytes after square 0's.
 __global__ void rs_encode_axes_kernel(AxisSet s0, AxisSet s1, const uint8_t* E,
                                       const uint8_t* gexp_g, const uint8_t* glog_g,
-                                      uint32_t k) {
+                                      uint32_t k, uint32_t nsets, uint64_t ibs, uint64_t obs) {
   __shared__ uint8_t exp_t[ctt::kExpEntries];
   __shared__ uint16_t log_t[256];
   __shared__ uint16_t logE[ctt::kRsOutPerBlock * kMaxK];
-  const AxisSet s = blockIdx.z ? s1 : s0;
+  const AxisSet s = blockIdx.z % nsets ? s1 : s0;
+  const uint64_t b = blockIdx.z / nsets;
   const uint32_t tid = threadIdx.x;
   for (uint32_t i = tid; i < ctt::kExpEntries; i += blockDim.x)
     exp_t[i] = ctt::rs_exp_entry(gexp_g, i);
@@ -52,39 +61,50 @@ __global__ void rs_encode_axes_kernel(AxisSet s0, AxisSet s1, const uint8_t* E,
   for (uint32_t idx = tid; idx < nout * k; idx += blockDim.x)
     logE[idx] = ctt::rs_log_entry(glog_g, E[(i0 + idx / k) * k + idx % k]);
   __syncthreads();
-  ctt::rs_axis_body(s.in, s.out, logE, nout, k, s.as, s.ps, s.oas, s.ops, blockIdx.y, i0, tid,
-                    exp_t, log_t);
+  ctt::rs_axis_body(s.in + b * ibs, s.out + b * obs, logE, nout, k, s.as, s.ps, s.oas, s.ops,
+                    blockIdx.y, i0, tid, exp_t, log_t);
 }
 
 }  // namespace
 
-// square uint8[k, k, 512] -> eds uint8[2k, 2k, 512]; E uint8[k, k] is
-// gf256.encode_matrix(k, codec), gexp uint8[512] / glog uint8[256] the
-// codec's field tables.
-extern "C" int ctt_rs_extend(const void* square, void* eds, const void* E, const void* gexp,
-                             const void* glog, int k, void* stream) {
+// squares uint8[n, k, k, 512] -> eds uint8[n, 2k, 2k, 512] in two launches
+// for the batch; E uint8[k, k] is gf256.encode_matrix(k, codec), gexp
+// uint8[512] / glog uint8[256] the codec's field tables.
+extern "C" int ctt_rs_extend_batched(const void* squares, void* eds, const void* E,
+                                     const void* gexp, const void* glog, int k, int n,
+                                     void* stream) {
+  if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint64_t S = kShareBytes, K = static_cast<uint64_t>(k);
-  const uint8_t* q0 = static_cast<const uint8_t*>(square);
+  const uint64_t sq_bytes = K * K * S, eds_bytes = 4 * K * K * S;
+  const uint8_t* q0 = static_cast<const uint8_t*>(squares);
   uint8_t* out = static_cast<uint8_t*>(eds);
-  uint8_t* q1 = out + K * S;              // row 0, column k
-  uint8_t* q2 = out + K * 2 * K * S;      // row k, column 0
-  uint8_t* q3 = q2 + K * S;               // row k, column k
-  cudaError_t err = cudaMemcpy2DAsync(out, 2 * K * S, q0, K * S, K * S, K,
-                                      cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int b = 0; b < n; ++b) {
+    const cudaError_t err = cudaMemcpy2DAsync(out + b * eds_bytes, 2 * K * S, q0 + b * sq_bytes,
+                                              K * S, K * S, K, cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  uint8_t* q1 = out + K * S;
+  uint8_t* q2 = out + K * 2 * K * S;
+  uint8_t* q3 = q2 + K * S;
   const uint8_t* e = static_cast<const uint8_t*>(E);
   const uint8_t* ge = static_cast<const uint8_t*>(gexp);
   const uint8_t* gl = static_cast<const uint8_t*>(glog);
   const unsigned chunks = (k + ctt::kRsOutPerBlock - 1) / ctt::kRsOutPerBlock;
-  // rows of Q0 -> Q1; columns of Q0 -> Q2
   const AxisSet rows{q0, q1, K * S, S, 2 * K * S, S};
   const AxisSet cols{q0, q2, S, K * S, S, 2 * K * S};
-  rs_encode_axes_kernel<<<dim3(chunks, k, 2), kThreads, 0, st>>>(rows, cols, e, ge, gl, k);
-  err = cudaGetLastError();
+  rs_encode_axes_kernel<<<dim3(chunks, k, 2 * n), kThreads, 0, st>>>(rows, cols, e, ge, gl, k, 2,
+                                                                     sq_bytes, eds_bytes);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // columns of Q1 -> Q3
   const AxisSet q1cols{q1, q3, S, 2 * K * S, S, 2 * K * S};
-  rs_encode_axes_kernel<<<dim3(chunks, k, 1), kThreads, 0, st>>>(q1cols, q1cols, e, ge, gl, k);
+  rs_encode_axes_kernel<<<dim3(chunks, k, n), kThreads, 0, st>>>(q1cols, q1cols, e, ge, gl, k, 1,
+                                                                 eds_bytes, eds_bytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// square uint8[k, k, 512] -> eds uint8[2k, 2k, 512]: the batch of one.
+extern "C" int ctt_rs_extend(const void* square, void* eds, const void* E, const void* gexp,
+                             const void* glog, int k, void* stream) {
+  return ctt_rs_extend_batched(square, eds, E, gexp, glog, k, 1, stream);
 }

@@ -275,6 +275,32 @@ def extend_block(
     return extend_and_header(arr, device=device)
 
 
+def data_roots_batched(squares, device=None) -> Tuple[np.ndarray, Tuple[bytes, ...]]:
+    """Catch-up validation of a batch of same-size blocks (the JAX
+    package's ``node/network.py:396-417``): squares uint8[n, k, k, 512] ->
+    (axis roots uint8[n, 2, 2k, 90], the n data roots).
+
+    On the card: one K5b launch pair extends the batch, one K2 launch and
+    one K3 launch per level hash all n * 4k trees, then K1 + K4 give each
+    block's data root there (the JAX caller hashes the roots on the host);
+    roots and data roots come back in one copy.  A numpy batch is uploaded
+    to ``device`` (None: the card); a tensor stays on its device."""
+    if isinstance(squares, torch.Tensor):
+        batch = squares
+    else:
+        batch = torch.from_numpy(_writable(squares)).to(resolve_device(device))
+    eds = rs.extend_squares_batched(batch)
+    roots = nmt_ops.eds_nmt_roots(eds)  # (n, 2, 2k, 90)
+    n, _, n2, _ = roots.shape
+    data = nmt_ops.rfc6962_root_pow2(roots.reshape(n, 2 * n2, NMT_ROOT_SIZE))  # (n, 32)
+    host = torch.cat([roots.reshape(-1), data.reshape(-1)]).cpu().numpy()
+    split = roots.numel()
+    return (
+        host[:split].reshape(tuple(roots.shape)),
+        tuple(host[split:].reshape(n, 32)[i].tobytes() for i in range(n)),
+    )
+
+
 # codec -> min DAH; the lock serializes the first computation per codec so
 # concurrent callers neither race it nor the insert
 _min_dah_lock = threading.Lock()

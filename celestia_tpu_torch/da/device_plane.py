@@ -157,8 +157,8 @@ def root_sources(root_tree: torch.Tensor) -> List[gather.GatherSource]:
 
 
 def eds_source(eds: torch.Tensor) -> gather.GatherSource:
-    """The K7b source of an EDS uint8[2k, 2k, 512]: item (row r, idx c) is
-    the share at (r, c)."""
+    """The K7b source of an EDS uint8[2k, 2k, 512], or of rows of one
+    uint8[R, 2k, 512]: item (row r, idx c) is the share at (r, c)."""
     return gather.GatherSource(eds, 0, eds.shape[1] * SHARE, SHARE, SHARE)
 
 

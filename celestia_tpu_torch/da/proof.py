@@ -182,11 +182,11 @@ def row_range_proofs(
     (``device_plane.root_tree``: the cached entry's, else K1 + K4 over the
     DAH's roots).  One copy brings them to the host.  Returns (proofs,
     shares per row, root proofs -- empty without ``dah``)."""
-    tensor = eds.tensor.contiguous()
+    block, row_ids = nmt_ops.eds_rows(eds.tensor, rows)  # only these rows are copied
     n2 = eds.width
-    levels = nmt_ops.nmt_level_stack(nmt_ops.eds_row_leaves(tensor, rows))
+    levels = nmt_ops.nmt_level_stack(nmt_ops.row_leaves(block, row_ids))
     L = len(levels)
-    sources = device_plane.nmt_sources(levels) + [device_plane.eds_source(tensor)]
+    sources = device_plane.nmt_sources(levels) + [device_plane.eds_source(block)]
     items: List[Tuple[int, int, int, int]] = []
     off = 0
     node_counts = []
@@ -196,13 +196,13 @@ def row_range_proofs(
         for level, idx in nodes:
             items.append((level, i, idx, off))
             off += nmt_ops.NMT_DIGEST_SIZE
-    for row, (c0, c1) in zip(rows, share_ranges):
+    for i, (c0, c1) in enumerate(share_ranges):
         for c in range(c0, c1):
-            items.append((L, row, c, off))
+            items.append((L, i, c, off))
             off += SHARE_SIZE
     aunts = (2 * n2).bit_length() - 1 if dah is not None else 0  # log2(4k)
     if aunts:
-        sources += device_plane.root_sources(device_plane.root_tree(dah, tensor.device))
+        sources += device_plane.root_sources(device_plane.root_tree(dah, block.device))
         for row in rows:
             for j in range(aunts):
                 items.append((L + 1 + j, 0, (row >> j) ^ 1, off))

@@ -42,11 +42,15 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "ctt_sha256_batch": (_P, _P, _LL, _I, _I, _P),
-    "ctt_nmt_leaf_digests": (_P, _P, _I, _P),
-    "ctt_nmt_combine_level": (_P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, _P),
+    "ctt_nmt_leaf_digests": (_P, _P, _I, _I, _P),
+    "ctt_nmt_combine_level": (_P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "ctt_rfc6962_root": (_P, _P, _I, _I, _P),
     "ctt_rs_extend": (_P, _P, _P, _P, _P, _I, _P),
     "ctt_das_proof_gather": (_P, _I, _P, _I, _P, _P),
+    "ctt_rs_extend_batched": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ctt_rs_decode_matrices": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ctt_rs_decode_axes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ctt_rs_repair_verdicts": (_P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 # kernel name -> C entry; the names chip_smoke.py and PERF.md report
@@ -57,6 +61,10 @@ KERNELS = {
     "rfc6962_root": "ctt_rfc6962_root",
     "rs_extend": "ctt_rs_extend",
     "das_proof_gather": "ctt_das_proof_gather",
+    "rs_extend_batched": "ctt_rs_extend_batched",
+    "rs_decode_matrices": "ctt_rs_decode_matrices",
+    "rs_decode_axes": "ctt_rs_decode_axes",
+    "rs_repair_verdicts": "ctt_rs_repair_verdicts",
 }
 
 _lock = threading.Lock()

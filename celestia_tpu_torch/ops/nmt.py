@@ -31,6 +31,8 @@ level into one packed buffer, :func:`rfc6962_tree_levels`).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -90,11 +92,14 @@ def combine_level_plain(nodes: torch.Tensor) -> torch.Tensor:
     return torch.cat([l_min, max_ns, h], dim=-1)
 
 
-def _combine_cuda(src, ntrees, m_out, split, strides0, strides1) -> torch.Tensor:
+def _combine_cuda(src, ntrees, m_out, split, strides0, strides1, group=None) -> torch.Tensor:
+    """One K3 launch over ``ntrees`` trees; ``group`` = (trees per grid,
+    bytes between grids) for a batch of grids, else one group of all."""
+    tpb, bs = group if group is not None else (ntrees, 0)
     out = torch.empty((ntrees, m_out, NMT_DIGEST_SIZE), dtype=torch.uint8, device=src.device)
     kernels.launch(
         "nmt_combine_level", src.device, src.data_ptr(), out.data_ptr(),
-        ntrees, m_out, split, *strides0, *strides1,
+        ntrees, m_out, split, *strides0, *strides1, tpb, bs,
     )
     return out
 
@@ -166,20 +171,33 @@ def _prefix_leaves(block: torch.Tensor, row_ids: torch.Tensor, k: int) -> torch.
 
 
 def _prefixed_rows(eds: torch.Tensor) -> torch.Tensor:
-    """uint8[2k, 2k, 512] -> uint8[2k, 2k, 29+512]: each cell with its prefix."""
-    n2 = eds.shape[0]
+    """uint8[..., 2k, 2k, 512] -> uint8[..., 2k, 2k, 29+512]: each cell with
+    its prefix."""
+    n2 = eds.shape[-2]
     return _prefix_leaves(eds, torch.arange(n2, device=eds.device), n2 // 2)
 
 
-def eds_row_leaves(eds: torch.Tensor, rows) -> torch.Tensor:
-    """The namespace-prefixed leaves of the row trees ``rows`` of an EDS,
-    built on its device from those rows alone: uint8[R, 2k, 29+512]."""
+def eds_rows(eds: torch.Tensor, rows) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows ``rows`` of an EDS (any strides, e.g. a transposed view),
+    gathered on its device into uint8[R, 2k, 512], and their indices."""
     n2 = _check_eds(eds)
     rows = [int(r) for r in rows]
     if not rows or min(rows) < 0 or max(rows) >= n2:
         raise ValueError(f"rows must be a non-empty subset of 0..{n2 - 1}, got {rows}")
     idx = torch.tensor(rows, device=eds.device)
-    return _prefix_leaves(eds.index_select(0, idx), idx, n2 // 2)
+    return eds.index_select(0, idx), idx
+
+
+def row_leaves(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The namespace-prefixed leaves of the EDS rows ``block`` (indices
+    ``idx``, as :func:`eds_rows` returns them): uint8[R, 2k, 29+512]."""
+    return _prefix_leaves(block, idx, block.shape[1] // 2)
+
+
+def eds_row_leaves(eds: torch.Tensor, rows) -> torch.Tensor:
+    """The namespace-prefixed leaves of the row trees ``rows`` of an EDS,
+    built on its device from those rows alone: uint8[R, 2k, 29+512]."""
+    return row_leaves(*eds_rows(eds, rows))
 
 
 def eds_prefixed_leaves(eds: torch.Tensor) -> torch.Tensor:
@@ -191,64 +209,82 @@ def eds_prefixed_leaves(eds: torch.Tensor) -> torch.Tensor:
     return torch.stack([rows, rows.transpose(0, 1)], dim=0)
 
 
-def _check_eds(eds: torch.Tensor) -> int:
-    n2 = eds.shape[0]
-    if eds.dim() != 3 or tuple(eds.shape) != (n2, n2, SHARE_SIZE) or n2 % 2:
-        raise ValueError(f"EDS must be [2k, 2k, {SHARE_SIZE}], got {tuple(eds.shape)}")
+def _check_eds(eds: torch.Tensor, batched: bool = False) -> int:
+    n2 = eds.shape[-2] if eds.dim() >= 2 else 0
+    lead = "n, " if batched else ""
+    if (
+        eds.dim() != 3 + batched
+        or tuple(eds.shape[-3:]) != (n2, n2, SHARE_SIZE)
+        or n2 % 2
+    ):
+        raise ValueError(f"EDS must be [{lead}2k, 2k, {SHARE_SIZE}], got {tuple(eds.shape)}")
     _check_pow2(n2 // 2, "square size")
     return n2
 
 
 def eds_leaf_digests_plain(eds: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K2 on any device."""
-    _check_eds(eds)
+    """Plain twin of K2 on any device (one EDS or a batch)."""
+    _check_eds(eds, batched=eds.dim() == 4)
     return _leaf_digests_with(rfc6962_leaf_hashes_plain, _prefixed_rows(eds))
 
 
 def eds_leaf_digests(eds: torch.Tensor) -> torch.Tensor:
-    """K2: the leaf digest of every EDS cell, uint8[2k, 2k, 512] ->
-    uint8[2k, 2k, 90] (row r, column c = leaf c of row tree r = leaf r of
-    column tree c)."""
-    n2 = _check_eds(eds)
+    """K2: the leaf digest of every EDS cell, uint8[..., 2k, 2k, 512] ->
+    uint8[..., 2k, 2k, 90] (row r, column c = leaf c of row tree r = leaf r
+    of column tree c), for one EDS or a batch uint8[n, 2k, 2k, 512] in one
+    launch."""
+    n2 = _check_eds(eds, batched=eds.dim() == 4)
     if _is_cpu(eds):
         return eds_leaf_digests_plain(eds)
     kernels.check_cuda_tensor(eds, "eds")
-    out = torch.empty((n2, n2, NMT_DIGEST_SIZE), dtype=torch.uint8, device=eds.device)
-    kernels.launch("nmt_leaf_digests", eds.device, eds.data_ptr(), out.data_ptr(), n2)
+    batch = eds.shape[0] if eds.dim() == 4 else 1
+    out = torch.empty(eds.shape[:-1] + (NMT_DIGEST_SIZE,), dtype=torch.uint8, device=eds.device)
+    kernels.launch("nmt_leaf_digests", eds.device, eds.data_ptr(), out.data_ptr(), n2, batch)
     return out
 
 
 def combine_grid_plain(grid: torch.Tensor) -> torch.Tensor:
     """Plain twin of K3's first level on any device."""
-    return combine_level_plain(torch.cat([grid, grid.transpose(0, 1)], dim=0))
+    return combine_level_plain(torch.cat([grid, grid.transpose(-3, -2)], dim=-3))
 
 
 def combine_grid(grid: torch.Tensor) -> torch.Tensor:
-    """K3's first level, read from the leaf grid: uint8[2k, 2k, 90] ->
-    uint8[4k, k, 90] (trees 0..2k are the rows, 2k..4k the columns)."""
+    """K3's first level, read from the leaf grid: uint8[..., 2k, 2k, 90] ->
+    uint8[..., 4k, k, 90] (trees 0..2k are the rows, 2k..4k the columns),
+    for one grid or a batch uint8[n, 2k, 2k, 90] in one launch."""
     if _is_cpu(grid):
         return combine_grid_plain(grid)
-    n2 = grid.shape[0]
-    kernels.check_cuda_tensor(grid, "grid", (n2, n2, NMT_DIGEST_SIZE))
+    n2 = grid.shape[-2]
+    lead = tuple(grid.shape[:-3])
+    kernels.check_cuda_tensor(grid, "grid", lead + (n2, n2, NMT_DIGEST_SIZE))
     d = NMT_DIGEST_SIZE
-    return _combine_cuda(grid, 2 * n2, n2 // 2, n2, (n2 * d, d), (d, n2 * d))
+    batch = int(np.prod(lead))
+    out = _combine_cuda(grid, batch * 2 * n2, n2 // 2, n2, (n2 * d, d), (d, n2 * d),
+                        group=(2 * n2, n2 * n2 * d))
+    return out.reshape(lead + (2 * n2, n2 // 2, d))
 
 
 def _eds_roots(eds, leaf_fn, grid_fn, level_fn) -> torch.Tensor:
-    n2 = _check_eds(eds)
+    n2 = _check_eds(eds, batched=eds.dim() == 4)
     nodes = grid_fn(leaf_fn(eds))
     while nodes.shape[-2] > 1:
         nodes = level_fn(nodes)
-    return nodes[:, 0].reshape(2, n2, NMT_DIGEST_SIZE)
+    return nodes[..., 0, :].reshape(eds.shape[:-3] + (2, n2, NMT_DIGEST_SIZE))
 
 
 def eds_nmt_roots_plain(eds: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K2 + K3 on any device: uint8[2k,2k,512] -> uint8[2, 2k, 90]."""
+    """Plain twin of K2 + K3 on any device: uint8[..., 2k, 2k, 512] ->
+    uint8[..., 2, 2k, 90]."""
     return _eds_roots(eds, eds_leaf_digests_plain, combine_grid_plain, combine_level_plain)
 
 
 def eds_nmt_roots(eds: torch.Tensor) -> torch.Tensor:
-    """All 4k NMT axis roots of an EDS: uint8[2k,2k,512] -> uint8[2, 2k, 90]."""
+    """All 4k NMT axis roots of an EDS: uint8[2k,2k,512] -> uint8[2, 2k, 90].
+
+    A batch uint8[n, 2k, 2k, 512] gives uint8[n, 2, 2k, 90] (JAX
+    ``jax.vmap(eds_nmt_roots)``, celestia_tpu/node/network.py:407): on the
+    card one K2 launch for the batch and one K3 launch per level over all
+    n * 4k trees."""
     return _eds_roots(eds, eds_leaf_digests, combine_grid, combine_level)
 
 

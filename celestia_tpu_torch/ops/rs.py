@@ -20,10 +20,24 @@ Quadrant layout of the extended square (2k x 2k):
   G = ``gf256.encode_matrix_bits(k, codec)`` (see :func:`matmul_gf2`).
 Both give the same bytes, because G is E lifted bit by bit (gf256.py
 ``bit_expand_matrix``).
+
+:func:`extend_squares_batched` extends a batch of squares (K5b
+``rs_extend_batched`` on the card).  The repair half (``rsmt2d.Repair``,
+:func:`repair_square_device`) peels the availability mask on the host
+(:func:`_simulate_schedule`, bools only), then on the square's device
+builds every Lagrange decode matrix in one launch (K8a
+``rs_decode_matrices``), decodes the solvable axes of each phase and
+orientation in place (K8b ``rs_decode_axes``), re-extends Q0 (K5), flags
+the cells that disagree (K8c ``rs_repair_verdicts``) and hashes the axis
+roots (K2 + K3), then fetches the verdicts once.  On CPU tensors the same
+host loop runs the plain versions, which keep the JAX package's GF(2)
+lift (:func:`_bit_expand_dev`).
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from functools import lru_cache
 
 import numpy as np
@@ -32,6 +46,8 @@ import torch
 from celestia_tpu_torch import kernels
 from celestia_tpu_torch.appconsts import SHARE_SIZE, is_power_of_two
 from celestia_tpu_torch.ops import gf256
+from celestia_tpu_torch.ops import nmt as nmt_ops
+from celestia_tpu_torch.utils.device import resolve_device
 
 
 def unpack_bits(x: torch.Tensor) -> torch.Tensor:
@@ -130,18 +146,25 @@ def _check_square(square: torch.Tensor, share_size=None) -> int:
     return k
 
 
+def _launch_extend(kernel: str, src: torch.Tensor, k: int, n: int, codec: str, *extra):
+    """uint8[n, 2k, 2k, 512] from ``kernel`` (K5 or K5b) on ``src``, the
+    checked square or batch; ``extra`` follows k in the C entry's arguments."""
+    E, exp, log = _kernel_constants(k, codec, str(src.device))
+    eds = torch.empty((n, 2 * k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=src.device)
+    if n:
+        kernels.launch(
+            kernel, src.device, src.data_ptr(), eds.data_ptr(),
+            E.data_ptr(), exp.data_ptr(), log.data_ptr(), k, *extra,
+            launches=2,  # Q1+Q2 of every square, then Q3 (Q0 is a 2D device copy)
+        )
+    return eds
+
+
 def extend_cuda(square: torch.Tensor, codec: str) -> torch.Tensor:
     """Launch K5 ``rs_extend`` on a square on the card with ``codec``."""
     k = _check_square(square, SHARE_SIZE)
     kernels.check_cuda_tensor(square, "square")
-    E, exp, log = _kernel_constants(k, codec, str(square.device))
-    eds = torch.empty((2 * k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=square.device)
-    kernels.launch(
-        "rs_extend", square.device, square.data_ptr(), eds.data_ptr(),
-        E.data_ptr(), exp.data_ptr(), log.data_ptr(), k,
-        launches=2,  # Q1+Q2, then Q3 (Q0 is a 2D device copy)
-    )
-    return eds
+    return _launch_extend("rs_extend", square, k, 1, codec)[0]
 
 
 def extend_plain(square: torch.Tensor, codec: str) -> torch.Tensor:
@@ -159,6 +182,550 @@ def extend_square(square: torch.Tensor) -> torch.Tensor:
     if square.device.type == "cpu":
         return extend_plain(square, codec)
     return extend_cuda(square, codec)
+
+
+def _check_batch(squares: torch.Tensor, share_size=None) -> int:
+    """k of a uint8[n, k, k, B] batch (B = ``share_size`` when given)."""
+    k = squares.shape[1] if squares.dim() == 4 else 0
+    if (
+        squares.dim() != 4
+        or squares.shape[2] != k
+        or (share_size is not None and squares.shape[3] != share_size)
+        or not is_power_of_two(k)
+        or k > 128
+    ):
+        raise ValueError(
+            f"batch must be (n, k, k, {share_size or 'B'}) with k a power of two "
+            f"<= 128, got {tuple(squares.shape)}"
+        )
+    if squares.dtype != torch.uint8:
+        raise ValueError(f"batch must be uint8, got {squares.dtype}")
+    return k
+
+
+def extend_batched_cuda(squares: torch.Tensor, codec: str) -> torch.Tensor:
+    """Launch K5b ``rs_extend_batched`` on a batch of squares on the card."""
+    k = _check_batch(squares, SHARE_SIZE)
+    kernels.check_cuda_tensor(squares, "squares")
+    n = squares.shape[0]
+    return _launch_extend("rs_extend_batched", squares, k, n, codec, n)
+
+
+def extend_batched_plain(squares: torch.Tensor, codec: str) -> torch.Tensor:
+    """The plain twin of K5b: the plain twin of K5 on each square."""
+    k = _check_batch(squares)
+    G = encode_matrix_bits_tensor(k, codec, str(squares.device))
+    n, B = squares.shape[0], squares.shape[3]
+    if not n:
+        return torch.empty((0, 2 * k, 2 * k, B), dtype=torch.uint8, device=squares.device)
+    return torch.stack([_extend(sq, G) for sq in squares])
+
+
+def extend_squares_batched(squares: torch.Tensor) -> torch.Tensor:
+    """Extend a batch uint8[n, k, k, 512] -> uint8[n, 2k, 2k, 512] with the
+    active codec (JAX ``extend_squares_batched``, celestia_tpu/ops/rs.py:107):
+    K5b on a CUDA tensor, the plain version on a CPU tensor."""
+    codec = gf256.active_codec()
+    gf256.mark_codec_used()
+    if squares.device.type == "cpu":
+        return extend_batched_plain(squares, codec)
+    return extend_batched_cuda(squares, codec)
+
+
+# ---------------------------------------------------------------------------
+# Repair (rsmt2d.Repair): the host peels the availability mask, the
+# square's device decodes, re-extends and checks
+#
+# Which axes become solvable in which order depends only on the boolean
+# availability mask, never on share values, so the host simulates the
+# peeling schedule on bools and ships only the solvable axes' known
+# positions.  The plain versions below mirror the JAX program
+# (celestia_tpu/ops/rs.py:138-284): decode matrices in the log domain, the
+# GF(2) lift, bit products.  The kernels multiply in GF(256) with the
+# codec's tables; both give the same bytes.
+# ---------------------------------------------------------------------------
+
+
+def _gf_tables_dev(codec: str = None, device="cpu"):
+    """The codec's (exp, log) tables as int64 tensors on ``device``."""
+    exp, log = gf256.field_tables(codec)
+    return (
+        torch.from_numpy(np.asarray(exp, dtype=np.int64)).to(device),
+        torch.from_numpy(np.asarray(log, dtype=np.int64)).to(device),
+    )
+
+
+def _decode_matrices_dev(known: torch.Tensor, k: int, codec: str = None) -> torch.Tensor:
+    """Plain twin of K8a (JAX :150): known uint8[n, k] (distinct POSITIONS
+    per row) -> D uint8[n, 2k, k].  Position -> field point is XOR with k
+    under the leopard codec (gf256.position_points)."""
+    codec = gf256._resolve(codec)
+    exp, log = _gf_tables_dev(codec, known.device)
+    xor_const = k if codec == gf256.CODEC_LEOPARD else 0
+    src = known.to(torch.int64) ^ xor_const  # [n, k]
+    dst = torch.arange(2 * k, dtype=torch.int64, device=known.device) ^ xor_const
+    diff_ss = src[:, None, :] ^ src[:, :, None]  # [n, j, m]
+    diag = torch.arange(k, device=known.device)
+    diff_ss[:, diag, diag] = 1
+    denom_log = log[diff_ss].sum(dim=2) % 255  # [n, j]
+    diff_ds = dst[None, :, None] ^ src[:, None, :]  # [n, i, m]
+    zero_mask = diff_ds == 0
+    safe = torch.where(zero_mask, torch.ones_like(diff_ds), diff_ds)
+    log_all = log[safe]  # [n, i, m]
+    total_log = log_all.sum(dim=2)  # [n, i]
+    has_zero = zero_mask.any(dim=2)  # [n, i]
+    num_log = (total_log[:, :, None] - log_all) % 255  # [n, i, j]
+    lagrange = exp[(num_log - denom_log[:, None, :]) % 255]
+    return torch.where(
+        has_zero[:, :, None], zero_mask.to(torch.int64), lagrange
+    ).to(torch.uint8)
+
+
+@lru_cache(maxsize=None)
+def _bit_basis(codec: str) -> np.ndarray:
+    """B[u, s, t] = bit s of gf_mul(2^u, 2^t) — the GF(2) lift is LINEAR
+    in the operand's bits: M(a)[s,t] = XOR_u a_u * B[u,s,t].  Expanding a
+    matrix therefore needs no table gathers (slow on TPU), just one tiny
+    contraction over u against this 8x8x8 constant.  Holds in both codec
+    representations (the Cantor-index map is GF(2)-linear)."""
+    powers = np.uint8(1) << np.arange(8, dtype=np.uint8)
+    prod = gf256.gf_mul(powers[:, None], powers[None, :], codec)  # [u, t]
+    s = np.arange(8, dtype=np.uint8)
+    return ((prod[:, None, :] >> s[None, :, None]) & 1).astype(np.int8)
+
+
+def _bit_expand_dev(D: torch.Tensor, codec: str = None) -> torch.Tensor:
+    """Port of gf256.bit_expand_matrix, batched (JAX :191): uint8[n, m, c]
+    -> int8 0/1 [n, 8m, 8c].  The contraction runs in float32, exact for
+    sums of at most 8 ones."""
+    n, m, c = D.shape
+    u = torch.arange(8, dtype=torch.uint8, device=D.device)
+    a_bits = ((D[:, :, :, None] >> u) & 1).to(torch.float32)  # [n, m, c, u]
+    B = torch.from_numpy(_bit_basis(gf256._resolve(codec))).to(D.device, torch.float32)
+    acc = torch.einsum("nmcu,ust->nmsct", a_bits, B).to(torch.int32)
+    return (acc & 1).to(torch.int8).reshape(n, 8 * m, 8 * c)
+
+
+def _gf_product_bits(D: torch.Tensor, X: torch.Tensor, codec: str) -> torch.Tensor:
+    """out[a] = D[a] X[a] over GF(256) through the GF(2) lift: D uint8[n, R,
+    k], X uint8[n, k, B] -> uint8[n, R, B].  The bit product runs in
+    float32, exact: the sums are at most 8k <= 1024 < 2**24."""
+    D_bits = _bit_expand_dev(D, codec).to(torch.float32)  # [n, 8R, 8k]
+    X_bits = unpack_bits(X).to(torch.float32)  # [n, 8k, B]
+    return pack_bits(torch.bmm(D_bits, X_bits).to(torch.int32) & 1)
+
+
+def _gather_known(data: torch.Tensor, known: torch.Tensor) -> torch.Tensor:
+    """X[a, j] = data[a, known[a, j]]: uint8[n, 2k, B], [n, k] -> [n, k, B]."""
+    idx = known.to(torch.int64)[:, :, None].expand(-1, -1, data.shape[2])
+    return torch.gather(data, 1, idx)
+
+
+# axes per bit product in decode_axes_plain: bounds the float32 bit planes
+# (D_bits is 16k x 8k floats per axis, 8 MiB at k = 128)
+def _plain_chunk(k: int) -> int:
+    return max(1, 1024 // k)
+
+
+def decode_matrices_cuda(known: torch.Tensor, k: int, codec: str) -> torch.Tensor:
+    """Launch K8a ``rs_decode_matrices``: known uint8[n, k] on the card ->
+    D uint8[n, 2k, k]."""
+    kernels.check_cuda_tensor(known, "known")
+    n = known.shape[0]
+    if known.dim() != 2 or known.shape[1] != k or not is_power_of_two(k) or k > 128:
+        raise ValueError(f"known must be (n, {k}) with k a power of two <= 128, "
+                         f"got {tuple(known.shape)}")
+    _, exp, log = _kernel_constants(k, codec, str(known.device))
+    D = torch.empty((n, 2 * k, k), dtype=torch.uint8, device=known.device)
+    if n:
+        xor_const = k if codec == gf256.CODEC_LEOPARD else 0
+        kernels.launch(
+            "rs_decode_matrices", known.device, known.data_ptr(), D.data_ptr(),
+            exp.data_ptr(), log.data_ptr(), n, k, xor_const,
+        )
+    return D
+
+
+def decode_matrices(known: torch.Tensor, k: int, codec: str) -> torch.Tensor:
+    """The Lagrange decode matrices of a batch of known-position sets: K8a
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    if known.device.type == "cpu":
+        return _decode_matrices_dev(known, k, codec)
+    return decode_matrices_cuda(known, k, codec)
+
+
+def _check_decode_args(eds, D, known, axes) -> int:
+    n2 = eds.shape[0]
+    k = n2 // 2
+    n = axes.shape[0]
+    if (
+        eds.dim() != 3
+        or eds.shape[1] != n2
+        or tuple(D.shape) != (n, n2, k)
+        or tuple(known.shape) != (n, k)
+        or axes.dim() != 1
+    ):
+        raise ValueError(
+            f"decode_axes takes eds (2k, 2k, B), D (n, 2k, k), known (n, k), axes (n,); "
+            f"got {tuple(eds.shape)}, {tuple(D.shape)}, {tuple(known.shape)}, "
+            f"{tuple(axes.shape)}"
+        )
+    return k
+
+
+def decode_axes_plain(
+    eds: torch.Tensor, D: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
+    cols: bool, codec: str,
+) -> torch.Tensor:
+    """Plain twin of K8b: decode axes ``axes`` of one orientation of ``eds``
+    (rows, or columns when ``cols``) from their known positions with D, as
+    JAX ``_decode_axes_dev`` (:206) does for every axis, and write each
+    whole axis back, as JAX ``_repair_phases`` (:249, :252) does for the
+    solvable ones.  In place, chunked over axes; returns ``eds``."""
+    k = _check_decode_args(eds, D, known, axes)
+    view = eds.transpose(0, 1) if cols else eds
+    idx = axes.to(torch.int64)
+    X = _gather_known(view[idx], known)
+    chunk = _plain_chunk(k)
+    if idx.numel():
+        view[idx] = torch.cat([
+            _gf_product_bits(Dc, Xc, codec) for Dc, Xc in zip(D.split(chunk), X.split(chunk))
+        ])
+    return eds
+
+
+def decode_axes_cuda(
+    eds: torch.Tensor, D: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
+    cols: bool, codec: str,
+) -> torch.Tensor:
+    """Launch K8b ``rs_decode_axes``: decode axes ``axes`` (int32) of one
+    orientation of an EDS on the card in place, writing only the positions
+    that are not known.  ``known`` holds k distinct positions per axis (the
+    schedule's); an axis whose index or positions lie past 2k is left
+    unwritten by the kernel rather than read or written out of bounds."""
+    k = _check_decode_args(eds, D, known, axes)
+    kernels.check_cuda_tensor(eds, "eds", (2 * k, 2 * k, SHARE_SIZE))
+    kernels.check_cuda_tensor(D, "D")
+    kernels.check_cuda_tensor(known, "known")
+    if axes.dtype != torch.int32 or axes.device != eds.device or not axes.is_contiguous():
+        raise ValueError("axes must be a contiguous int32 tensor on the EDS's device")
+    if not is_power_of_two(k) or k > 128:
+        raise ValueError(f"k must be a power of two <= 128, got {k}")
+    _, exp, log = _kernel_constants(k, codec, str(eds.device))
+    if axes.numel():
+        kernels.launch(
+            "rs_decode_axes", eds.device, eds.data_ptr(), D.data_ptr(), known.data_ptr(),
+            axes.data_ptr(), exp.data_ptr(), log.data_ptr(), axes.numel(), k, int(cols),
+        )
+    return eds
+
+
+def decode_axes(eds, D, known, axes, cols: bool, codec: str) -> torch.Tensor:
+    """Decode axes of one orientation in place: K8b on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if eds.device.type == "cpu":
+        return decode_axes_plain(eds, D, known, axes, cols, codec)
+    return decode_axes_cuda(eds, D, known, axes, cols, codec)
+
+
+def repair_verdicts_plain(repaired, recomputed, provided, avail):
+    """Plain twin of K8c (JAX :276-277): uint8[2k, 2k] masks ``mismatch``
+    (repaired != recomputed) and ``provided_mismatch`` (avail and repaired
+    != provided)."""
+    mismatch = (repaired != recomputed).any(dim=-1)
+    provided_mismatch = avail.to(torch.bool) & (repaired != provided).any(dim=-1)
+    return mismatch.to(torch.uint8), provided_mismatch.to(torch.uint8)
+
+
+def repair_verdicts_cuda(repaired, recomputed, provided, avail):
+    """Launch K8c ``rs_repair_verdicts`` over every cell."""
+    n2 = repaired.shape[0]
+    for t, name in ((repaired, "repaired"), (recomputed, "recomputed"), (provided, "provided")):
+        kernels.check_cuda_tensor(t, name, (n2, n2, SHARE_SIZE))
+    kernels.check_cuda_tensor(avail, "avail", (n2, n2))
+    mismatch = torch.empty((n2, n2), dtype=torch.uint8, device=repaired.device)
+    provided_mismatch = torch.empty_like(mismatch)
+    kernels.launch(
+        "rs_repair_verdicts", repaired.device, repaired.data_ptr(), recomputed.data_ptr(),
+        provided.data_ptr(), avail.data_ptr(), mismatch.data_ptr(),
+        provided_mismatch.data_ptr(), n2 * n2,
+    )
+    return mismatch, provided_mismatch
+
+
+def repair_verdicts(repaired, recomputed, provided, avail):
+    """The two verdict masks of a repair: K8c on CUDA tensors, the plain
+    version on CPU tensors."""
+    if repaired.device.type == "cpu":
+        return repair_verdicts_plain(repaired, recomputed, provided, avail)
+    return repair_verdicts_cuda(repaired, recomputed, provided, avail)
+
+
+def _simulate_schedule(avail: np.ndarray, k: int):
+    """Peel the availability mask on the host (bools only): returns the
+    per-phase (row_known, row_mask, col_known, col_mask) tensors the
+    device program consumes.  Raises if the mask cannot reconstruct."""
+    n2 = 2 * k
+    avail = avail.copy()
+    row_known, row_mask, col_known, col_mask = [], [], [], []
+
+    def plan(mask2d):
+        counts = mask2d.sum(axis=1)
+        solvable = (counts >= k) & (counts < n2)
+        # first k available positions per axis (arbitrary valid points for
+        # unsolvable axes — their results are masked out)
+        order = np.argsort(~mask2d, axis=1, kind="stable")
+        known = np.sort(order[:, :k], axis=1).astype(np.uint8)
+        known[~solvable] = np.arange(k, dtype=np.uint8)[None, :]
+        return known, solvable
+
+    while not avail.all():
+        rk, rm = plan(avail)
+        avail[rm] = True
+        ck, cm = plan(avail.T)
+        avail[:, cm] = True
+        if not (rm.any() or cm.any()):
+            raise ValueError(
+                "repair stalled: insufficient available cells to reconstruct"
+            )
+        row_known.append(rk)
+        row_mask.append(rm)
+        col_known.append(ck)
+        col_mask.append(cm)
+    if not row_known:  # nothing missing: zero phases
+        return None
+    return (
+        np.stack(row_known),
+        np.stack(row_mask),
+        np.stack(col_known),
+        np.stack(col_mask),
+    )
+
+
+def _schedule_tensors(schedule, device):
+    """The solvable axes of every phase and orientation, in launch order:
+    (known uint8[N, k], axes int32[N]) on ``device`` and the segments
+    (offset, count, cols) of each (phase, orientation) that has any."""
+    rk, rm, ck, cm = schedule
+    knowns, axes, segments, off = [], [], [], 0
+    for p in range(rk.shape[0]):
+        for cols, (kn, mask) in enumerate(((rk[p], rm[p]), (ck[p], cm[p]))):
+            idx = np.nonzero(mask)[0]
+            if len(idx):
+                knowns.append(kn[idx])
+                axes.append(idx.astype(np.int32))
+                segments.append((off, len(idx), bool(cols)))
+                off += len(idx)
+    known = torch.from_numpy(np.ascontiguousarray(np.concatenate(knowns))).to(device)
+    axes_t = torch.from_numpy(np.concatenate(axes)).to(device)
+    return known, axes_t, segments
+
+
+def _repair_phases(eds: torch.Tensor, schedule, k: int, codec: str) -> torch.Tensor:
+    """The P peeling phases (rows then columns each) on ``eds`` in place,
+    as a host loop of launches: one decode-matrix launch (K8a) for every
+    phase and orientation (D depends only on the schedule), then one
+    decode launch (K8b) per (phase, orientation) with solvable axes.  On a
+    CPU tensor the plain versions run."""
+    if schedule is None:
+        return eds
+    known, axes, segments = _schedule_tensors(schedule, eds.device)
+    D = decode_matrices(known, k, codec)
+    for off, count, cols in segments:
+        sl = slice(off, off + count)
+        decode_axes(eds, D[sl], known[sl], axes[sl], cols, codec)
+    return eds
+
+
+def _repair_verify(repaired, provided, avail, k: int, with_roots: bool):
+    """The checks of JAX ``_repair_verify`` (:257) on the repaired square's
+    device: re-extension of its Q0 (K5), both verdict masks (K8c) and,
+    when asked, the axis roots (K2 + K3)."""
+    recomputed = extend_square(repaired[:k, :k].contiguous())
+    mismatch, provided_mismatch = repair_verdicts(repaired, recomputed, provided, avail)
+    roots = nmt_ops.eds_nmt_roots(repaired) if with_roots else None
+    return mismatch, provided_mismatch, roots
+
+
+class ByzantineError(ValueError):
+    """The available shares are not a consistent Reed-Solomon codeword
+    (rsmt2d ErrByzantine parity): a malicious proposer published shares that
+    disagree with the polynomial through the rest of their row/column."""
+
+
+_plain_lock = threading.Lock()
+_plain_repairs = 0  # guarded by _plain_lock
+
+
+def plain_repairs() -> int:
+    """Repairs run on the host through the plain versions in this process."""
+    with _plain_lock:
+        return _plain_repairs
+
+
+def _count_plain_repair() -> None:
+    global _plain_repairs
+    with _plain_lock:
+        _plain_repairs += 1
+
+
+def _host_array(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+def repair_square_device(
+    eds,
+    available,
+    row_roots: np.ndarray = None,
+    col_roots: np.ndarray = None,
+    breakdown: dict = None,
+    return_device: bool = False,
+    device=None,
+):
+    """rsmt2d.Repair on the square's device (JAX :350).
+
+    Reconstruct, then prove the result is the unique codeword matching
+    everything the caller provided (:class:`ByzantineError` otherwise) and
+    the committed DAH roots when given.  A numpy ``eds`` is uploaded to
+    ``device`` (``None``: the card; ``"cpu"``: the plain versions on the
+    host); a tensor is repaired on its own device and left unchanged.  On
+    the card every phase count runs there (the JAX package hands P > 4 to
+    the host, :399-404) and share size must be 512; nothing falls back.
+
+    ``return_device=True`` returns the repaired tensor on its device (no
+    bulk fetch).  ``breakdown`` receives ``schedule_ms`` (the host peel,
+    before the upload), ``upload_compute_ms``, ``verdict_fetch_ms``,
+    ``upload_overlapped`` (False: a pageable upload blocks the host, so the
+    peel runs first), ``bulk_fetch_ms`` when the square is fetched, and on
+    the card ``kernels_ms``, the launch sequence timed with CUDA events."""
+    t0 = time.perf_counter()
+    avail = np.asarray(_host_array(available), dtype=bool)
+    if isinstance(eds, torch.Tensor):
+        if eds.dtype != torch.uint8:
+            raise ValueError(f"eds must be uint8, got {eds.dtype}")
+        dev = eds.device
+        host = None
+    else:
+        dev = resolve_device(device)
+        host = np.ascontiguousarray(eds, dtype=np.uint8)
+    shape = tuple(eds.shape)
+    n2 = shape[0]
+    k = n2 // 2
+    if len(shape) != 3 or shape[:2] != (n2, n2) or avail.shape != (n2, n2):
+        raise ValueError("eds must be (2k, 2k, B) with matching availability mask")
+    if dev.type == "cuda" and shape[2] != SHARE_SIZE:
+        raise ValueError(
+            f"repair on the card takes {SHARE_SIZE}-byte shares, got {shape[2]}"
+        )
+    codec = gf256.active_codec()
+    schedule = _simulate_schedule(avail, k)  # bools only; raises when stalled
+    t1 = time.perf_counter()
+    if dev.type == "cpu":
+        _count_plain_repair()
+    events = None
+    if dev.type == "cuda" and breakdown is not None:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    if host is not None:
+        provided = torch.from_numpy(host if host.flags.writeable else host.copy()).to(dev)
+    else:
+        provided = eds.contiguous()
+    avail_dev = torch.from_numpy(avail.astype(np.uint8)).to(dev)
+    with_roots = row_roots is not None or col_roots is not None
+    if events:
+        events[0].record()
+    # every unavailable cell is written by the decode before any axis reads
+    # it, so the repair starts from the provided bytes as they are (JAX
+    # zeroes them first, :387: the same result)
+    repaired = _repair_phases(provided.clone(), schedule, k, codec)
+    mismatch_dev, provided_dev, roots_dev = _repair_verify(
+        repaired, provided, avail_dev, k, with_roots
+    )
+    if events:
+        events[1].record()
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    t2 = time.perf_counter()
+    # ONE fetch of every verdict (and the roots)
+    parts = [mismatch_dev.reshape(-1), provided_dev.reshape(-1)]
+    if with_roots:
+        parts.append(roots_dev.reshape(-1))
+    fetched = torch.cat(parts).cpu().numpy()
+    cells = n2 * n2
+    mismatch_axes = fetched[:cells].reshape(n2, n2).astype(bool)
+    provided_mismatch = fetched[cells : 2 * cells].reshape(n2, n2).astype(bool)
+    roots = fetched[2 * cells :].reshape(2, n2, -1) if with_roots else None
+    t3 = time.perf_counter()
+    if breakdown is not None:
+        breakdown.update(
+            schedule_ms=(t1 - t0) * 1000.0,
+            upload_compute_ms=(t2 - t1) * 1000.0,
+            verdict_fetch_ms=(t3 - t2) * 1000.0,
+            upload_overlapped=False,
+        )
+        if events:
+            breakdown["kernels_ms"] = events[0].elapsed_time(events[1])
+    if mismatch_axes.any():
+        bad = np.nonzero(mismatch_axes)
+        raise ByzantineError(
+            f"inconsistent erasure coding at cells {list(zip(*bad))[:8]}"
+        )
+    if provided_mismatch.any():
+        bad = np.nonzero(provided_mismatch)
+        raise ByzantineError(
+            f"provided shares disagree with the reconstructed codeword at "
+            f"cells {list(zip(*bad))[:8]}"
+        )
+    if with_roots:
+        for name, axis_roots, got in (
+            ("row", row_roots, roots[0]),
+            ("col", col_roots, roots[1]),
+        ):
+            if axis_roots is None:
+                continue
+            axis_roots = np.asarray(_host_array(axis_roots), dtype=np.uint8)
+            if axis_roots.shape != got.shape:
+                raise ValueError(
+                    f"{name}_roots must be {got.shape}, got {axis_roots.shape}"
+                )
+            bad = np.nonzero((axis_roots != got).any(axis=1))[0]
+            if len(bad):
+                raise ByzantineError(
+                    f"reconstructed {name} axes {bad.tolist()[:8]} do not "
+                    f"match the committed NMT roots"
+                )
+    if return_device:
+        return repaired
+    t5 = time.perf_counter()
+    out = repaired.cpu().numpy()
+    if breakdown is not None:
+        breakdown["bulk_fetch_ms"] = (time.perf_counter() - t5) * 1000.0
+    return out
+
+
+def repair_square(
+    eds,
+    available,
+    row_roots: np.ndarray = None,
+    col_roots: np.ndarray = None,
+) -> np.ndarray:
+    """Reconstruct a full EDS from a partial one on the host (rsmt2d.Repair
+    parity, JAX :531): :func:`repair_square_device` with ``device="cpu"``,
+    through the plain versions.
+
+    eds: uint8[2k, 2k, B] with garbage in unavailable cells; available:
+    bool[2k, 2k]; row_roots / col_roots: optional uint8[2k, 90] committed
+    NMT axis roots.  Raises ValueError when the repair stalls and
+    :class:`ByzantineError` when the provided shares are not a consistent
+    codeword or do not match the roots.  The JAX package's native host legs
+    (its Leopard FFT decoder, which writes only erased cells) are not
+    ported; the plain path overwrites each solved axis whole, as the
+    JAX device program does.  A tensor on another device raises
+    ValueError: repair it with :func:`repair_square_device` there."""
+    if isinstance(eds, torch.Tensor) and eds.device.type != "cpu":
+        raise ValueError(f"repair_square repairs on the host, got eds on {eds.device}")
+    return repair_square_device(np.asarray(eds), available, row_roots, col_roots, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,26 @@ Phases (any failure raises and the script exits non-zero):
    must make no host-prover call and no whole-EDS fetch.  Each path's
    launch counts are reset just before it and read just after; each kernel
    of the path must be > 0;
+4c. repair (``rs.repair_square_device``, BASELINE config 4) of the same
+   blocks' EDSs on the card at k = 64 and 128, with the DAH's roots and
+   ``return_device=True``, under three masks: 25 % of cells withheld at
+   random, k rows and k columns withheld, and the deep-peel chain mask of
+   tests/test_torch_repair.py built at k (P = k phases); the result must be
+   the plane's EDS, with no repair on the host.  Medians of 5 warm calls per
+   mask at k = 128 (wall, breakdown, kernels by CUDA events).  The
+   byzantine cases (a provided cell the decode overwrites, a Q1 cell off
+   the codeword, zeroed roots, too few cells) raise on the card with the
+   messages of the ``device="cpu"`` path at k = 32;
+4d. fraud: a Q1 cell of a k = 128 block flipped and its DAH recommitted on
+   the card; ``fraud.detect_bad_encoding`` finds the row, the BEFP built on
+   the card verifies against the bad DAH and not the honest one; at k = 32
+   the card's BEFP equals the ``device="cpu"`` path's;
+4e. catch-up (BASELINE config 5): the 8 blocks grouped by size through
+   ``dah.data_roots_batched`` (K5b, batched K2/K3, K1 + K4 per block), each
+   data root equal to the block's DAH hash; then one batch of 8 k = 128
+   squares (the 4 seeded ones and 4 more from the seeded tx stream), timed;
 5. the kernels line (JSON: time, bound, plain time, library time, launches
-   summed over both paths) and, last, ``{"ok": true, "device": {...}}``.
+   summed over every path) and, last, ``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port; nothing of JAX or of ``celestia_tpu``.
 It exits non-zero without a result when no CUDA device is present or the
@@ -68,6 +86,10 @@ REPLACES = {
     "rfc6962_root": "celestia_tpu/ops/nmt.py:272",
     "rs_extend": "celestia_tpu/ops/rs.py:64",
     "das_proof_gather": "celestia_tpu/da/device_plane.py:286",
+    "rs_extend_batched": "celestia_tpu/ops/rs.py:102",
+    "rs_decode_matrices": "celestia_tpu/ops/rs.py:150",
+    "rs_decode_axes": "celestia_tpu/ops/rs.py:206",
+    "rs_repair_verdicts": "celestia_tpu/ops/rs.py:257",
 }
 SOURCES = {
     "sha256_batch": "celestia_tpu_torch/csrc/sha256.cu",
@@ -76,6 +98,10 @@ SOURCES = {
     "rfc6962_root": "celestia_tpu_torch/csrc/rfc6962.cu",
     "rs_extend": "celestia_tpu_torch/csrc/rs_extend.cu",
     "das_proof_gather": "celestia_tpu_torch/csrc/das_gather.cu",
+    "rs_extend_batched": "celestia_tpu_torch/csrc/rs_extend.cu",
+    "rs_decode_matrices": "celestia_tpu_torch/csrc/rs_decode.cu",
+    "rs_decode_axes": "celestia_tpu_torch/csrc/rs_decode.cu",
+    "rs_repair_verdicts": "celestia_tpu_torch/csrc/rs_decode.cu",
 }
 # the kernels each path must launch
 EXTEND_KERNELS = ("sha256_batch", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root",
@@ -83,6 +109,15 @@ EXTEND_KERNELS = ("sha256_batch", "nmt_leaf_digests", "nmt_combine_level", "rfc6
 SERVE_KERNELS = ("das_proof_gather",)
 # a block on the card with no cached entry (da/device_plane.py sample_proofs_from_eds)
 MISS_KERNELS = ("sha256_batch", "nmt_combine_level", "rfc6962_root", "das_proof_gather")
+# repair: decode, re-extension, verdicts, axis roots
+REPAIR_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_extend", "rs_repair_verdicts",
+                  "nmt_leaf_digests", "nmt_combine_level")
+# fraud: detection (decode + verdicts), then the BEFP's orthogonal trees and gather
+FRAUD_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_repair_verdicts", "sha256_batch",
+                 "nmt_combine_level", "das_proof_gather")
+CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level", "sha256_batch",
+                   "rfc6962_root")
+REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 
 
@@ -106,6 +141,36 @@ def leopard_extend_ops(k: int) -> int:
     return 3 * k * butterflies * (512 // 4) * 3
 
 
+def leopard_decode_ops(k: int, axes: int) -> int:
+    """32-bit operations of the least-work Leopard erasure decode of
+    ``axes`` codewords, counted low as ``leopard_extend_ops`` counts the
+    extension: an IFFT and an FFT over the 2k positions,
+    (2k/2)*log2(2k) butterflies each, at 3 operations per 4-byte word."""
+    butterflies = 2 * k * ((2 * k).bit_length() - 1)
+    return axes * butterflies * (512 // 4) * 3
+
+
+def decode_matrix_ops(k: int, axes: int) -> int:
+    """Operations of building ``axes`` Lagrange decode matrices (K8a), each
+    term an XOR, a table lookup and an add: k^2 for the denominators, and
+    per output row k for its numerator sum and k for its entries."""
+    return axes * (k * k + 2 * (2 * k) * k) * 3
+
+
+def deep_peel_mask(k: int) -> np.ndarray:
+    """The chain mask of tests/test_torch_repair.py (``DEEP_PEEL_K8``) at
+    any k: k^2 cells, peeled in P = k phases.  Row i < k lacks columns i-1
+    and i of the first k and holds column k+i; column j < k-1 also holds
+    row k+j."""
+    n2 = 2 * k
+    i = np.arange(k)
+    avail = np.zeros((n2, n2), dtype=bool)
+    avail[:k, :k] = (i[None, :] < i[:, None] - 1) | (i[None, :] > i[:, None])
+    avail[i, k + i] = True
+    avail[k + i[:-1], i[:-1]] = True
+    return avail
+
+
 def bound(nbytes: float, ops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -124,7 +189,7 @@ def main() -> int:
         return 2
     from celestia_tpu_torch import kernels
     from celestia_tpu_torch.appconsts import DEFAULT_GOV_MAX_SQUARE_SIZE
-    from celestia_tpu_torch.da import dah, das, device_plane, eds_cache, golden
+    from celestia_tpu_torch.da import dah, das, device_plane, eds_cache, fraud, golden
     from celestia_tpu_torch.da import namespace_data, proof
     from celestia_tpu_torch.da import square as square_mod
     from celestia_tpu_torch.da.blob import Blob, BlobTx
@@ -153,8 +218,8 @@ def main() -> int:
     def upload(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def time_ms(fn, reps: int = 20) -> float:
-        for _ in range(2):
+    def time_ms(fn, reps: int = 20, warm: int = 2) -> float:
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -266,8 +331,50 @@ def main() -> int:
             s = upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8))
             compare("rs_extend", rs.extend_cuda(s, codec), rs.extend_plain(s, codec),
                     f"k={kk} codec={codec}")
+    # the repair kernels and the batched extension (K8a at k = 4, 32, 128;
+    # K8b, K8c and K5b at k = 32) and the batched K2/K3, both codecs
+    def known_sets(kk: int, n: int) -> np.ndarray:
+        return np.stack([np.sort(rng.permutation(2 * kk)[:kk]) for _ in range(n)]).astype(np.uint8)
+
+    for codec in gf256.CODECS:
+        for kk in (4, 32, 128):
+            known = upload(known_sets(kk, 2 * kk))
+            compare("rs_decode_matrices", rs.decode_matrices_cuda(known, kk, codec),
+                    rs._decode_matrices_dev(known, kk, codec), f"k={kk} codec={codec}")
+        kk = 32
+        known_np = known_sets(kk, kk + 3)
+        known_np[0] = np.arange(kk)  # the first k positions, as fraud detection asks
+        known = upload(known_np)
+        D32 = rs.decode_matrices_cuda(known, kk, codec)
+        e32 = rs.extend_cuda(upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)), codec)
+        for cols in (False, True):
+            axes = upload(np.sort(rng.permutation(2 * kk)[: kk + 3]).astype(np.int32))
+            compare("rs_decode_axes",
+                    rs.decode_axes_cuda(e32.clone(), D32, known, axes, cols, codec),
+                    rs.decode_axes_plain(e32.clone(), D32, known, axes, cols, codec),
+                    f"k={kk} {'columns' if cols else 'rows'} codec={codec}")
+        rec, prov = e32.clone(), e32.clone()
+        rec[3, 40, 17] ^= 1
+        prov[5, 6, 511] ^= 2
+        prov[7, 7, 0] ^= 1
+        av = upload((rng.random((2 * kk, 2 * kk)) < 0.5).astype(np.uint8))
+        av[5, 6] = 1
+        for name, got, want in zip(("mismatch", "provided_mismatch"),
+                                   rs.repair_verdicts_cuda(e32, rec, prov, av),
+                                   rs.repair_verdicts_plain(e32, rec, prov, av)):
+            compare("rs_repair_verdicts", got, want, f"k={kk} {name} codec={codec}")
+        sq2 = upload(rng.integers(0, 256, (2, kk, kk, 512), dtype=np.uint8))
+        e2 = rs.extend_batched_cuda(sq2, codec)
+        compare("rs_extend_batched", e2, rs.extend_batched_plain(sq2, codec),
+                f"n=2 k={kk} codec={codec}")
+    compare("nmt_leaf_digests", nmt.eds_leaf_digests(e2), nmt.eds_leaf_digests_plain(e2),
+            "batch of 2 EDSs at k=32")
+    compare("nmt_combine_level", nmt.eds_nmt_roots(e2), nmt.eds_nmt_roots_plain(e2),
+            "batched roots of 2 EDSs at k=32")
+    del D32, e32, rec, prov, av, sq2, e2
     print("kernels: byte-equal to their plain versions "
-          f"(K5 at k=1..128 x {len(gf256.CODECS)} codecs, K2/K3 at k=128, K4 at n=512)")
+          f"(K5 at k=1..128 x {len(gf256.CODECS)} codecs, K2/K3 at k=128, K4 at n=512, K8a at "
+          "k=4/32/128, K8b/K8c/K5b and batched K2/K3 at k=32)")
 
     # times at the main path's k = 128 shapes (per block)
     codec = gf256.active_codec()
@@ -285,6 +392,55 @@ def main() -> int:
         return nodes
 
     parents = 4 * k * (n2 - 1)
+    # K8a/K8b/K8c at a repair's k = 128 shapes: under the 25 % mask of
+    # BASELINE config 4 every row is solvable in phase 1, so 2k axes
+    avail25 = rng.random((n2, n2)) >= 0.25
+    known25, axes25, segs25 = rs._schedule_tensors(rs._simulate_schedule(avail25, k), dev)
+    check(segs25 == [(0, n2, False)], f"the 25 % mask's schedule is {segs25}, not 2k rows")
+    N25 = n2
+    D25 = rs.decode_matrices_cuda(known25, k, codec)
+    compare("rs_decode_matrices", D25, rs._decode_matrices_dev(known25, k, codec),
+            "k=128, the 25 % mask's schedule")
+    # every cell but the known ones starts as garbage, so the decode must
+    # write each of them (the available-but-not-known cells too)
+    unknown_cells = torch.ones((n2, n2), dtype=torch.bool, device=dev)
+    unknown_cells[axes25.long()[:, None], known25.long()] = False
+    scratch = eds.clone()
+    scratch[unknown_cells] = upload(
+        rng.integers(0, 256, (int(unknown_cells.sum()), 512), dtype=np.uint8))
+    scratch_plain = scratch.clone()
+    # K8b's yardstick: its bit-GEMM (the unknown rows of each D, lifted,
+    # against the known cells' bit planes) as one fp16 torch.bmm, exact for
+    # 0/1 operands and sums <= 8k (torch._int_mm takes no batch)
+    known25_np = known25.cpu().numpy()
+    unknown25 = upload(np.stack([np.setdiff1d(np.arange(n2), kn) for kn in known25_np]))
+    D_unknown = torch.gather(D25, 1, unknown25.long()[:, :, None].expand(-1, -1, k))
+    Dh = rs._bit_expand_dev(D_unknown, codec).half()
+    Xh = rs.unpack_bits(rs._gather_known(eds, known25)).half()
+    del D_unknown
+    # K8c's inputs at k = 128: a re-extension differing in 8 cells, provided
+    # shares differing in 8 available cells and 8 withheld ones (only the
+    # available ones are flagged)
+    rec25, prov25 = eds.clone(), eds.clone()
+    av25 = upload(avail25.astype(np.uint8))
+    want_mm = np.zeros((n2, n2), dtype=bool)
+    want_pm = np.zeros((n2, n2), dtype=bool)
+    flat = rng.permutation(n2 * n2)
+    for i, cell in enumerate(flat[:8]):
+        r, c = divmod(int(cell), n2)
+        rec25[r, c, (37 * i) % 512] ^= 1 + i
+        want_mm[r, c] = True
+    held = flat[8:][avail25.reshape(-1)[flat[8:]]][:8]
+    withheld = flat[8:][~avail25.reshape(-1)[flat[8:]]][:8]
+    for i, cell in enumerate(np.concatenate([held, withheld])):
+        r, c = divmod(int(cell), n2)
+        prov25[r, c, (101 * i) % 512] ^= 0x80
+        want_pm[r, c] = bool(avail25[r, c])
+    check(want_pm.sum() == 8, "the k=128 verdict case has not 8 available cells to flip")
+    # K5b at the catch-up batch: 8 squares of k = 128; its yardstick is the
+    # bit-GEMM of the 8 squares as one torch._int_mm, as for K5
+    sq8 = upload(rng.integers(0, 256, (8, k, k, 512), dtype=np.uint8))
+    bits8 = torch.cat([bits] * 8, dim=1)
     timings = {
         "sha256_batch": (
             lambda: nmt.rfc6962_leaf_hashes(rand_roots),
@@ -328,6 +484,34 @@ def main() -> int:
             # each gathered byte read once and written once, and the index table
             bound(2 * g_bytes + g_items.nbytes, 0, INT32_OPS_PER_S),
         ),
+        "rs_extend_batched": (
+            lambda: rs.extend_batched_cuda(sq8, codec),
+            lambda: rs.extend_batched_plain(sq8, codec),
+            lambda: torch._int_mm(G, bits8),
+            bound(8 * (k * k * 512 + n2 * n2 * 512), 8 * leopard_extend_ops(k), INT32_OPS_PER_S),
+        ),
+        "rs_decode_matrices": (
+            lambda: rs.decode_matrices_cuda(known25, k, codec),
+            lambda: rs._decode_matrices_dev(known25, k, codec),
+            None,
+            bound(N25 * k + N25 * n2 * k, decode_matrix_ops(k, N25), INT32_OPS_PER_S),
+        ),
+        "rs_decode_axes": (
+            lambda: rs.decode_axes_cuda(scratch, D25, known25, axes25, False, codec),
+            lambda: rs.decode_axes_plain(scratch_plain, D25, known25, axes25, False, codec),
+            lambda: torch.bmm(Dh, Xh),
+            # the k known cells read and the k unknown ones written per axis, D and
+            # the index tables read once
+            bound(2 * N25 * k * 512 + N25 * n2 * k + N25 * (k + 4),
+                  leopard_decode_ops(k, N25), INT32_OPS_PER_S),
+        ),
+        "rs_repair_verdicts": (
+            lambda: rs.repair_verdicts_cuda(eds, rec25, prov25, av25),
+            lambda: rs.repair_verdicts_plain(eds, rec25, prov25, av25),
+            # two (a != b).any(-1) calls, one per mask
+            lambda: ((eds != rec25).any(-1), (eds != prov25).any(-1)),
+            bound(3 * n2 * n2 * 512 + 3 * n2 * n2, 0, INT32_OPS_PER_S),
+        ),
     }
     for name, (fast, plain, lib, (b_ms, b_by)) in timings.items():
         perf[name] = {
@@ -358,7 +542,41 @@ def main() -> int:
           f"| {smi}")
     results["row_level_stack_5_rows"] = {"ms": rows_ms, "plain_ms": rows_plain_ms,
                                          "bound_ms": rows_bound, "bound_by": rows_by}
+    # the outputs of the timed calls at the main path's k = 128 shapes
+    compare("rs_decode_axes", scratch, scratch_plain, "k=128 rows of the 25 % mask")
+    check(torch.equal(scratch, eds), "K8b did not restore the k=128 codeword's unknown cells")
+    for name, got, want, expect in zip(("mismatch", "provided_mismatch"),
+                                       rs.repair_verdicts_cuda(eds, rec25, prov25, av25),
+                                       rs.repair_verdicts_plain(eds, rec25, prov25, av25),
+                                       (want_mm, want_pm)):
+        compare("rs_repair_verdicts", got, want, f"k=128 {name}")
+        check(np.array_equal(got.cpu().numpy().astype(bool), expect),
+              f"K8c's k=128 {name} mask flags other cells than the flipped ones")
+    # the catch-up batch: K5b, then K2 over the 8 EDSs and K3 per level over
+    # all 8 x 4k trees (the JAX vmap of eds_nmt_roots)
+    e8 = rs.extend_batched_cuda(sq8, codec)
+    compare("rs_extend_batched", e8, rs.extend_batched_plain(sq8, codec), "n=8 k=128")
+    compare("nmt_leaf_digests", nmt.eds_leaf_digests(e8), nmt.eds_leaf_digests_plain(e8),
+            "batch of 8 EDSs at k=128")
+    compare("nmt_combine_level", nmt.eds_nmt_roots(e8), nmt.eds_nmt_roots_plain(e8),
+            "batched roots of 8 EDSs at k=128")
+    print("kernels at the main path's k=128 shapes: K8a (25 % mask's schedule), K8b (its rows, "
+          "unknown cells garbage), K8c (flipped cells), K5b and batched K2/K3 (n=8) byte-equal "
+          "to their plain versions")
+    vmap_ms = time_ms(lambda: nmt.eds_nmt_roots(e8))
+    vmap_plain_ms = time_ms(lambda: nmt.eds_nmt_roots_plain(e8), reps=1, warm=0)
+    vmap_bound, vmap_by = bound(
+        8 * (n2 * n2 * (512 + 90) + n2 * n2 * 90 + 2 * n2 * 90),
+        8 * (n2 * n2 * compressions(542) + parents * compressions(181)) * SHA_OPS_PER_COMPRESSION,
+        INT32_OPS_PER_S,
+    )
+    print(f"eds_nmt_roots, batch of 8 at k=128 (K2 + {n2.bit_length() - 1} x K3): {vmap_ms:.4f} ms, "
+          f"plain {vmap_plain_ms:.3f} ms, bound {vmap_bound:.4f} ms ({vmap_by}), library none "
+          f"| {smi}")
+    results["eds_nmt_roots_batch_8"] = {"ms": vmap_ms, "plain_ms": vmap_plain_ms,
+                                        "bound_ms": vmap_bound, "bound_by": vmap_by}
     del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out, row_leaves
+    del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
 
     # --- 3. Go-pinned goldens through the port's entry points on the card ---
     check(dah.min_data_availability_header().hash == golden.MIN_DAH_HASH, "MIN_DAH_HASH")
@@ -587,7 +805,217 @@ def main() -> int:
           + ", ".join(f"{n} {v:.3f}" for n, v in split.items()) + f" | {smi}")
     results["sample_proofs_batch_ms"] = serve_medians
     results["sample_proofs_batch_phases_ms"] = split
-    launches = {name: extend_launches[name] + serve_launches[name] for name in kernels.KERNELS}
+
+    # --- 4c. repair (BASELINE config 4) ---------------------------------------
+    def roots_np(hdr):
+        return [np.frombuffer(b"".join(r), dtype=np.uint8).reshape(-1, 90)
+                for r in (hdr.row_roots, hdr.col_roots)]
+
+    def masks(kk: int):
+        """(name, availability) of the three masks at square size kk."""
+        nn = 2 * kk
+        rows_cols = np.ones((nn, nn), dtype=bool)
+        rows_cols[rng.choice(nn, kk, replace=False), :] = False
+        rows_cols[:, rng.choice(nn, kk, replace=False)] = False
+        return [("25% cells", rng.random((nn, nn)) >= 0.25),
+                ("k rows + k cols", rows_cols),
+                ("deep peel", deep_peel_mask(kk))]
+
+    def damaged(full: torch.Tensor, avail: np.ndarray) -> torch.Tensor:
+        out = full.clone()
+        out[upload(~avail)] = 0x55
+        return out
+
+    plain_before = rs.plain_repairs()
+    kernels.reset_launch_counts()
+    t_repair = time.perf_counter()
+    repair_inputs = []
+    for _, sq_p, *_ in main_out:
+        eds_g, dah_g = dah.extend_block(sq_p)
+        repair_inputs.append((eds_g.tensor, dah_g))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()  # the re-extensions above are the extension path's
+    repair_stats = {}
+    for full, hdr in repair_inputs:
+        kk = full.shape[0] // 2
+        rr, cr = roots_np(hdr)
+        for name, avail in masks(kk):
+            phases = rs._simulate_schedule(avail, kk)[0].shape[0]
+            bad = damaged(full, avail)
+            out = rs.repair_square_device(bad, avail, rr, cr, return_device=True)
+            check(out.is_cuda and torch.equal(out, full),
+                  f"repair at k={kk} ({name}, P={phases}) did not give the plane's EDS")
+            repair_stats.setdefault((kk, name), phases)
+    torch.cuda.synchronize()
+    repair_launches = kernels.launch_counts()
+    check(rs.plain_repairs() == plain_before, "a repair on the card ran on the host")
+    print(f"repair path: {len(repair_inputs)} blocks x 3 masks in "
+          f"{time.perf_counter() - t_repair:.2f} s, every EDS restored on the card, no host "
+          f"repair; phases {sorted(set(repair_stats.items()))}; launches {repair_launches}")
+    for name in REPAIR_KERNELS:
+        check(repair_launches[name] > 0, f"kernel {name} was not launched on the repair path")
+    check(repair_stats[(128, "deep peel")] > 4 and repair_stats[(128, "25% cells")] == 1,
+          f"unexpected phase counts {repair_stats}")
+    # medians of warm calls per mask at k = 128 (outside the counted run)
+    full, hdr = next((f, h) for f, h in repair_inputs if f.shape[0] == 256)
+    rr, cr = roots_np(hdr)
+    repair_medians = {}
+    for name, avail in masks(128):
+        bad = damaged(full, avail)
+        rs.repair_square_device(bad, avail, rr, cr, return_device=True)
+        walls, bds = [], []
+        for _ in range(REPAIR_RUNS):
+            bd = {}
+            t0 = time.perf_counter()
+            out = rs.repair_square_device(bad, avail, rr, cr, breakdown=bd, return_device=True)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            bds.append(bd)
+            check(torch.equal(out, full), f"warm repair ({name}) differs")
+        med = {"wall_ms": statistics.median(walls), "phases": repair_stats[(128, name)]}
+        for key in ("schedule_ms", "upload_compute_ms", "verdict_fetch_ms", "kernels_ms"):
+            med[key] = statistics.median(b[key] for b in bds)
+        repair_medians[name] = med
+        print(f"repair_square_device k=128, {name} (P={med['phases']}): median wall "
+              f"{med['wall_ms']:.3f} ms over {REPAIR_RUNS} warm calls; schedule "
+              f"{med['schedule_ms']:.3f}, upload+compute {med['upload_compute_ms']:.3f}, verdict "
+              f"fetch {med['verdict_fetch_ms']:.3f}, kernels (CUDA events) "
+              f"{med['kernels_ms']:.3f} | {smi}")
+    results["repair_k128_medians"] = repair_medians
+
+    # byzantine and insufficient cases: the card against the plain path at k = 32
+    sq32 = rng.integers(0, 256, (32, 32, 512), dtype=np.uint8)
+    sq32[..., :29] = 0
+    eds32, dah32 = dah.extend_and_header(sq32)
+    host32 = eds32.tensor.cpu()
+    r32, c32 = roots_np(dah32)
+    n32 = 64
+    cases = []
+    avail = np.ones((n32, n32), dtype=bool)
+    avail[0, :31] = False  # row 0 keeps k + 1 cells: its last one is decoded over
+    cases.append(("provided shares", avail, (0, n32 - 1), {}))
+    avail = np.ones((n32, n32), dtype=bool)
+    avail[0, :32] = False
+    cases.append(("inconsistent erasure coding", avail, (0, 32), {}))
+    avail = np.ones((n32, n32), dtype=bool)
+    avail[1, 0] = False
+    cases.append(("committed NMT roots", avail, None, {"row_roots": np.zeros((n32, 90), np.uint8)}))
+    avail = np.zeros((n32, n32), dtype=bool)
+    avail[0, 0] = True
+    cases.append(("stalled", avail, None, {}))
+    for want, avail, flip, kw in cases:
+        raised = []
+        for tensor in (eds32.tensor, host32):
+            bad = tensor.clone()
+            if flip is not None:
+                bad[flip[0], flip[1], 7] ^= 0x04
+            try:
+                rs.repair_square_device(bad, avail, return_device=True, **kw)
+            except ValueError as e:
+                raised.append((type(e).__name__, str(e)))
+            else:
+                raised.append(None)
+        check(raised[0] is not None and want in raised[0][1],
+              f"the card did not raise '{want}': {raised[0]}")
+        check(raised[0] == raised[1], f"card and plain path raise differently: {raised}")
+    # a k = 32 repair on the card equals the plain path's
+    for name, avail in masks(32):
+        bad = damaged(eds32.tensor, avail)
+        card = rs.repair_square_device(bad, avail, r32, c32, return_device=True)
+        plain = rs.repair_square_device(bad.cpu(), avail, r32, c32, return_device=True)
+        check(torch.equal(card.cpu(), plain) and torch.equal(card, eds32.tensor),
+              f"k=32 repair ({name}): card and plain path differ")
+    print("repair byzantine cases raise on the card as on the plain path (provided shares, "
+          "inconsistent erasure coding, committed NMT roots, stalled); k=32 repairs equal")
+
+    # --- 4d. fraud -------------------------------------------------------------
+    full, hdr = repair_inputs[-1]
+    check(full.shape[0] == 256, "the last block is not k = 128")
+    bad = full.clone()
+    bad[2, 128 + 2, 100] ^= 0x5A  # a Q1 cell (tests/test_fraud.py:31-38)
+    bad_hdr = dah.new_data_availability_header(dah.ExtendedDataSquare(bad))
+    kernels.reset_launch_counts()
+    found = fraud.detect_bad_encoding(bad)
+    befp = fraud.build_befp(bad, *found)
+    torch.cuda.synchronize()
+    fraud_launches = kernels.launch_counts()
+    check(found == (fraud.AXIS_ROW, 2), f"detect_bad_encoding found {found}, not row 2")
+    check(befp.verify(bad_hdr), "the BEFP built on the card does not verify against the bad DAH")
+    check(not befp.verify(hdr), "the BEFP verifies against the honest DAH")
+    check(fraud.detect_bad_encoding(full) is None, "fraud detected in an honest block")
+    for name in FRAUD_KERNELS:
+        check(fraud_launches[name] > 0, f"kernel {name} was not launched on the fraud path")
+    detect_ms, build_ms = [], []
+    for _ in range(REPAIR_RUNS):
+        t0 = time.perf_counter()
+        fraud.detect_bad_encoding(bad)
+        t1 = time.perf_counter()
+        fraud.build_befp(bad, *found)
+        t2 = time.perf_counter()
+        detect_ms.append((t1 - t0) * 1e3)
+        build_ms.append((t2 - t1) * 1e3)
+    # at k = 32 the card's BEFP equals the plain path's
+    bad32 = eds32.tensor.clone()
+    bad32[1, 32 + 3, 100] ^= 0x5A
+    found32 = fraud.detect_bad_encoding(bad32)
+    check(found32 == fraud.detect_bad_encoding(bad32.cpu()) == (fraud.AXIS_ROW, 1),
+          f"k=32 detection: card {found32}")
+    check(fraud.build_befp(bad32, *found32).to_dict()
+          == fraud.build_befp(bad32.cpu(), *found32).to_dict(),
+          "k=32 BEFP: card and plain path differ")
+    fraud_medians = {"detect_ms": statistics.median(detect_ms),
+                     "build_befp_ms": statistics.median(build_ms)}
+    results["fraud_k128_medians"] = fraud_medians
+    print(f"fraud path: corrupted k=128 block detected at {found}, BEFP built on the card "
+          f"verifies against the bad DAH and not the honest one (k=32: equal to the plain "
+          f"path's); median detect {fraud_medians['detect_ms']:.3f} ms, build_befp "
+          f"{fraud_medians['build_befp_ms']:.3f} ms over {REPAIR_RUNS} calls; launches "
+          f"{fraud_launches} | {smi}")
+
+    # --- 4e. catch-up (BASELINE config 5) ---------------------------------------
+    by_size = {}
+    for _, sq_p, _, _, _, dah_p, _ in main_out:
+        by_size.setdefault(sq_p.size, []).append((sq_p, dah_p))
+    kernels.reset_launch_counts()
+    for size, items in by_size.items():
+        stacked = np.stack([sq_p.to_array().reshape(size, size, 512) for sq_p, _ in items])
+        _, data_roots = dah.data_roots_batched(stacked)
+        for (sq_p, hdr), got in zip(items, data_roots):
+            check(got == hdr.hash, f"catch-up data root differs from the DAH at k={size}")
+    torch.cuda.synchronize()
+    catchup_launches = kernels.launch_counts()
+    for name in CATCHUP_KERNELS:
+        check(catchup_launches[name] > 0, f"kernel {name} was not launched on the catch-up path")
+    more = [square_mod.build(tx_stream(128 * 128 * 478), max_square_size=128)[0] for _ in range(4)]
+    batch8 = np.stack([sq_p.to_array().reshape(128, 128, 512)
+                       for sq_p in [it[0] for it in by_size[128]] + more])
+    _, roots8 = dah.data_roots_batched(batch8)
+    for sq_p, got in zip(more, roots8[4:]):
+        check(got == dah.extend_block(sq_p)[1].hash, "catch-up data root of a new block differs")
+    batch8_dev = upload(batch8)
+    walls, kms = [], []
+    for _ in range(REPAIR_RUNS + 1):
+        t0 = time.perf_counter()
+        dah.data_roots_batched(batch8)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        e = rs.extend_squares_batched(batch8_dev)
+        r = nmt.eds_nmt_roots(e)
+        nmt.rfc6962_root_pow2(r.reshape(8, 512, 90))
+        ev[1].record()
+        ev[1].synchronize()
+        kms.append(ev[0].elapsed_time(ev[1]))
+    catchup = {"wall_ms": statistics.median(walls[1:]), "kernels_ms": statistics.median(kms[1:])}
+    results["catch_up_8_blocks_k128"] = catchup
+    print(f"catch-up path: {len(main_out)} blocks in {len(by_size)} batches, every data root equal "
+          f"to its DAH; launches {catchup_launches}")
+    print(f"data_roots_batched, 8 blocks at k=128: median wall {catchup['wall_ms']:.3f} ms "
+          f"(upload, kernels, one fetch), kernels {catchup['kernels_ms']:.3f} ms (CUDA events) over "
+          f"{REPAIR_RUNS} warm calls | {smi}")
+    del repair_inputs, batch8_dev, e, r
+
+    paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches)
+    launches = {name: sum(p[name] for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------
     line = {"kernels": [

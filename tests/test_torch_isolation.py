@@ -87,6 +87,51 @@ def test_main_path_runs_with_jax_and_celestia_tpu_unimportable():
     assert proc.stdout.startswith("OK ")
 
 
+def test_repair_fraud_and_catch_up_run_with_jax_and_celestia_tpu_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['celestia_tpu'] = None\n"
+        "import numpy as np\n"
+        "from celestia_tpu_torch.da import dah, fraud\n"
+        "from celestia_tpu_torch.ops import rs\n"
+        "rng = np.random.default_rng(5)\n"
+        "sq = rng.integers(0, 256, (2, 4, 4, 512), dtype='uint8')\n"
+        "sq[..., :29] = 0\n"
+        "eds, hdr = dah.extend_and_header(sq[0], device='cpu')\n"
+        "shares = eds.shares\n"
+        "# repair: withheld cells back, checked against the DAH's roots\n"
+        "avail = np.ones((8, 8), dtype=bool)\n"
+        "avail[:3, :5] = False\n"
+        "roots = [np.frombuffer(b''.join(r), dtype='uint8').reshape(8, 90)\n"
+        "         for r in (hdr.row_roots, hdr.col_roots)]\n"
+        "got = rs.repair_square_device(shares, avail, *roots, device='cpu')\n"
+        "assert (got == shares).all() and (rs.repair_square(shares, avail) == shares).all()\n"
+        "# fraud: a corrupted Q1 cell, recommitted, detected and proven\n"
+        "bad = shares.copy()\n"
+        "bad[1, 5, 100] ^= 0x5A\n"
+        "bad_hdr = dah.new_data_availability_header(dah.ExtendedDataSquare(bad), device='cpu')\n"
+        "found = fraud.detect_bad_encoding(bad, device='cpu')\n"
+        "assert found == ('row', 1), found\n"
+        "befp = fraud.build_befp(bad, *found, device='cpu')\n"
+        "assert befp.verify(bad_hdr) and not befp.verify(hdr)\n"
+        "# catch-up: a batch of two blocks' data roots\n"
+        "_, data_roots = dah.data_roots_batched(sq, device='cpu')\n"
+        "assert data_roots[0] == hdr.hash\n"
+        "assert data_roots[1] == dah.extend_and_header(sq[1], device='cpu')[1].hash\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
+        "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "print('OK')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_default_device_is_the_card():
     from celestia_tpu_torch.utils.device import resolve_device
 

@@ -7,8 +7,10 @@ against the plain versions there); this file checks the arithmetic they
 share with the twin: SHA-256 with its in-kernel padding and unaligned
 big-endian loads, the NMT leaf/node message layouts and the parity rule,
 the RFC-6962 level loop and its levels output, the GF(256) log/antilog
-extension, and the proof-path gather (K7b) over a device-plane entry's
-sources.
+extension (one square and a batch), the proof-path gather (K7b) over a
+device-plane entry's sources, and the repair kernels: decode matrices
+(K8a), the in-place decode of an orientation's axes (K8b) and the repair
+verdicts (K8c).
 """
 
 import ctypes
@@ -55,6 +57,12 @@ def twin(tmp_path_factory):
     t.twin_rfc6962_levels.argtypes = [_P, _P, I, I]
     t.twin_rs_extend.argtypes = [_P, _P, _P, _P, _P, I]
     t.twin_das_proof_gather.argtypes = [_P, I, _P, I, _P]
+    t.twin_nmt_leaf_digests_batched.argtypes = [_P, _P, I, I]
+    t.twin_nmt_combine_level_batched.argtypes = [_P, _P, LL, I, LL, LL, LL, LL, LL, LL, LL]
+    t.twin_rs_extend_batched.argtypes = [_P, _P, _P, _P, _P, I, I]
+    t.twin_rs_decode_matrices.argtypes = [_P, _P, _P, _P, I, I, I]
+    t.twin_rs_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
+    t.twin_rs_repair_verdicts.argtypes = [_P, _P, _P, _P, _P, _P, I]
     return t
 
 
@@ -230,3 +238,131 @@ def test_twin_rs_extend_matches_jax(twin, codec, k):
     G = jrs.jnp.asarray(jgf256.encode_matrix_bits(k, codec))
     want = np.asarray(jrs._extend(jrs.jnp.asarray(sq), G))
     np.testing.assert_array_equal(out, want)
+
+
+def _tables(codec):
+    exp, log = gf256.field_tables(codec)
+    return np.ascontiguousarray(exp, dtype=np.uint8), np.ascontiguousarray(log, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+def test_twin_rs_extend_batched_matches_k5(twin, codec):
+    k, n = 8, 3
+    rng = np.random.default_rng(800)
+    sq = rng.integers(0, 256, (n, k, k, 512), dtype=np.uint8)
+    gexp, glog = _tables(codec)
+    E = np.ascontiguousarray(gf256.encode_matrix(k, codec), dtype=np.uint8)
+    out = np.zeros((n, 2 * k, 2 * k, 512), dtype=np.uint8)
+    twin.twin_rs_extend_batched(_ptr(sq), _ptr(out), _ptr(E), _ptr(gexp), _ptr(glog), k, n)
+    for b in range(n):
+        one = np.zeros((2 * k, 2 * k, 512), dtype=np.uint8)
+        square = np.ascontiguousarray(sq[b])
+        twin.twin_rs_extend(_ptr(square), _ptr(one), _ptr(E), _ptr(gexp), _ptr(glog), k)
+        np.testing.assert_array_equal(out[b], one)
+    np.testing.assert_array_equal(out, rs.extend_batched_plain(torch.from_numpy(sq), codec).numpy())
+
+
+def test_twin_nmt_batched_levels_match_plain(twin):
+    k, n = 4, 3
+    rng = np.random.default_rng(801)
+    eds = np.stack([_random_eds(rng, k) for _ in range(n)])
+    n2, d = 2 * k, 90
+    grid = np.zeros((n, n2, n2, d), dtype=np.uint8)
+    twin.twin_nmt_leaf_digests_batched(_ptr(eds), _ptr(grid), n2, n)
+    np.testing.assert_array_equal(grid, nmt.eds_leaf_digests_plain(torch.from_numpy(eds)).numpy())
+    # the first level of every grid in one pass: groups of 4k trees
+    nodes = np.zeros((n * 2 * n2, k, d), dtype=np.uint8)
+    twin.twin_nmt_combine_level_batched(
+        _ptr(grid), _ptr(nodes), n * 2 * n2, k, n2, n2 * d, d, d, n2 * d, 2 * n2, n2 * n2 * d
+    )
+    np.testing.assert_array_equal(
+        nodes.reshape(n, 2 * n2, k, d), nmt.combine_grid_plain(torch.from_numpy(grid)).numpy()
+    )
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("k", [2, 8, 128])
+def test_twin_rs_decode_matrices_matches_plain(twin, codec, k):
+    rng = np.random.default_rng(810 + k)
+    n = 5
+    known = np.stack([rng.permutation(2 * k)[:k] for _ in range(n)]).astype(np.uint8)
+    known[0] = np.arange(k)  # the first k positions, as fraud detection asks
+    gexp, glog = _tables(codec)
+    D = np.zeros((n, 2 * k, k), dtype=np.uint8)
+    xor_const = k if codec == gf256.CODEC_LEOPARD else 0
+    twin.twin_rs_decode_matrices(_ptr(known), _ptr(D), _ptr(gexp), _ptr(glog), n, k, xor_const)
+    np.testing.assert_array_equal(D, rs._decode_matrices_dev(torch.from_numpy(known), k, codec).numpy())
+    if k <= 8:
+        want = np.asarray(jrs._decode_matrices_dev(jrs.jnp.asarray(known), k, codec))
+        np.testing.assert_array_equal(D, want)
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("k", [2, 8, 16])
+@pytest.mark.parametrize("cols", [False, True])
+def test_twin_rs_decode_axes_matches_plain(twin, codec, k, cols):
+    rng = np.random.default_rng(820 + k + 100 * cols)
+    n2 = 2 * k
+    eds = rng.integers(0, 256, (n2, n2, 512), dtype=np.uint8)
+    n = k + 1
+    axes = np.sort(rng.permutation(n2)[:n]).astype(np.int32)
+    # known sets that are not the first k positions (but one that is)
+    known = np.stack([np.sort(rng.permutation(n2)[:k]) for _ in range(n)]).astype(np.uint8)
+    known[-1] = np.arange(k)
+    D = rs._decode_matrices_dev(torch.from_numpy(known), k, codec)
+    gexp, glog = _tables(codec)
+    D_np = np.ascontiguousarray(D.numpy())
+    out = eds.copy()
+    twin.twin_rs_decode_axes(_ptr(out), _ptr(D_np), _ptr(known), _ptr(axes), _ptr(gexp),
+                             _ptr(glog), n, k, int(cols))
+    want = rs.decode_axes_plain(torch.from_numpy(eds.copy()), D, torch.from_numpy(known),
+                                torch.from_numpy(axes), cols, codec).numpy()
+    np.testing.assert_array_equal(out, want)
+    # known positions keep their bytes, unknown ones are all rewritten
+    view_out = out.transpose(1, 0, 2) if cols else out
+    view_in = eds.transpose(1, 0, 2) if cols else eds
+    for a, kn in zip(axes, known):
+        np.testing.assert_array_equal(view_out[a, kn], view_in[a, kn])
+
+
+def test_twin_rs_repair_verdicts_match_plain(twin):
+    rng = np.random.default_rng(830)
+    n2 = 8
+    rep = rng.integers(0, 4, (n2, n2, 512), dtype=np.uint8)
+    rec, prov = rep.copy(), rep.copy()
+    rec[0, 1, 0] ^= 1
+    rec[5, 5, 511] ^= 0x80
+    prov[2, 3, 17] ^= 1
+    prov[4, 4, 300] ^= 1  # not available: no provided mismatch
+    prov[6, 7, 496] ^= 1
+    avail = (rng.random((n2, n2)) < 0.5).astype(np.uint8)
+    avail[2, 3] = avail[6, 7] = 1
+    avail[4, 4] = 0
+    mismatch = np.zeros((n2, n2), dtype=np.uint8)
+    provided = np.zeros_like(mismatch)
+    twin.twin_rs_repair_verdicts(_ptr(rep), _ptr(rec), _ptr(prov), _ptr(avail), _ptr(mismatch),
+                                 _ptr(provided), n2 * n2)
+    want = rs.repair_verdicts_plain(*(torch.from_numpy(a) for a in (rep, rec, prov, avail)))
+    np.testing.assert_array_equal(mismatch, want[0].numpy())
+    np.testing.assert_array_equal(provided, want[1].numpy())
+    assert np.argwhere(mismatch).tolist() == [[0, 1], [5, 5]]
+    assert np.argwhere(provided).tolist() == [[2, 3], [6, 7]]
+
+
+def test_twin_rs_decode_axes_leaves_out_of_range_tables_unwritten(twin):
+    codec, k = gf256.CODEC_LEOPARD, 4
+    rng = np.random.default_rng(840)
+    eds = rng.integers(0, 256, (2 * k, 2 * k, 512), dtype=np.uint8)
+    known = np.array([[0, 1, 2, 3], [0, 1, 2, 2 * k], [4, 5, 6, 7]], dtype=np.uint8)
+    axes = np.array([2 * k, 1, 3], dtype=np.int32)  # axis past 2k; a position past 2k
+    D = np.ascontiguousarray(rs._decode_matrices_dev(torch.from_numpy(known), k, codec).numpy())
+    gexp, glog = _tables(codec)
+    out = eds.copy()
+    twin.twin_rs_decode_axes(_ptr(out), _ptr(D), _ptr(known), _ptr(axes), _ptr(gexp), _ptr(glog),
+                             3, k, 0)
+    np.testing.assert_array_equal(out[:3], eds[:3])  # rows 0-2 untouched (row 1 refused)
+    np.testing.assert_array_equal(out[4:], eds[4:])
+    want = rs.decode_axes_plain(torch.from_numpy(eds.copy()), torch.from_numpy(D[2:]),
+                                torch.from_numpy(known[2:]), torch.from_numpy(axes[2:]),
+                                False, codec).numpy()
+    np.testing.assert_array_equal(out[3], want[3])  # the valid axis is decoded
