@@ -1,5 +1,6 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
-// nmt.cuh, rs_extend.cuh, rs_decode.cuh, das_gather.cuh), compiled by g++ and
+// nmt.cuh, rs_extend.cuh, rs_decode.cuh, rs_sharded.cuh, das_gather.cuh),
+// compiled by g++ and
 // looped over the thread
 // indices on the host.  It lets the tests hold the kernels' arithmetic
 // against the JAX package on a machine without a card; it is never on the
@@ -12,6 +13,7 @@
 #include "nmt.cuh"
 #include "rs_decode.cuh"
 #include "rs_extend.cuh"
+#include "rs_sharded.cuh"
 
 extern "C" {
 
@@ -25,9 +27,15 @@ void twin_sha256_batch(const uint8_t* msgs, uint8_t* out, long long n, int L, in
   }
 }
 
+// K2 over a window of n_rows EDS rows from row0 (of each of batch EDSs).
+void twin_nmt_leaf_digests_window(const uint8_t* eds, uint8_t* out, int n2, int batch, int row0,
+                                  int n_rows) {
+  for (uint32_t cell = 0; cell < uint32_t(batch) * uint32_t(n_rows) * uint32_t(n2); ++cell)
+    ctt::nmt_leaf_body(eds, out, uint32_t(n2), uint32_t(row0), uint32_t(n_rows), cell);
+}
+
 void twin_nmt_leaf_digests_batched(const uint8_t* eds, uint8_t* out, int n2, int batch) {
-  for (uint32_t cell = 0; cell < uint32_t(batch) * uint32_t(n2) * uint32_t(n2); ++cell)
-    ctt::nmt_leaf_body(eds, out, uint32_t(n2), cell);
+  twin_nmt_leaf_digests_window(eds, out, n2, batch, 0, n2);
 }
 
 void twin_nmt_leaf_digests(const uint8_t* eds, uint8_t* out, int n2) {
@@ -87,21 +95,23 @@ void twin_das_proof_gather(const long long* srcs, int n_srcs, const int32_t* ite
   for (int i = 0; i < n_items; ++i) ctt::das_gather_body(table.data(), items, out, i, 0, 1);
 }
 
+// n_axes axes of k parity positions each from n_in inputs; E uint8[k, n_in]
+// (n_in = k for K5, k/R for K9a), as rs_encode_axes_kernel.
 static void twin_axes(const uint8_t* in, uint8_t* out, const uint8_t* E, const uint8_t* gexp,
-                      const uint8_t* glog, uint32_t k, uint64_t as, uint64_t ps, uint64_t oas,
-                      uint64_t ops) {
+                      const uint8_t* glog, uint32_t k, uint32_t n_in, uint64_t as, uint64_t ps,
+                      uint64_t oas, uint64_t ops, uint32_t n_axes) {
   std::vector<uint8_t> exp_t(ctt::kExpEntries);
-  std::vector<uint16_t> log_t(256), logE(ctt::kRsOutPerBlock * k);
+  std::vector<uint16_t> log_t(256), logE(ctt::kRsOutPerBlock * n_in);
   for (uint32_t i = 0; i < ctt::kExpEntries; ++i) exp_t[i] = ctt::rs_exp_entry(gexp, i);
   for (uint32_t v = 0; v < 256; ++v) log_t[v] = ctt::rs_log_entry(glog, v);
   for (uint32_t i0 = 0; i0 < k; i0 += ctt::kRsOutPerBlock) {
     const uint32_t nout = k - i0 < ctt::kRsOutPerBlock ? k - i0 : ctt::kRsOutPerBlock;
-    for (uint32_t idx = 0; idx < nout * k; ++idx)
-      logE[idx] = ctt::rs_log_entry(glog, E[(i0 + idx / k) * k + idx % k]);
-    for (uint32_t a = 0; a < k; ++a)
+    for (uint32_t idx = 0; idx < nout * n_in; ++idx)
+      logE[idx] = ctt::rs_log_entry(glog, E[(i0 + idx / n_in) * n_in + idx % n_in]);
+    for (uint32_t a = 0; a < n_axes; ++a)
       for (uint32_t t = 0; t < 128; ++t)
-        ctt::rs_axis_body(in, out, logE.data(), nout, k, as, ps, oas, ops, a, i0, t, exp_t.data(),
-                          log_t.data());
+        ctt::rs_axis_body(in, out, logE.data(), nout, n_in, as, ps, oas, ops, a, i0, t,
+                          exp_t.data(), log_t.data());
   }
 }
 
@@ -117,18 +127,42 @@ void twin_rs_extend_batched(const uint8_t* squares, uint8_t* eds, const uint8_t*
   for (int b = 0; b < n; ++b) {
     const uint8_t* q0 = squares + b * sq_bytes;
     uint8_t* out = eds + b * eds_bytes;
-    twin_axes(q0, out + K * S, E, gexp, glog, k, K * S, S, 2 * K * S, S);
-    twin_axes(q0, out + K * 2 * K * S, E, gexp, glog, k, S, K * S, S, 2 * K * S);
+    twin_axes(q0, out + K * S, E, gexp, glog, k, k, K * S, S, 2 * K * S, S, k);
+    twin_axes(q0, out + K * 2 * K * S, E, gexp, glog, k, k, S, K * S, S, 2 * K * S, k);
   }
   for (int b = 0; b < n; ++b) {
     uint8_t* q1 = eds + b * eds_bytes + K * S;
-    twin_axes(q1, q1 + 2 * K * K * S, E, gexp, glog, k, S, 2 * K * S, S, 2 * K * S);  // -> Q3
+    twin_axes(q1, q1 + 2 * K * K * S, E, gexp, glog, k, k, S, 2 * K * S, S, 2 * K * S, k);  // -> Q3
   }
 }
 
 void twin_rs_extend(const uint8_t* square, uint8_t* eds, const uint8_t* E, const uint8_t* gexp,
                     const uint8_t* glog, int k) {
   twin_rs_extend_batched(square, eds, E, gexp, glog, k, 1);
+}
+
+// rows uint8[n, k, 512] -> out uint8[n, 2k, 512], as ctt_rs_extend_rows.
+void twin_rs_extend_rows(const uint8_t* rows, uint8_t* out, const uint8_t* E, const uint8_t* gexp,
+                         const uint8_t* glog, int k, int n) {
+  const uint64_t S = 512, K = uint64_t(k);
+  for (int r = 0; r < n; ++r) memcpy(out + r * 2 * K * S, rows + r * K * S, K * S);
+  twin_axes(rows, out + K * S, E, gexp, glog, k, k, K * S, S, 2 * K * S, S, uint32_t(n));
+}
+
+// K9a, as ctt_rs_col_parity_partial: the 2k columns of each square's top
+// rows as axes, n_in inputs each.
+void twin_rs_col_parity_partial(const uint8_t* top, uint8_t* partial, const uint8_t* Es,
+                                const uint8_t* gexp, const uint8_t* glog, int k, int n_in, int n) {
+  const uint64_t S = 512, row = 2 * uint64_t(k) * S;
+  for (int b = 0; b < n; ++b)
+    twin_axes(top + b * n_in * row, partial + b * k * row, Es, gexp, glog, uint32_t(k),
+              uint32_t(n_in), S, row, S, row, 2 * uint32_t(k));
+}
+
+// K9b: every thread of ctt_xor_reduce_slabs.
+void twin_xor_reduce_slabs(const uint8_t* staged, uint8_t* out, int R, long long nbytes) {
+  const uint64_t n_words = uint64_t(nbytes) / 16;
+  for (uint64_t w = 0; w < n_words; ++w) ctt::xor_reduce_body(staged, out, uint32_t(R), n_words, w);
 }
 
 // K8a: one "block" per axis, as ctt_rs_decode_matrices launches them.

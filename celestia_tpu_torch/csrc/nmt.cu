@@ -15,7 +15,8 @@
 // by rows and by columns gives the same bytes for half the leaf work.  K3 is
 // one launch per level, one thread per parent node; its first level reads
 // the grid through two stride sets (rows for trees 0..2k, columns for
-// 2k..4k), later levels read the contiguous previous level.  A batch of
+// 2k..4k), later levels read the contiguous previous level.  K2 also takes
+// a window of EDS rows (a K9 shard's slab, parallel/sharded.py).  A batch of
 // EDSs (the catch-up path, JAX `jax.vmap(eds_nmt_roots)` at
 // celestia_tpu/node/network.py:407) is one K2 launch over every cell and
 // one K3 launch per level over all n * 4k trees (groups of 4k per grid).
@@ -25,10 +26,11 @@
 
 namespace {
 
-__global__ void nmt_leaf_kernel(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_t cells) {
+__global__ void nmt_leaf_kernel(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_t row0,
+                                uint32_t n_rows, uint32_t cells) {
   const uint32_t cell = blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= cells) return;
-  ctt::nmt_leaf_body(eds, out, n2, cell);
+  ctt::nmt_leaf_body(eds, out, n2, row0, n_rows, cell);
 }
 
 __global__ void nmt_combine_kernel(const uint8_t* in, uint8_t* out, uint64_t total,
@@ -41,14 +43,16 @@ __global__ void nmt_combine_kernel(const uint8_t* in, uint8_t* out, uint64_t tot
 
 }  // namespace
 
-// eds uint8[batch, n2, n2, 512] -> out uint8[batch, n2, n2, 90].
-extern "C" int ctt_nmt_leaf_digests(const void* eds, void* out, int n2, int batch, void* stream) {
+// eds uint8[batch, n_rows, n2, 512], rows row0 .. row0 + n_rows - 1 of each
+// EDS -> out uint8[batch, n_rows, n2, 90].  A whole EDS: row0 = 0, n_rows = n2.
+extern "C" int ctt_nmt_leaf_digests(const void* eds, void* out, int n2, int batch, int row0,
+                                    int n_rows, void* stream) {
   const int threads = 128;
   const unsigned cells =
-      static_cast<unsigned>(batch) * static_cast<unsigned>(n2) * static_cast<unsigned>(n2);
+      static_cast<unsigned>(batch) * static_cast<unsigned>(n_rows) * static_cast<unsigned>(n2);
   nmt_leaf_kernel<<<(cells + threads - 1) / threads, threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(static_cast<const uint8_t*>(eds),
-                                                         static_cast<uint8_t*>(out), n2, cells);
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(eds), static_cast<uint8_t*>(out), n2, row0, n_rows, cells);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -53,13 +53,18 @@ struct PairSrc {
   }
 };
 
-// K2: the leaf digest of EDS cell `cell` (row-major over n2 x n2, and over
-// a batch of squares before that) into out[cell] of a (..., n2, n2, 90)
-// grid.  Each cell is hashed once: row tree r reads grid row r, column tree
-// c reads grid column c -- the same bytes the JAX program hashes twice
-// (ops/nmt.py:100).
-CTT_HD void nmt_leaf_body(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_t cell) {
-  const uint32_t r = (cell / n2) % n2, c = cell % n2, k = n2 / 2;
+// K2: the leaf digest of cell `cell` of a window of n_rows EDS rows that
+// starts at EDS row row0 (row-major over n_rows x n2, and over a batch of
+// windows before that) into out[cell] of a (..., n_rows, n2, 90) grid.  The
+// whole EDS is the window row0 = 0, n_rows = n2; a K9 shard hashes its top
+// rows (row0 = shard * k/R) and its bottom rows (row0 = k + shard * k/R),
+// so the Q0 rule reads global coordinates (celestia_tpu/parallel/
+// sharded.py:106-114).  Each cell is hashed once: row tree r reads grid row
+// r, column tree c reads grid column c -- the same bytes the JAX program
+// hashes twice (ops/nmt.py:100).
+CTT_HD void nmt_leaf_body(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_t row0,
+                          uint32_t n_rows, uint32_t cell) {
+  const uint32_t r = row0 + (cell / n2) % n_rows, c = cell % n2, k = n2 / 2;
   const bool q0 = r < k && c < k;
   const uint8_t* share = eds + static_cast<uint64_t>(cell) * kShare;
   uint32_t st[8];

@@ -33,26 +33,28 @@ CTT_HD uint16_t rs_log_entry(const uint8_t* glog, uint32_t v) {
 }
 
 // One thread: bytes [4t, 4t+4) of parity positions i0 .. i0+nout-1 of axis
-// a.  Input axis a, position j lies at in + a*as + j*ps; output position i
-// at out + a*oas + i*ops.  logE holds log E[i0 + o][j] at o*k + j; exp and
-// log are the extended tables above.  The logs of an input word's four
-// bytes are looked up once and serve all nout outputs.
+// a, from its n_in input positions (k for K5; k/R for K9a's partial,
+// rs_extend.cu).  Input axis a, position j lies at in + a*as + j*ps;
+// output position i at out + a*oas + i*ops.  logE holds the log of input
+// j's coefficient for output i0 + o at o*n_in + j; exp and log are the
+// extended tables above.  The logs of an input word's four bytes are
+// looked up once and serve all nout outputs.
 CTT_HD void rs_axis_body(const uint8_t* in, uint8_t* out, const uint16_t* logE, uint32_t nout,
-                         uint32_t k, uint64_t as, uint64_t ps, uint64_t oas, uint64_t ops,
+                         uint32_t n_in, uint64_t as, uint64_t ps, uint64_t oas, uint64_t ops,
                          uint32_t a, uint32_t i0, uint32_t t, const uint8_t* exp_t,
                          const uint16_t* log_t) {
   uint32_t acc[kRsOutPerBlock];
 #pragma unroll
   for (uint32_t o = 0; o < kRsOutPerBlock; ++o) acc[o] = 0u;
   const uint8_t* src = in + a * as + 4u * t;
-  for (uint32_t j = 0; j < k; ++j) {
+  for (uint32_t j = 0; j < n_in; ++j) {
     const uint32_t x = *reinterpret_cast<const uint32_t*>(src + j * ps);
     const uint32_t l0 = log_t[x & 0xFFu], l1 = log_t[(x >> 8) & 0xFFu];
     const uint32_t l2 = log_t[(x >> 16) & 0xFFu], l3 = log_t[x >> 24];
 #pragma unroll
     for (uint32_t o = 0; o < kRsOutPerBlock; ++o) {
       if (o < nout) {
-        const uint32_t lc = logE[o * k + j];
+        const uint32_t lc = logE[o * n_in + j];
         acc[o] ^= uint32_t(exp_t[l0 + lc]) | (uint32_t(exp_t[l1 + lc]) << 8) |
                   (uint32_t(exp_t[l2 + lc]) << 16) | (uint32_t(exp_t[l3 + lc]) << 24);
       }

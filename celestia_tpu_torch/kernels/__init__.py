@@ -42,7 +42,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "ctt_sha256_batch": (_P, _P, _LL, _I, _I, _P),
-    "ctt_nmt_leaf_digests": (_P, _P, _I, _I, _P),
+    "ctt_nmt_leaf_digests": (_P, _P, _I, _I, _I, _I, _P),
     "ctt_nmt_combine_level": (_P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "ctt_rfc6962_root": (_P, _P, _I, _I, _P),
     "ctt_rs_extend": (_P, _P, _P, _P, _P, _I, _P),
@@ -51,6 +51,9 @@ _SIGNATURES = {
     "ctt_rs_decode_matrices": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ctt_rs_decode_axes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ctt_rs_repair_verdicts": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "ctt_rs_extend_rows": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "ctt_rs_col_parity_partial": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ctt_xor_reduce_slabs": (_P, _P, _I, _LL, _P),
 }
 
 # kernel name -> C entry; the names chip_smoke.py and PERF.md report
@@ -65,6 +68,8 @@ KERNELS = {
     "rs_decode_matrices": "ctt_rs_decode_matrices",
     "rs_decode_axes": "ctt_rs_decode_axes",
     "rs_repair_verdicts": "ctt_rs_repair_verdicts",
+    "rs_col_parity_partial": "ctt_rs_col_parity_partial",
+    "xor_reduce_slabs": "ctt_xor_reduce_slabs",
 }
 
 _lock = threading.Lock()
@@ -150,10 +155,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(kernel: str, device: torch.device, *args, launches: int = 1) -> None:
-    """Call ``kernel``'s C entry with ``args`` followed by the current stream
-    of ``device``; count ``launches`` kernel launches; raise on a CUDA error."""
-    fn = getattr(library(), KERNELS[kernel])
+def launch(kernel: str, device: torch.device, *args, launches: int = 1,
+           entry: Optional[str] = None) -> None:
+    """Call ``kernel``'s C entry (or ``entry``, another entry launching the
+    same kernel, e.g. K5's row pass ``ctt_rs_extend_rows``) with ``args``
+    followed by the current stream of ``device``; count ``launches`` kernel
+    launches of ``kernel``; raise on a CUDA error."""
+    fn = getattr(library(), entry or KERNELS[kernel])
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

@@ -21,7 +21,10 @@ through K1 (leaf hashes) and ``csrc/rfc6962.cu`` (K4 ``rfc6962_root``).
 On a CPU tensor each runs its plain PyTorch twin in this module.  Each EDS
 cell is hashed once, into a (2k, 2k, 90) grid that row trees read by rows
 and column trees by columns — the bytes the JAX program gets by hashing
-every cell twice.
+every cell twice.  K2 also hashes a window of EDS rows
+(:func:`leaf_digests_window`) and K3 reads trees down a grid's columns
+(:func:`combine_columns`): the sharded extension's slabs
+(parallel/sharded.py).
 
 The level stacks that proofs are served from: :func:`nmt_level_stack` (K1
 leaf digests, then K3 once per level, over any leading batch dimension)
@@ -160,11 +163,11 @@ def nmt_roots(leaves: torch.Tensor) -> torch.Tensor:
 
 
 def _prefix_leaves(block: torch.Tensor, row_ids: torch.Tensor, k: int) -> torch.Tensor:
-    """EDS rows uint8[R, 2k, 512] (EDS row indices ``row_ids``) ->
-    uint8[R, 2k, 29+512]: each cell with its prefix."""
+    """EDS rows uint8[(n,) R, 2k, 512] (EDS row indices ``row_ids``) ->
+    uint8[(n,) R, 2k, 29+512]: each cell with its prefix."""
     own_ns = block[..., :NAMESPACE_SIZE]
     parity = torch.from_numpy(_PARITY_NS.copy()).to(block.device).expand_as(own_ns)
-    c = torch.arange(block.shape[1], device=block.device)
+    c = torch.arange(block.shape[-2], device=block.device)
     in_q0 = (row_ids[:, None] < k) & (c[None, :] < k)
     prefix = torch.where(in_q0[..., None], own_ns, parity)
     return torch.cat([prefix, block], dim=-1)
@@ -225,7 +228,49 @@ def _check_eds(eds: torch.Tensor, batched: bool = False) -> int:
 def eds_leaf_digests_plain(eds: torch.Tensor) -> torch.Tensor:
     """Plain twin of K2 on any device (one EDS or a batch)."""
     _check_eds(eds, batched=eds.dim() == 4)
-    return _leaf_digests_with(rfc6962_leaf_hashes_plain, _prefixed_rows(eds))
+    return leaf_digests_window_plain(eds, 0)
+
+
+def _check_window(rows: torch.Tensor, row0: int) -> Tuple[int, int]:
+    """(n_rows, n2) of a window uint8[(n,) n_rows, 2k, 512] of EDS rows
+    starting at EDS row ``row0``."""
+    n2 = rows.shape[-2] if rows.dim() >= 2 else 0
+    if rows.dim() not in (3, 4) or rows.shape[-1] != SHARE_SIZE or n2 % 2:
+        raise ValueError(f"rows must be [(n,) n_rows, 2k, {SHARE_SIZE}], got {tuple(rows.shape)}")
+    _check_pow2(n2 // 2, "square size")
+    n_rows = rows.shape[-3]
+    if row0 < 0 or row0 + n_rows > n2:
+        raise ValueError(f"rows {row0}..{row0 + n_rows - 1} lie outside an EDS of {n2} rows")
+    return n_rows, n2
+
+
+def leaf_digests_window_plain(rows: torch.Tensor, row0: int) -> torch.Tensor:
+    """Plain twin of K2's row window on any device."""
+    n_rows, n2 = _check_window(rows, row0)
+    ids = torch.arange(row0, row0 + n_rows, device=rows.device)
+    return _leaf_digests_with(rfc6962_leaf_hashes_plain, _prefix_leaves(rows, ids, n2 // 2))
+
+
+def leaf_digests_window(rows: torch.Tensor, row0: int, out: torch.Tensor = None) -> torch.Tensor:
+    """K2 over a window of EDS rows: uint8[(n,) n_rows, 2k, 512], rows
+    ``row0`` .. ``row0 + n_rows - 1`` of each EDS -> their leaf digests
+    uint8[(n,) n_rows, 2k, 90] (into ``out`` when given), the Q0 prefix rule
+    read at the rows' EDS coordinates.  A K9 shard hashes its top and its
+    bottom rows this way (parallel/sharded.py); a whole EDS is the window
+    ``row0 = 0``, ``n_rows = 2k``."""
+    n_rows, n2 = _check_window(rows, row0)
+    shape = tuple(rows.shape[:-1]) + (NMT_DIGEST_SIZE,)
+    if _is_cpu(rows):
+        digests = leaf_digests_window_plain(rows, row0)
+        return digests if out is None else out.copy_(digests)
+    kernels.check_cuda_tensor(rows, "rows")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=rows.device)
+    kernels.check_cuda_tensor(out, "out", shape)
+    batch = rows.shape[0] if rows.dim() == 4 else 1
+    kernels.launch("nmt_leaf_digests", rows.device, rows.data_ptr(), out.data_ptr(), n2, batch,
+                   row0, n_rows)
+    return out
 
 
 def eds_leaf_digests(eds: torch.Tensor) -> torch.Tensor:
@@ -233,14 +278,32 @@ def eds_leaf_digests(eds: torch.Tensor) -> torch.Tensor:
     uint8[..., 2k, 2k, 90] (row r, column c = leaf c of row tree r = leaf r
     of column tree c), for one EDS or a batch uint8[n, 2k, 2k, 512] in one
     launch."""
-    n2 = _check_eds(eds, batched=eds.dim() == 4)
-    if _is_cpu(eds):
-        return eds_leaf_digests_plain(eds)
-    kernels.check_cuda_tensor(eds, "eds")
-    batch = eds.shape[0] if eds.dim() == 4 else 1
-    out = torch.empty(eds.shape[:-1] + (NMT_DIGEST_SIZE,), dtype=torch.uint8, device=eds.device)
-    kernels.launch("nmt_leaf_digests", eds.device, eds.data_ptr(), out.data_ptr(), n2, batch)
-    return out
+    _check_eds(eds, batched=eds.dim() == 4)
+    return leaf_digests_window(eds, 0)
+
+
+def combine_columns_plain(grid: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`combine_columns` on any device."""
+    return combine_level_plain(grid.transpose(-3, -2))
+
+
+def combine_columns(grid: torch.Tensor) -> torch.Tensor:
+    """K3's first level of the trees that run down the columns of a leaf
+    grid (tree c's leaf i is ``grid[..., i, c]``): uint8[..., m, n, 90] ->
+    uint8[..., n, m/2, 90], one launch for every grid of the batch.  A K9
+    shard's column subtrees read its slab's leaf grid this way, and the
+    finish reads the gathered subtree nodes (parallel/sharded.py)."""
+    if _is_cpu(grid):
+        return combine_columns_plain(grid)
+    m, n = grid.shape[-3], grid.shape[-2]
+    lead = tuple(grid.shape[:-3])
+    kernels.check_cuda_tensor(grid, "grid", lead + (m, n, NMT_DIGEST_SIZE))
+    if m < 2 or m % 2:
+        raise ValueError(f"grid must be [..., even m, n, 90], got {tuple(grid.shape)}")
+    d = NMT_DIGEST_SIZE
+    batch = int(np.prod(lead))
+    out = _combine_cuda(grid, batch * n, m // 2, n, (d, n * d), (d, n * d), group=(n, m * n * d))
+    return out.reshape(lead + (n, m // 2, d))
 
 
 def combine_grid_plain(grid: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,11 @@ Both give the same bytes, because G is E lifted bit by bit (gf256.py
 ``bit_expand_matrix``).
 
 :func:`extend_squares_batched` extends a batch of squares (K5b
-``rs_extend_batched`` on the card).  The repair half (``rsmt2d.Repair``,
+``rs_extend_batched`` on the card).  The sharded extension
+(parallel/sharded.py, K9) runs K5's row pass on a shard's rows
+(:func:`extend_rows`), its column-parity partial (K9a
+``rs_col_parity_partial``, :func:`col_parity_partial`) and the XOR of the
+staged partials (K9b ``xor_reduce_slabs``, :func:`xor_reduce_slabs`).  The repair half (``rsmt2d.Repair``,
 :func:`repair_square_device`) peels the availability mask on the host
 (:func:`_simulate_schedule`, bools only), then on the square's device
 builds every Lagrange decode matrix in one launch (K8a
@@ -230,6 +234,187 @@ def extend_squares_batched(squares: torch.Tensor) -> torch.Tensor:
     if squares.device.type == "cpu":
         return extend_batched_plain(squares, codec)
     return extend_batched_cuda(squares, codec)
+
+
+# ---------------------------------------------------------------------------
+# The sharded extension's pieces (parallel/sharded.py, K9): K5's row pass
+# over a shard's rows, the shard's column-parity partial (K9a
+# ``rs_col_parity_partial``) and the XOR of the staged slabs (K9b
+# ``xor_reduce_slabs``).  The plain versions keep the JAX package's forms
+# (celestia_tpu/parallel/sharded.py:60-95).
+# ---------------------------------------------------------------------------
+
+# gridDim.y of K5's row pass (one row axis per block row)
+_MAX_ROW_AXES = 65535
+
+
+def _check_rows(rows: torch.Tensor, share_size=None) -> int:
+    """k of rows uint8[n, k, B] of a square (B = ``share_size`` when given)."""
+    if rows.dim() != 3:
+        raise ValueError(f"rows must be (n, k, B), got {tuple(rows.shape)}")
+    k = rows.shape[1]
+    if (
+        not is_power_of_two(k)
+        or k > 128
+        or (share_size is not None and rows.shape[2] != share_size)
+    ):
+        raise ValueError(
+            f"rows must be (n, k, {share_size or 'B'}) with k a power of two <= 128, "
+            f"got {tuple(rows.shape)}"
+        )
+    if rows.dtype != torch.uint8:
+        raise ValueError(f"rows must be uint8, got {rows.dtype}")
+    return k
+
+
+def extend_rows_plain(rows: torch.Tensor, codec: str) -> torch.Tensor:
+    """Plain twin of K5's row pass: uint8[n, k, B] -> uint8[n, 2k, B], each
+    row followed by its parity (JAX ``_extend_rows_local``, sharded.py:60)."""
+    k = _check_rows(rows)
+    G = encode_matrix_bits_tensor(k, codec, str(rows.device))
+    return torch.cat([rows, _row_parity(rows, G)], dim=1)
+
+
+def extend_rows_cuda(rows: torch.Tensor, codec: str, out: torch.Tensor = None) -> torch.Tensor:
+    """K5's row pass on the card (``ctt_rs_extend_rows``, counted as
+    ``rs_extend``): one 2D copy and one launch, into ``out`` when given."""
+    k = _check_rows(rows, SHARE_SIZE)
+    kernels.check_cuda_tensor(rows, "rows")
+    n = rows.shape[0]
+    if n > _MAX_ROW_AXES:
+        raise ValueError(f"K5's row pass takes at most {_MAX_ROW_AXES} rows, got {n}")
+    shape = (n, 2 * k, SHARE_SIZE)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=rows.device)
+    kernels.check_cuda_tensor(out, "out", shape)
+    E, exp, log = _kernel_constants(k, codec, str(rows.device))
+    if n:
+        kernels.launch(
+            "rs_extend", rows.device, rows.data_ptr(), out.data_ptr(), E.data_ptr(),
+            exp.data_ptr(), log.data_ptr(), k, n, entry="ctt_rs_extend_rows",
+        )
+    return out
+
+
+def extend_rows(rows: torch.Tensor, codec: str, out: torch.Tensor = None) -> torch.Tensor:
+    """Rows uint8[n, k, 512] of squares -> uint8[n, 2k, 512] (into ``out``
+    when given): K5's row pass on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if rows.device.type == "cpu":
+        top = extend_rows_plain(rows, codec)
+        return top if out is None else out.copy_(top)
+    return extend_rows_cuda(rows, codec, out)
+
+
+def partial_coefficients(k: int, j0: int, n_in: int, codec: str, device) -> tuple:
+    """K9a's coefficients for the shard whose rows start at ``j0``, on
+    ``device``: on the card the shard's column slice of
+    ``gf256.encode_matrix(k, codec)`` (uint8[k, n_in]) and the codec's
+    (exp, log) tables; on the CPU the same slice of the bit-expanded matrix,
+    ``G[:, 8 j0 : 8 (j0 + n_in)]`` (JAX's ``g_cols``, sharded.py:83)."""
+    device = torch.device(device)
+    if not (0 <= j0 and n_in >= 1 and j0 + n_in <= k):
+        raise ValueError(f"rows {j0}..{j0 + n_in - 1} are not rows of a square of {k}")
+    if device.type == "cpu":
+        return (encode_matrix_bits_tensor(k, codec, "cpu")[:, 8 * j0 : 8 * (j0 + n_in)],)
+    E = np.ascontiguousarray(gf256.encode_matrix(k, codec)[:, j0 : j0 + n_in], dtype=np.uint8)
+    exp, log = gf256.field_tables(codec)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(device) for a in (E, exp, log)
+    )
+
+
+def _check_top(top: torch.Tensor, k: int) -> int:
+    """n_in of a shard's top rows uint8[n, n_in, 2k, B]."""
+    if top.dim() != 4 or top.shape[2] != 2 * k or top.dtype != torch.uint8:
+        raise ValueError(f"top must be uint8 (n, n_in, {2 * k}, B), got {tuple(top.shape)} "
+                         f"{top.dtype}")
+    return top.shape[1]
+
+
+def col_parity_partial_plain(top: torch.Tensor, g_cols: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K9a, the JAX bit-lift (sharded.py:82-87, packed):
+    top uint8[n, n_in, 2k, B] and ``g_cols`` int8[8k, 8 n_in] ->
+    partial uint8[n, k, 2k, B] = pack((g_cols @ bits(top by column)) & 1)."""
+    k = g_cols.shape[0] // 8
+    n_in = _check_top(top, k)
+    if g_cols.shape[1] != 8 * n_in:
+        raise ValueError(f"g_cols must be (8k, {8 * n_in}), got {tuple(g_cols.shape)}")
+    bits = unpack_bits(top.transpose(1, 2))  # (n, 2k, 8 n_in, B)
+    return pack_bits(matmul_gf2(g_cols, bits)).transpose(1, 2).contiguous()
+
+
+def col_parity_partial_cuda(top: torch.Tensor, Es: torch.Tensor, exp: torch.Tensor,
+                            log: torch.Tensor) -> torch.Tensor:
+    """Launch K9a ``rs_col_parity_partial``: top uint8[n, n_in, 2k, 512] on
+    the card with the shard's slice ``Es`` uint8[k, n_in] of the encode
+    matrix -> partial uint8[n, k, 2k, 512]."""
+    k, n_in = Es.shape
+    if not is_power_of_two(k) or k > 128 or _check_top(top, k) != n_in:
+        raise ValueError(f"top {tuple(top.shape)} and Es {tuple(Es.shape)} disagree")
+    n = top.shape[0]
+    kernels.check_cuda_tensor(top, "top", (n, n_in, 2 * k, SHARE_SIZE))
+    for t, name in ((Es, "Es"), (exp, "exp"), (log, "log")):
+        kernels.check_cuda_tensor(t, name)
+        if t.device != top.device:
+            raise ValueError(f"{name} is on {t.device}, top on {top.device}")
+    partial = torch.empty((n, k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=top.device)
+    if n:
+        kernels.launch(
+            "rs_col_parity_partial", top.device, top.data_ptr(), partial.data_ptr(),
+            Es.data_ptr(), exp.data_ptr(), log.data_ptr(), k, n_in, n,
+        )
+    return partial
+
+
+def col_parity_partial(top: torch.Tensor, coefficients: tuple) -> torch.Tensor:
+    """A shard's share of every column-parity row: top uint8[n, n_in, 2k,
+    512] -> uint8[n, k, 2k, 512], with the shard's
+    :func:`partial_coefficients`: K9a on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    if top.device.type == "cpu":
+        return col_parity_partial_plain(top, *coefficients)
+    return col_parity_partial_cuda(top, *coefficients)
+
+
+def xor_reduce_slabs_plain(staged: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K9b: uint8[R, ...] -> uint8[...], a loop of
+    ``torch.bitwise_xor``."""
+    out = staged[0].clone()
+    for slab in staged[1:]:
+        torch.bitwise_xor(out, slab, out=out)
+    return out
+
+
+def xor_reduce_slabs_cuda(staged: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """Launch K9b ``xor_reduce_slabs``: the XOR of the R slabs of ``staged``
+    uint8[R, ...] on the card, into ``out`` (contiguous, 16-byte aligned)
+    when given."""
+    kernels.check_cuda_tensor(staged, "staged")
+    if staged.dim() < 2 or not staged.shape[0]:
+        raise ValueError(f"staged must be [R >= 1, ...], got {tuple(staged.shape)}")
+    shape = tuple(staged.shape[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=staged.device)
+    kernels.check_cuda_tensor(out, "out", shape)
+    if out.device != staged.device:
+        raise ValueError(f"out is on {out.device}, staged on {staged.device}")
+    nbytes = out.numel()
+    if nbytes % 16 or staged.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("K9b moves 16-byte words: slab size and both addresses must be multiples of 16")
+    if nbytes:
+        kernels.launch("xor_reduce_slabs", staged.device, staged.data_ptr(), out.data_ptr(),
+                       staged.shape[0], nbytes)
+    return out
+
+
+def xor_reduce_slabs(staged: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """The XOR of the R slabs of ``staged`` uint8[R, ...] (into ``out`` when
+    given): K9b on a CUDA tensor, the plain version on a CPU tensor."""
+    if staged.device.type == "cpu":
+        red = xor_reduce_slabs_plain(staged)
+        return red if out is None else out.copy_(red)
+    return xor_reduce_slabs_cuda(staged, out)
 
 
 # ---------------------------------------------------------------------------

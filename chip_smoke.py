@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero):
    ``celestia_tpu_torch/csrc/*.cu``;
 2. every CUDA kernel against its plain PyTorch twin on the card, at the
    main path's shapes, byte for byte (K4 with its levels output at 512
-   leaves, K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block);
+   leaves, K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block, K9a
+   and K9b on every shard of a k = 128 square over 8 shards, K2 on their
+   row windows);
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
    points on the card;
 4. the extension path: seeded BlobTx streams, proposer ``square.build`` ->
@@ -47,6 +49,16 @@ Phases (any failure raises and the script exits non-zero):
    ``dah.data_roots_batched`` (K5b, batched K2/K3, K1 + K4 per block), each
    data root equal to the block's DAH hash; then one batch of 8 k = 128
    squares (the 4 seeded ones and 4 more from the seeded tx stream), timed;
+4f. the sharded extension (K9, ``parallel/sharded.py``) on meshes that
+   repeat the card R times (``make_mesh([cuda:0] * R)``, R = 1, 2, 4, 8) at
+   k = 64 and 128, the 8 seeded blocks at R = 4 and the catch-up batch of 8
+   on a 2 x 4 mesh: every EDS and DAH equal to ``extend_and_header``'s on
+   the card and to the golden hash; each call's launches exactly those of
+   its shards (counts set to 0 just before it and read just after, the
+   single-device references computed outside);
+   with two cards or more, a mesh over distinct cards too.  Medians of 5
+   warm calls per (k, R), wall and phases (row pass, K9a, reduce-scatter,
+   hashing, gathers, finish);
 5. the kernels line (JSON: time, bound, plain time, library time, launches
    summed over every path) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +70,7 @@ port is not beside it.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import statistics
@@ -90,6 +103,8 @@ REPLACES = {
     "rs_decode_matrices": "celestia_tpu/ops/rs.py:150",
     "rs_decode_axes": "celestia_tpu/ops/rs.py:206",
     "rs_repair_verdicts": "celestia_tpu/ops/rs.py:257",
+    "rs_col_parity_partial": "celestia_tpu/parallel/sharded.py:78",
+    "xor_reduce_slabs": "celestia_tpu/parallel/sharded.py:89",
 }
 SOURCES = {
     "sha256_batch": "celestia_tpu_torch/csrc/sha256.cu",
@@ -102,6 +117,8 @@ SOURCES = {
     "rs_decode_matrices": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_decode_axes": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_repair_verdicts": "celestia_tpu_torch/csrc/rs_decode.cu",
+    "rs_col_parity_partial": "celestia_tpu_torch/csrc/rs_extend.cu",
+    "xor_reduce_slabs": "celestia_tpu_torch/csrc/rs_sharded.cu",
 }
 # the kernels each path must launch
 EXTEND_KERNELS = ("sha256_batch", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root",
@@ -117,6 +134,11 @@ FRAUD_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_repair_verdicts", "
                  "nmt_combine_level", "das_proof_gather")
 CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level", "sha256_batch",
                    "rfc6962_root")
+# the sharded extension: K5's row pass, K9a, K9b, K2 windows, K3, K1 + K4
+SHARDED_KERNELS = ("rs_extend", "rs_col_parity_partial", "xor_reduce_slabs", "nmt_leaf_digests",
+                   "nmt_combine_level", "sha256_batch", "rfc6962_root")
+SHARDS = 8  # row shards of the kernels' checks and times at k = 128
+SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 
@@ -169,6 +191,24 @@ def deep_peel_mask(k: int) -> np.ndarray:
     avail[i, k + i] = True
     avail[k + i[:-1], i[:-1]] = True
     return avail
+
+
+def sharded_launches_per_call(k: int, R: int, groups: int = 1) -> dict:
+    """The launches of one sharded extension on a mesh that repeats one card,
+    ``groups`` data groups of R row shards (parallel/sharded.py): per shard
+    K5's row pass, K9a, K9b and two K2 windows, and K3's log2(2k) row-tree
+    and log2(k/R) column-subtree levels; per group log2(2R) finishing K3
+    levels (once: the group's shards share the device), K1 and K4."""
+    from celestia_tpu_torch import kernels
+
+    lg = lambda n: n.bit_length() - 1  # noqa: E731
+    shards = groups * R
+    counts = {name: 0 for name in kernels.KERNELS}
+    counts.update(rs_extend=shards, rs_col_parity_partial=shards, xor_reduce_slabs=shards,
+                  nmt_leaf_digests=2 * shards,
+                  nmt_combine_level=shards * (lg(2 * k) + lg(k // R)) + groups * lg(2 * R),
+                  sha256_batch=groups, rfc6962_root=groups)
+    return counts
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -441,6 +481,47 @@ def main() -> int:
     # bit-GEMM of the 8 squares as one torch._int_mm, as for K5
     sq8 = upload(rng.integers(0, 256, (8, k, k, 512), dtype=np.uint8))
     bits8 = torch.cat([bits] * 8, dim=1)
+    # K9 at k = 128 over R = 8 shards, every shard, on the k = 128 EDS's rows:
+    # K5's row pass on each shard's rows, K9a's partials (which XOR to the
+    # parity rows), K9b over each shard's staged slabs, K2 over its windows
+    R9, rows9 = SHARDS, k // SHARDS
+    tops, coeffs9, g_cols9, partials9 = [], [], [], []
+    for d in range(R9):
+        got = rs.extend_rows_cuda(sq[d * rows9 : (d + 1) * rows9], codec)
+        compare("rs_extend", got, rs.extend_rows_plain(sq[d * rows9 : (d + 1) * rows9], codec),
+                f"row pass of shard {d} of {R9} at k=128 against its plain version")
+        compare("rs_extend", got, eds[d * rows9 : (d + 1) * rows9],
+                f"row pass of shard {d} of {R9} at k=128 against the EDS's rows")
+        top = eds[d * rows9 : (d + 1) * rows9][None]  # (1, k/R, 2k, 512): Q0 | Q1 rows
+        tops.append(top)
+        coeffs9.append(rs.partial_coefficients(k, d * rows9, rows9, codec, dev))
+        g_cols9.append(G[:, 8 * d * rows9 : 8 * (d + 1) * rows9].contiguous())
+        partials9.append(rs.col_parity_partial_cuda(top, *coeffs9[d]))
+        compare("rs_col_parity_partial", partials9[d],
+                rs.col_parity_partial_plain(top, g_cols9[d]), f"shard {d} of {R9} at k=128")
+    compare("rs_col_parity_partial", rs.xor_reduce_slabs_plain(torch.stack(partials9))[0],
+            eds[k:], "the 8 partials' XOR against the EDS's parity rows")
+    staged9 = [torch.stack([p[:, d * rows9 : (d + 1) * rows9] for p in partials9])
+               for d in range(R9)]  # (R, 1, k/R, 2k, 512) on shard d
+    for d in range(R9):
+        got = rs.xor_reduce_slabs_cuda(staged9[d])
+        compare("xor_reduce_slabs", got, rs.xor_reduce_slabs_plain(staged9[d]),
+                f"shard {d} of {R9} at k=128")
+        compare("xor_reduce_slabs", got[0], eds[k + d * rows9 : k + (d + 1) * rows9],
+                f"shard {d}'s parity rows")
+        for row0 in (d * rows9, k + d * rows9):
+            window = eds[row0 : row0 + rows9]
+            got = nmt.leaf_digests_window(window, row0)
+            compare("nmt_leaf_digests", got, grid[row0 : row0 + rows9],
+                    f"row window {row0}..{row0 + rows9 - 1} against the full-EDS call")
+            compare("nmt_leaf_digests", got, nmt.leaf_digests_window_plain(window, row0),
+                    f"row window {row0}..{row0 + rows9 - 1} against its plain version")
+    # the library yardstick of K9a: torch._int_mm of each shard's bit-GEMM
+    # slice, G[:, 8 j0 : 8 (j0 + k/R)] against its rows' bit planes by column
+    bits9 = [rs.unpack_bits(t[0].transpose(0, 1)).permute(1, 0, 2).reshape(8 * rows9, n2 * 512)
+             .contiguous() for t in tops]
+    print(f"K9 at k=128, R={R9}: row passes, K9a partials (XOR = parity rows), K9b per shard and "
+          "K2 row windows byte-equal to their plain versions and the single-device EDS")
     timings = {
         "sha256_batch": (
             lambda: nmt.rfc6962_leaf_hashes(rand_roots),
@@ -512,6 +593,25 @@ def main() -> int:
             lambda: ((eds != rec25).any(-1), (eds != prov25).any(-1)),
             bound(3 * n2 * n2 * 512 + 3 * n2 * n2, 0, INT32_OPS_PER_S),
         ),
+        # K9a and K9b over all R = 8 shards of a k = 128 square, one call each
+        "rs_col_parity_partial": (
+            lambda: [rs.col_parity_partial_cuda(t, *c) for t, c in zip(tops, coeffs9)],
+            lambda: [rs.col_parity_partial_plain(t, g) for t, g in zip(tops, g_cols9)],
+            lambda: [torch._int_mm(g, b) for g, b in zip(g_cols9, bits9)],
+            # the top rows read once (16 MiB), R partials written (128 MiB); the
+            # column codewords' share (2k of 3k) of the Leopard least-work form
+            bound(k * n2 * 512 + R9 * k * n2 * 512, leopard_extend_ops(k) * 2 // 3,
+                  INT32_OPS_PER_S),
+        ),
+        "xor_reduce_slabs": (
+            lambda: [rs.xor_reduce_slabs_cuda(st) for st in staged9],
+            lambda: [rs.xor_reduce_slabs_plain(st) for st in staged9],
+            # a torch.bitwise_xor fold over each shard's R slabs
+            lambda: [functools.reduce(torch.bitwise_xor, st.unbind(0)) for st in staged9],
+            # R slabs read and one written per shard; R - 1 XORs per 4 bytes
+            bound(R9 * (R9 + 1) * rows9 * n2 * 512, R9 * (R9 - 1) * rows9 * n2 * 512 // 4,
+                  INT32_OPS_PER_S),
+        ),
     }
     for name, (fast, plain, lib, (b_ms, b_by)) in timings.items():
         perf[name] = {
@@ -577,6 +677,7 @@ def main() -> int:
                                         "bound_ms": vmap_bound, "bound_by": vmap_by}
     del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out, row_leaves
     del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
+    del tops, coeffs9, g_cols9, partials9, staged9, bits9
 
     # --- 3. Go-pinned goldens through the port's entry points on the card ---
     check(dah.min_data_availability_header().hash == golden.MIN_DAH_HASH, "MIN_DAH_HASH")
@@ -1014,7 +1115,136 @@ def main() -> int:
           f"{REPAIR_RUNS} warm calls | {smi}")
     del repair_inputs, batch8_dev, e, r
 
-    paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches)
+    # --- 4f. the sharded extension (K9) ------------------------------------------
+    # R shards on one card: a mesh that repeats the card, every kernel and
+    # every collective of the R-shard program on it
+    from celestia_tpu_torch.parallel import mesh as provider
+    from celestia_tpu_torch.parallel import sharded
+
+    def provided_mesh(spec: str, n: int, kk: int, batch: int = 0):
+        """The mesh provider's mesh for a k-square (or a batch of them) under
+        ``spec`` over n repeats of the card, as the block lifecycle asks."""
+        provider.configure(spec, devices=[dev] * n)
+        got = provider.mesh_for_batch(kk, batch) if batch else provider.mesh_for_square(kk)
+        data, row = provider.parse_spec(spec)
+        check(got is not None and got.shape == {"data": data, "row": row}
+              and all(d == dev for group in got.devices for d in group),
+              f"the provider gave no {spec} mesh for k={kk}")
+        return got
+
+    gold128 = golden.fixture_shares(128 * 128).reshape(128, 128, 512)
+    cases4f = [(64, main_out[0][1].to_array().reshape(64, 64, 512), main_out[0][5].hash),
+               (128, gold128, golden.DAH_128_HASH)]
+    extends0 = provider.stats()["sharded_extends"]
+    meshes = {R: provided_mesh(f"1x{R}", R, 64) for R in (1, 2, 4, 8)}
+    fallbacks0 = provider.stats()["fallback_squares"]
+    check(provider.mesh_for_square(4) is None  # k < R: the single-device path
+          and provider.stats()["fallback_squares"] == fallbacks0 + 1,
+          "the provider's 1x8 mesh did not route a k=4 square to the single-device path")
+    # the single-device references, before and outside the counted calls
+    single4f = {kk: dah.extend_and_header(arr) for kk, arr, _ in cases4f}
+    single8 = [dah.extend_and_header(batch8[i]) for i in range(8)]
+    sharded_launches = {name: 0 for name in kernels.KERNELS}
+
+    def counted(fn, arr, mesh_, kk):
+        """One sharded call with the counts set to 0 just before it and read
+        just after: exactly the launches of sharded_launches_per_call."""
+        kernels.reset_launch_counts()
+        out = fn(arr, mesh_)
+        got = kernels.launch_counts()
+        want = sharded_launches_per_call(kk, mesh_.shape["row"], mesh_.shape["data"])
+        check(got == want, f"sharded launches at k={kk}, mesh {mesh_.shape}: {got} != {want}")
+        for name, n in got.items():
+            sharded_launches[name] += n
+        return out
+
+    t_sh = time.perf_counter()
+    for R, mesh_R in meshes.items():
+        for kk, arr, want in cases4f:
+            eds_s, hdr_s = counted(sharded.extend_and_header_sharded, arr, mesh_R, kk)
+            eds_1, hdr_1 = single4f[kk]
+            check(hdr_s.hash == want, f"sharded data root at k={kk}, R={R} != the golden hash")
+            check(hdr_s == hdr_1, f"sharded DAH at k={kk}, R={R} differs from extend_and_header")
+            check(eds_s.tensor.device == dev and torch.equal(eds_s.tensor, eds_1.tensor),
+                  f"sharded EDS at k={kk}, R={R} differs from extend_and_header's")
+    for _, sq_p, _, _, eds_p, dah_p, _ in main_out:
+        eds_s, hdr_s = counted(sharded.extend_block_sharded, sq_p, meshes[4], sq_p.size)
+        check(hdr_s == dah_p, f"sharded DAH of a seeded block (k={sq_p.size}, R=4) differs")
+        check(torch.equal(eds_s.tensor, eds_p.tensor), "sharded EDS of a seeded block differs")
+    mesh_2x4 = provided_mesh("2x4", 8, batch8.shape[1], batch=8)
+    batched = counted(sharded.extend_and_headers_sharded_batch, batch8, mesh_2x4,
+                      batch8.shape[1])
+    check(len(batched) == 8, "the batched sharded leg returned another count")
+    for i, (eds_s, hdr_s) in enumerate(batched):
+        eds_1, hdr_1 = single8[i]
+        check(hdr_s == hdr_1 and hdr_s.hash == roots8[i],
+              f"batched sharded DAH of square {i} differs (data=2, row=4)")
+        check(torch.equal(eds_s.tensor, eds_1.tensor), f"batched sharded EDS of square {i} differs")
+    torch.cuda.synchronize()
+    print(f"sharded path: R=1,2,4,8 at k=64 and 128 (golden DAH_128_HASH), the 8 seeded blocks "
+          f"at R=4, 8 squares on a 2x4 mesh: every EDS and DAH equal to extend_and_header's, in "
+          f"{time.perf_counter() - t_sh:.2f} s; launches of every call exactly as counted, in all "
+          f"{sharded_launches}")
+    for name in SHARDED_KERNELS:
+        check(sharded_launches[name] > 0, f"kernel {name} was not launched on the sharded path")
+    check(provider.stats()["sharded_extends"] - extends0 == 2 * len(meshes) + len(main_out) + 8,
+          f"the provider counted {provider.stats()['sharded_extends'] - extends0} sharded squares")
+    provider.configure(None)
+    del single4f, single8
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        R = 1 << (n_cards.bit_length() - 1)
+        cards = sharded.make_mesh([torch.device("cuda", i) for i in range(R)])
+        eds_s, hdr_s = sharded.extend_and_header_sharded(gold128, cards)
+        check(hdr_s.hash == golden.DAH_128_HASH, f"sharded DAH over {R} cards differs")
+        check(torch.equal(eds_s.tensor, eds128.tensor.to(eds_s.tensor.device)),
+              f"sharded EDS over {R} cards differs")
+        print(f"sharded path over {R} distinct cards: golden DAH_128_HASH reproduced")
+    else:
+        print(f"sharded path over distinct cards: not run, {n_cards} card visible "
+              "(a mesh over distinct cards needs two)")
+    # medians of warm calls per (k, R): wall (host clock) and span (CUDA
+    # events) of extend_and_header_sharded, then its phases (events between
+    # them) in separate calls; the single-device call beside them
+    sharded_ms = {}
+    for kk, arr, _ in cases4f:
+        single = []
+        for _ in range(SHARDED_RUNS + 1):
+            t0 = time.perf_counter()
+            dah.extend_and_header(arr)
+            single.append((time.perf_counter() - t0) * 1e3)
+        for R, mesh_R in meshes.items():
+            sharded.extend_and_header_sharded(arr, mesh_R)
+            walls, spans, bds = [], [], []
+            for _ in range(SHARDED_RUNS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                sharded.extend_and_header_sharded(arr, mesh_R)
+                ev[1].record()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                ev[1].synchronize()
+                spans.append(ev[0].elapsed_time(ev[1]))
+                bd = {}
+                sharded._extend_and_roots_sharded_device(arr, mesh_R, record_stats=False,
+                                                         breakdown=bd)
+                bds.append(bd)
+            med = {"wall_ms": statistics.median(walls), "events_ms": statistics.median(spans),
+                   "single_device_wall_ms": statistics.median(single[1:])}
+            for key in bds[0]:
+                med[key] = statistics.median(b[key] for b in bds)
+            sharded_ms[f"k={kk},R={R}"] = med
+            print(f"extend_and_header_sharded k={kk} R={R} (one card): median wall "
+                  f"{med['wall_ms']:.3f} ms, events {med['events_ms']:.3f} ms over {SHARDED_RUNS} "
+                  f"warm calls (extend_and_header {med['single_device_wall_ms']:.3f} ms); phases "
+                  + ", ".join(f"{n[:-3]} {v:.3f}" for n, v in med.items() if n not in (
+                      "wall_ms", "events_ms", "single_device_wall_ms"))
+                  + f" | {smi}")
+    results["extend_and_header_sharded_ms"] = sharded_ms
+    del meshes, batched, eds_s, eds_1
+
+    paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
+             sharded_launches)
     launches = {name: sum(p[name] for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------

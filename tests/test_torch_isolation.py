@@ -132,6 +132,36 @@ def test_repair_fraud_and_catch_up_run_with_jax_and_celestia_tpu_unimportable():
     assert proc.stdout.startswith("OK")
 
 
+def test_sharded_extension_runs_with_jax_and_celestia_tpu_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['celestia_tpu'] = None\n"
+        "import numpy as np\n"
+        "from celestia_tpu_torch.da import dah\n"
+        "from celestia_tpu_torch.parallel import collectives, mesh, sharded\n"
+        "rng = np.random.default_rng(7)\n"
+        "sq = rng.integers(0, 256, (4, 4, 512), dtype='uint8')\n"
+        "sq[..., :29] = 0\n"
+        "m = sharded.make_mesh(['cpu'] * 4)\n"
+        "eds, hdr = sharded.extend_and_header_sharded(sq, m)\n"
+        "eds1, hdr1 = dah.extend_and_header(sq, device='cpu')\n"
+        "assert hdr == hdr1 and (eds.shares == eds1.shares).all()\n"
+        "mesh.configure('1x4', devices=['cpu'] * 4)\n"
+        "assert mesh.mesh_for_square(4) is not None and mesh.mesh_for_square(2) is None\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
+        "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "print('OK', hdr.hash.hex())\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK ")
+
+
 def test_default_device_is_the_card():
     from celestia_tpu_torch.utils.device import resolve_device
 

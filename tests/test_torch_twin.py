@@ -10,7 +10,9 @@ the RFC-6962 level loop and its levels output, the GF(256) log/antilog
 extension (one square and a batch), the proof-path gather (K7b) over a
 device-plane entry's sources, and the repair kernels: decode matrices
 (K8a), the in-place decode of an orientation's axes (K8b) and the repair
-verdicts (K8c).
+verdicts (K8c); and the sharded extension's kernels: K2 over a window of
+EDS rows, K5's row pass, the column-parity partial (K9a) and the XOR of
+staged slabs (K9b).
 """
 
 import ctypes
@@ -27,7 +29,7 @@ import jax
 from celestia_tpu.ops import gf256 as jgf256
 from celestia_tpu.ops import nmt as jnmt
 from celestia_tpu.ops import rs as jrs
-from _torch_common import torch_one_thread  # noqa: F401 (fixture)
+from _torch_common import pinned_codec, torch_one_thread  # noqa: F401 (fixture)
 from celestia_tpu_torch.da import device_plane, proof
 from celestia_tpu_torch.ops import gather, gf256, nmt, rs
 from celestia_tpu_torch.ops.sha256 import sha256_batch_host, sha256_plain
@@ -63,6 +65,10 @@ def twin(tmp_path_factory):
     t.twin_rs_decode_matrices.argtypes = [_P, _P, _P, _P, I, I, I]
     t.twin_rs_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
     t.twin_rs_repair_verdicts.argtypes = [_P, _P, _P, _P, _P, _P, I]
+    t.twin_nmt_leaf_digests_window.argtypes = [_P, _P, I, I, I, I]
+    t.twin_rs_extend_rows.argtypes = [_P, _P, _P, _P, _P, I, I]
+    t.twin_rs_col_parity_partial.argtypes = [_P, _P, _P, _P, _P, I, I, I]
+    t.twin_xor_reduce_slabs.argtypes = [_P, _P, I, LL]
     return t
 
 
@@ -366,3 +372,125 @@ def test_twin_rs_decode_axes_leaves_out_of_range_tables_unwritten(twin):
                                 torch.from_numpy(known[2:]), torch.from_numpy(axes[2:]),
                                 False, codec).numpy()
     np.testing.assert_array_equal(out[3], want[3])  # the valid axis is decoded
+
+
+@pytest.mark.parametrize("k", [2, 8])
+@pytest.mark.parametrize("window", ["all", "parity", "top", "bottom", "straddle"])
+def test_twin_nmt_leaf_digests_window(twin, k, window):
+    """K2 over a window of EDS rows, batched, against the plain window and
+    the whole EDS's grid: every parity row (row0 = k), windows inside the
+    top or the bottom half, and one across the Q0 boundary."""
+    n2 = 2 * k
+    row0, n_rows = {"all": (0, n2), "parity": (k, k), "top": (k // 2, k // 2),
+                    "bottom": (k + k // 2, k // 2), "straddle": (k - 1, 2)}[window]
+    rng = np.random.default_rng(900 + k)
+    eds = np.stack([_random_eds(rng, k) for _ in range(2)])
+    rows = np.ascontiguousarray(eds[:, row0 : row0 + n_rows])
+    out = np.zeros((2, n_rows, n2, 90), dtype=np.uint8)
+    twin.twin_nmt_leaf_digests_window(_ptr(rows), _ptr(out), n2, 2, row0, n_rows)
+    np.testing.assert_array_equal(
+        out, nmt.leaf_digests_window(torch.from_numpy(rows), row0).numpy())
+    np.testing.assert_array_equal(
+        out, nmt.eds_leaf_digests(torch.from_numpy(eds)).numpy()[:, row0 : row0 + n_rows])
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+def test_twin_rs_extend_rows_matches_plain(twin, codec):
+    k, n = 8, 5
+    rng = np.random.default_rng(901)
+    rows = rng.integers(0, 256, (n, k, 512), dtype=np.uint8)
+    gexp, glog = _tables(codec)
+    E = np.ascontiguousarray(gf256.encode_matrix(k, codec), dtype=np.uint8)
+    out = np.zeros((n, 2 * k, 512), dtype=np.uint8)
+    twin.twin_rs_extend_rows(_ptr(rows), _ptr(out), _ptr(E), _ptr(gexp), _ptr(glog), k, n)
+    np.testing.assert_array_equal(out, rs.extend_rows_plain(torch.from_numpy(rows), codec).numpy())
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("k,R", [(8, 1), (8, 2), (8, 8), (16, 4)])
+def test_twin_col_parity_partial_matches_plain(twin, codec, k, R):
+    """K9a's twin against its plain version (JAX's bit-lift), every shard of
+    a batch of two squares' top rows, with the kernel's coefficients."""
+    rows = k // R
+    rng = np.random.default_rng(902 + k + R)
+    top_all = rng.integers(0, 256, (2, k, 2 * k, 512), dtype=np.uint8)
+    gexp, glog = _tables(codec)
+    for d in range(R):
+        top = np.ascontiguousarray(top_all[:, d * rows : (d + 1) * rows])
+        Es = np.ascontiguousarray(gf256.encode_matrix(k, codec)[:, d * rows : (d + 1) * rows])
+        out = np.zeros((2, k, 2 * k, 512), dtype=np.uint8)
+        twin.twin_rs_col_parity_partial(_ptr(top), _ptr(out), _ptr(Es), _ptr(gexp), _ptr(glog),
+                                        k, rows, 2)
+        coeffs = rs.partial_coefficients(k, d * rows, rows, codec, "cpu")
+        np.testing.assert_array_equal(
+            out, rs.col_parity_partial(torch.from_numpy(top), coeffs).numpy())
+
+
+@pytest.mark.parametrize("R", [1, 2, 8])
+def test_twin_xor_reduce_slabs_matches_plain(twin, R):
+    rng = np.random.default_rng(903 + R)
+    staged = rng.integers(0, 256, (R, 4, 1024), dtype=np.uint8)
+    out = np.zeros((4, 1024), dtype=np.uint8)
+    twin.twin_xor_reduce_slabs(_ptr(staged), _ptr(out), R, out.nbytes)
+    np.testing.assert_array_equal(
+        out, rs.xor_reduce_slabs_plain(torch.from_numpy(staged)).numpy())
+
+
+# C entry -> its twin where the names differ (same arguments, no stream)
+_TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
+            "ctt_nmt_combine_level": "twin_nmt_combine_level_batched",
+            "ctt_rfc6962_root": "twin_rfc6962_levels"}
+
+
+@pytest.mark.parametrize("R", [2, 8])
+def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
+    """The sharded extension's card path (parallel/sharded.py with every
+    wrapper's CUDA branch: its strides, windows, out= views and launch
+    arguments) on CPU tensors, each launch going to the g++ twin of its C
+    entry: the same EDS and DAH as the plain single-device path."""
+    from celestia_tpu_torch import kernels
+    from celestia_tpu_torch.da import dah
+    from celestia_tpu_torch.parallel import sharded
+
+    codec, k = gf256.CODEC_LEOPARD, 8
+    sq = _random_eds(np.random.default_rng(904 + R), k)[:k, :k].copy()
+    eds_1, hdr_1 = dah.extend_and_header(sq, device="cpu")
+    launched = {}
+
+    def launch(kernel, device, *args, launches=1, entry=None):
+        c_entry = entry or kernels.KERNELS[kernel]
+        fn = getattr(twin, _TWIN_OF.get(c_entry, c_entry.replace("ctt_", "twin_")))
+        fn.argtypes = list(kernels._SIGNATURES[c_entry][:-1])  # no stream
+        fn(*args)
+        launched[kernel] = launched.get(kernel, 0) + launches
+
+    def check_tensor(t, name, shape=None):
+        assert t.dtype == torch.uint8 and t.is_contiguous(), name
+        assert shape is None or tuple(t.shape) == tuple(shape), (name, tuple(t.shape), shape)
+
+    def coefficients(k, j0, n_in, codec, device):
+        E = gf256.encode_matrix(k, codec)[:, j0 : j0 + n_in]
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8))
+                     for a in (E, *gf256.field_tables(codec)))
+
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(kernels, "check_cuda_tensor", check_tensor)
+    monkeypatch.setattr(nmt, "_is_cpu", lambda t: False)
+    monkeypatch.setattr(rs, "extend_rows", rs.extend_rows_cuda)
+    monkeypatch.setattr(rs, "partial_coefficients", coefficients)
+    monkeypatch.setattr(rs, "col_parity_partial", lambda top, c: rs.col_parity_partial_cuda(top, *c))
+    monkeypatch.setattr(rs, "xor_reduce_slabs", rs.xor_reduce_slabs_cuda)
+    with pinned_codec(codec):
+        eds, hdr = sharded.extend_and_header_sharded(sq, sharded.make_mesh(["cpu"] * R))
+    np.testing.assert_array_equal(eds.shares, eds_1.shares)
+    assert hdr == hdr_1
+    # one launch per shard of the row pass, K9a and K9b, two K2 windows per
+    # shard, K3: log2(2k) row-tree levels and log2(k/R) column-subtree levels
+    # per shard, then log2(2R) finishing levels once on the one device; K1 + K4
+    lg = lambda n: n.bit_length() - 1  # noqa: E731
+    assert launched == {
+        "rs_extend": R, "rs_col_parity_partial": R, "xor_reduce_slabs": R,
+        "nmt_leaf_digests": 2 * R,
+        "nmt_combine_level": R * (lg(2 * k) + lg(k // R)) + lg(2 * R),
+        "sha256_batch": 1, "rfc6962_root": 1,
+    }
