@@ -1,12 +1,13 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
 // nmt.cuh, rs_extend.cuh, rs_decode.cuh, rs_sharded.cuh, das_gather.cuh),
-// compiled by g++ and
-// looped over the thread
-// indices on the host.  It lets the tests hold the kernels' arithmetic
+// compiled by g++ and looped over the thread indices on the host; for the
+// tensor-core bit-GEMM (rs_extend.cuh) over blocks, warps and lanes, with
+// a host emulation of mma.sync in the PTX fragment layouts.  It lets the tests hold the kernels' arithmetic
 // against the JAX package on a machine without a card; it is never on the
 // port's path.  Build: g++ -O2 -std=c++17 -shared -fPIC cpu_twin.cpp.
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "das_gather.cuh"
@@ -14,6 +15,113 @@
 #include "rs_decode.cuh"
 #include "rs_extend.cuh"
 #include "rs_sharded.cuh"
+
+namespace {
+
+// One block of the GF(2) bit-GEMM (rs_extend.cuh gf2_gemm) over n_tiles
+// tiles of `ax`, n_in inputs each: its groups' expansion items, each from
+// its coefficient C(o, j) (zero for o >= n_out or j >= n_in) and the
+// product table, then tiles, chunks, the 8 warps and their 32 lanes in
+// order.  Each k-step builds every lane's fragments with the kernel's own
+// functions, then the host emulation of mma.sync runs each (m-tile, n-tile)
+// product over the warp.
+template <class Axes, class Coef>
+void twin_gf2_gemm(const Axes& ax, uint32_t n_tiles, uint32_t n_in, uint32_t n_out, const Coef& C,
+                   const uint8_t* prod) {
+  using namespace ctt;
+  const uint32_t n_chunks = gf2_chunks(n_in), items = n_chunks * 128u;
+  uint32_t groups = 0;
+  for (uint32_t tile = 0; tile < n_tiles; ++tile) groups = std::max(groups, ax.group(tile) + 1);
+  std::vector<uint8_t> frags(size_t(groups) * gf2_frag_bytes(n_in));
+  for (uint32_t i = 0; i < groups * items; ++i) {
+    uint32_t o, j;
+    gf2_item_coef(i % items, &o, &j);
+    o += i / items * kGf2Outputs;
+    gf2_expand_item(o < n_out && j < n_in ? C(o, j) : 0u, prod,
+                    frags.data() + (i / items) * gf2_frag_bytes(n_in), i % items);
+  }
+  std::vector<int32_t> acc_v(size_t(kGf2Warps) * 32 * kGf2Mt * kGf2Nt * 4);
+  auto acc = reinterpret_cast<int32_t(*)[32][kGf2Mt][kGf2Nt][4]>(acc_v.data());
+  for (uint32_t tile = 0; tile < n_tiles; ++tile) {
+    const uint8_t* fg = frags.data() + size_t(ax.group(tile)) * gf2_frag_bytes(n_in);
+    std::fill(acc_v.begin(), acc_v.end(), 0);
+    for (uint32_t c = 0; c < n_chunks; ++c) {
+      for (uint32_t warp = 0; warp < kGf2Warps; ++warp) {
+        uint32_t x[32][4][2];
+        for (uint32_t lane = 0; lane < 32; ++lane) gf2_lane_chunk(ax, tile, n_in, c, warp, lane, x[lane]);
+        for (uint32_t kk = 0; kk < 4; ++kk) {
+          uint32_t af[32][kGf2Mt][4], bf[32][kGf2Nt][2];
+          for (uint32_t lane = 0; lane < 32; ++lane) {
+            for (uint32_t mt = 0; mt < kGf2Mt; ++mt) gf2_lane_afrag(fg, c, kk, mt, lane, af[lane][mt]);
+            gf2_b_frags(x[lane][kk], bf[lane]);
+          }
+          for (uint32_t mt = 0; mt < kGf2Mt; ++mt)
+            for (uint32_t nt = 0; nt < kGf2Nt; ++nt) {
+              int32_t d[32][4];
+              uint32_t av[32][4], bv[32][2];
+              for (uint32_t lane = 0; lane < 32; ++lane) {
+                memcpy(d[lane], acc[warp][lane][mt][nt], sizeof d[lane]);
+                memcpy(av[lane], af[lane][mt], sizeof av[lane]);
+                memcpy(bv[lane], bf[lane][nt], sizeof bv[lane]);
+              }
+              gf2_mma_warp(d, av, bv);
+              for (uint32_t lane = 0; lane < 32; ++lane)
+                memcpy(acc[warp][lane][mt][nt], d[lane], sizeof d[lane]);
+            }
+        }
+      }
+    }
+    for (uint32_t warp = 0; warp < kGf2Warps; ++warp)
+      for (uint32_t lane = 0; lane < 32; ++lane) {
+        const uint32_t g = lane / 4, q = lane % 4;
+        if (g >= ax.outputs(tile)) continue;
+        uint32_t v[4];
+        gf2_pack(acc[warp][lane], v);
+        memcpy(ax.dst(tile, g) + warp * kGf2WarpBytes + 16 * q, v, 16);
+      }
+  }
+}
+
+std::vector<uint8_t> twin_products(const uint8_t* gexp, const uint8_t* glog) {
+  std::vector<uint8_t> prod(256 * 8);
+  for (uint32_t c = 0; c < 256; ++c) ctt::gf2_product_row(c, gexp, glog, prod.data() + 8 * c);
+  return prod;
+}
+
+// The blocks of one rs_gf2_encode_kernel launch (rs_extend.cu
+// launch_encode): k outputs of n_axes axes of each of nz (square, set)
+// pairs, set = z % nsets of s[0..nsets), square z / nsets at ibs / obs bytes
+// on.  s[] holds (in, out, as, ps, oas, ops) as AxisSet does.
+struct TwinAxisSet {
+  const uint8_t* in;
+  uint8_t* out;
+  uint64_t as, ps, oas, ops;
+};
+
+void twin_encode(const TwinAxisSet* s, const uint8_t* E, const uint8_t* gexp, const uint8_t* glog,
+                 uint32_t k, uint32_t n_in, uint32_t n_axes, uint32_t nsets, uint32_t nz,
+                 uint64_t ibs, uint64_t obs) {
+  using namespace ctt;
+  const std::vector<uint8_t> prod = twin_products(gexp, glog);
+  const uint32_t groups = (k + kGf2Outputs - 1) / kGf2Outputs;
+  const uint32_t apb = gf2_axes_per_block(groups * nz, n_axes);
+  for (uint32_t z = 0; z < nz; ++z)
+    for (uint32_t y = 0; y < (n_axes + apb - 1) / apb; ++y)
+      for (uint32_t x = 0; x < groups; ++x) {
+        const TwinAxisSet& st = s[z % nsets];
+        const uint64_t b = z / nsets;
+        const uint32_t i0 = x * kGf2Outputs, a0 = y * apb;
+        const uint32_t nout = k - i0 < kGf2Outputs ? k - i0 : kGf2Outputs;
+        const uint32_t na = n_axes - a0 < apb ? n_axes - a0 : apb;
+        const Gf2EncodeAxes ax{st.in + b * ibs + a0 * st.as,
+                               st.out + b * obs + a0 * st.oas + i0 * st.ops, st.as, st.ps,
+                               st.oas, st.ops, nout};
+        twin_gf2_gemm(ax, na, n_in, nout,
+                      [&](uint32_t o, uint32_t j) { return E[(i0 + o) * n_in + j]; }, prod.data());
+      }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -95,26 +203,6 @@ void twin_das_proof_gather(const long long* srcs, int n_srcs, const int32_t* ite
   for (int i = 0; i < n_items; ++i) ctt::das_gather_body(table.data(), items, out, i, 0, 1);
 }
 
-// n_axes axes of k parity positions each from n_in inputs; E uint8[k, n_in]
-// (n_in = k for K5, k/R for K9a), as rs_encode_axes_kernel.
-static void twin_axes(const uint8_t* in, uint8_t* out, const uint8_t* E, const uint8_t* gexp,
-                      const uint8_t* glog, uint32_t k, uint32_t n_in, uint64_t as, uint64_t ps,
-                      uint64_t oas, uint64_t ops, uint32_t n_axes) {
-  std::vector<uint8_t> exp_t(ctt::kExpEntries);
-  std::vector<uint16_t> log_t(256), logE(ctt::kRsOutPerBlock * n_in);
-  for (uint32_t i = 0; i < ctt::kExpEntries; ++i) exp_t[i] = ctt::rs_exp_entry(gexp, i);
-  for (uint32_t v = 0; v < 256; ++v) log_t[v] = ctt::rs_log_entry(glog, v);
-  for (uint32_t i0 = 0; i0 < k; i0 += ctt::kRsOutPerBlock) {
-    const uint32_t nout = k - i0 < ctt::kRsOutPerBlock ? k - i0 : ctt::kRsOutPerBlock;
-    for (uint32_t idx = 0; idx < nout * n_in; ++idx)
-      logE[idx] = ctt::rs_log_entry(glog, E[(i0 + idx / n_in) * n_in + idx % n_in]);
-    for (uint32_t a = 0; a < n_axes; ++a)
-      for (uint32_t t = 0; t < 128; ++t)
-        ctt::rs_axis_body(in, out, logE.data(), nout, n_in, as, ps, oas, ops, a, i0, t,
-                          exp_t.data(), log_t.data());
-  }
-}
-
 // squares uint8[n, k, k, 512] -> eds uint8[n, 2k, 2k, 512] in the order of
 // ctt_rs_extend_batched's launches: every square's Q0 copy, then Q1 and Q2
 // of each square (blockIdx.z = 2b + set), then Q3 of each.
@@ -124,16 +212,13 @@ void twin_rs_extend_batched(const uint8_t* squares, uint8_t* eds, const uint8_t*
   for (int b = 0; b < n; ++b)
     for (uint64_t r = 0; r < K; ++r)
       memcpy(eds + b * eds_bytes + r * 2 * K * S, squares + b * sq_bytes + r * K * S, K * S);
-  for (int b = 0; b < n; ++b) {
-    const uint8_t* q0 = squares + b * sq_bytes;
-    uint8_t* out = eds + b * eds_bytes;
-    twin_axes(q0, out + K * S, E, gexp, glog, k, k, K * S, S, 2 * K * S, S, k);
-    twin_axes(q0, out + K * 2 * K * S, E, gexp, glog, k, k, S, K * S, S, 2 * K * S, k);
-  }
-  for (int b = 0; b < n; ++b) {
-    uint8_t* q1 = eds + b * eds_bytes + K * S;
-    twin_axes(q1, q1 + 2 * K * K * S, E, gexp, glog, k, k, S, 2 * K * S, S, 2 * K * S, k);  // -> Q3
-  }
+  uint8_t* q1 = eds + K * S;
+  uint8_t* q2 = eds + K * 2 * K * S;
+  const TwinAxisSet sets[2] = {{squares, q1, K * S, S, 2 * K * S, S},
+                               {squares, q2, S, K * S, S, 2 * K * S}};
+  twin_encode(sets, E, gexp, glog, k, k, k, 2, 2 * n, sq_bytes, eds_bytes);
+  const TwinAxisSet q1cols{q1, q2 + K * S, S, 2 * K * S, S, 2 * K * S};  // -> Q3
+  twin_encode(&q1cols, E, gexp, glog, k, k, k, 1, n, eds_bytes, eds_bytes);
 }
 
 void twin_rs_extend(const uint8_t* square, uint8_t* eds, const uint8_t* E, const uint8_t* gexp,
@@ -146,7 +231,8 @@ void twin_rs_extend_rows(const uint8_t* rows, uint8_t* out, const uint8_t* E, co
                          const uint8_t* glog, int k, int n) {
   const uint64_t S = 512, K = uint64_t(k);
   for (int r = 0; r < n; ++r) memcpy(out + r * 2 * K * S, rows + r * K * S, K * S);
-  twin_axes(rows, out + K * S, E, gexp, glog, k, k, K * S, S, 2 * K * S, S, uint32_t(n));
+  const TwinAxisSet set{rows, out + K * S, K * S, S, 2 * K * S, S};
+  twin_encode(&set, E, gexp, glog, k, k, uint32_t(n), 1, 1, 0, 0);
 }
 
 // K9a, as ctt_rs_col_parity_partial: the 2k columns of each square's top
@@ -154,9 +240,9 @@ void twin_rs_extend_rows(const uint8_t* rows, uint8_t* out, const uint8_t* E, co
 void twin_rs_col_parity_partial(const uint8_t* top, uint8_t* partial, const uint8_t* Es,
                                 const uint8_t* gexp, const uint8_t* glog, int k, int n_in, int n) {
   const uint64_t S = 512, row = 2 * uint64_t(k) * S;
-  for (int b = 0; b < n; ++b)
-    twin_axes(top + b * n_in * row, partial + b * k * row, Es, gexp, glog, uint32_t(k),
-              uint32_t(n_in), S, row, S, row, 2 * uint32_t(k));
+  const TwinAxisSet cols{top, partial, S, row, S, row};
+  twin_encode(&cols, Es, gexp, glog, uint32_t(k), uint32_t(n_in), 2 * uint32_t(k), 1,
+              uint32_t(n), n_in * row, k * row);
 }
 
 // K9b: every thread of ctt_xor_reduce_slabs.
@@ -179,30 +265,55 @@ void twin_rs_decode_matrices(const uint8_t* known, uint8_t* D, const uint8_t* ge
   }
 }
 
-// K8b: the blocks of ctt_rs_decode_axes one after another.
-void twin_rs_decode_axes(uint8_t* eds, const uint8_t* D, const uint8_t* known,
-                         const int32_t* axes, const uint8_t* gexp, const uint8_t* glog, int n,
-                         int k, int cols) {
+// K8b: the blocks of ctt_rs_decode_axes one after another, `gpb` output
+// groups a block, each with rs_gf2_decode_kernel's prologue (the
+// known-position bitmap, the ranks of the unknown positions, the range
+// check) run thread by thread.
+void twin_rs_decode_axes_grouped(uint8_t* eds, const uint8_t* D, const uint8_t* known,
+                                 const int32_t* axes, const uint8_t* gexp, const uint8_t* glog,
+                                 int n, int k, int cols, int gpb_arg) {
+  using namespace ctt;
   const uint64_t S = 512, n2 = 2 * uint64_t(k);
   const uint64_t as = cols ? S : n2 * S, ps = cols ? n2 * S : S;
-  std::vector<uint8_t> exp_t(ctt::kExpEntries), opos(static_cast<size_t>(k));
-  std::vector<uint16_t> log_t(256), logD(ctt::kRsOutPerBlock * size_t(k));
-  for (uint32_t i = 0; i < ctt::kExpEntries; ++i) exp_t[i] = ctt::rs_exp_entry(gexp, i);
-  for (uint32_t v = 0; v < 256; ++v) log_t[v] = ctt::rs_log_entry(glog, v);
+  const uint32_t K = uint32_t(k), groups = (K + kGf2Outputs - 1) / kGf2Outputs;
+  const uint32_t gpb = uint32_t(gpb_arg);
+  const std::vector<uint8_t> prod = twin_products(gexp, glog);
+  std::vector<uint8_t> opos(K);
   for (int a = 0; a < n; ++a) {
     const uint8_t* kpos = known + size_t(a) * k;
     const uint8_t* Da = D + size_t(a) * 2 * k * k;
-    ctt::rs_unknown_positions(kpos, k, opos.data());
-    if (!ctt::rs_axis_in_bounds(kpos, k, axes[a])) continue;
-    for (uint32_t i0 = 0; i0 < uint32_t(k); i0 += ctt::kRsOutPerBlock) {
-      const uint32_t nout = k - i0 < ctt::kRsOutPerBlock ? k - i0 : ctt::kRsOutPerBlock;
-      for (uint32_t idx = 0; idx < nout * k; ++idx)
-        logD[idx] = ctt::rs_log_entry(glog, Da[opos[i0 + idx / k] * k + idx % k]);
-      for (uint32_t t = 0; t < 128; ++t)
-        ctt::rs_decode_body(eds, logD.data(), kpos, opos.data() + i0, nout, k, as, ps,
-                            uint32_t(axes[a]), t, exp_t.data(), log_t.data());
+    uint32_t known_bits[8] = {0};
+    bool out_of_range = axes[a] < 0 || uint32_t(axes[a]) >= 2 * K;
+    for (uint32_t j = 0; j < K; ++j) {
+      if (kpos[j] < 2 * K)
+        known_bits[kpos[j] / 32] |= 1u << (kpos[j] % 32);
+      else
+        out_of_range = true;
+    }
+    if (out_of_range) continue;
+    for (uint32_t p = 0; p < 2 * K; ++p) {
+      if (rs_is_known(known_bits, p)) continue;
+      const uint32_t r = rs_unknown_rank(known_bits, p);
+      if (r < K) opos[r] = uint8_t(p);
+    }
+    for (uint32_t x = 0; x < (groups + gpb - 1) / gpb; ++x) {
+      const uint32_t i0 = x * gpb * kGf2Outputs;
+      const uint32_t n_out = K - i0 < gpb * kGf2Outputs ? K - i0 : gpb * kGf2Outputs;
+      const uint32_t tiles = (n_out + kGf2Outputs - 1) / kGf2Outputs;
+      const Gf2DecodeAxes ax{eds + uint32_t(axes[a]) * as, ps, kpos, opos.data() + i0, n_out};
+      twin_gf2_gemm(ax, tiles, K, n_out,
+                    [&](uint32_t o, uint32_t j) { return Da[opos[i0 + o] * K + j]; }, prod.data());
     }
   }
+}
+
+// K8b as ctt_rs_decode_axes launches it.
+void twin_rs_decode_axes(uint8_t* eds, const uint8_t* D, const uint8_t* known,
+                         const int32_t* axes, const uint8_t* gexp, const uint8_t* glog, int n,
+                         int k, int cols) {
+  const uint32_t groups = (uint32_t(k) + ctt::kGf2Outputs - 1) / ctt::kGf2Outputs;
+  twin_rs_decode_axes_grouped(eds, D, known, axes, gexp, glog, n, k, cols,
+                              int(ctt::gf2_groups_per_block(groups, uint32_t(n))));
 }
 
 // K8c: the warp vote as an OR over the 32 lanes of each cell.

@@ -9,21 +9,34 @@
 // re-extension and the roots into one program per (k, phases) (:295); here
 // the host launches them in order on one stream (ops/rs.py).
 //
-// Bound on the H100 (k = 128): K8b does k * k multiply-adds per output
-// share byte, 2.1 G for the 256 axes of a 25 % mask, against 64 MiB of
-// traffic; K8a is k^2 table lookups per output row (small); K8c reads three
-// 32 MiB squares.
-// Design (the simple form):
+// Bound on the H100 at k = 128, the 256 rows of a 25 % mask:
+// - K8b: bytes, the k known cells read and k unknown ones written per axis
+//   (~42 MB, ~0.0125 ms), under which the least-work Leopard erasure decode
+//   also fits; the JAX package's bit-GEMM computed here, 2 * 8k * 8k * 512
+//   per axis, is 275 G int8 operations, 0.139 ms at the 1,979 TOPS int8
+//   tensor-core peak (the "tensor-core floor").
+// - K8a: k^2 table lookups per output row (small); K8c: three 32 MiB
+//   squares read.
+// Design:
 // - K8a: one block per axis, one thread per output row; the k source
 //   points and their denominators are staged in shared memory first.
-// - K8b: K5's axis body (rs_extend.cuh) with a per-axis D and a per-axis
-//   list of known positions, reading the EDS in place through strides
-//   (rows or columns); a block writes 8 of the axis's k unknown positions.
-//   Only the solvable axes are launched and only unknown positions are
-//   written (rs_decode.cuh), which is byte-identical to the JAX program's
-//   decode-everything-then-mask.
+// - K8b: K5's tensor-core bit-GEMM (rs_extend.cuh) with a per-axis
+//   coefficient matrix, the rows of D at the axis's unknown positions, and
+//   a per-axis list of known positions as its inputs, read in place through
+//   strides (rows or columns; each input is still one contiguous 512-byte
+//   share, so the lanes' 8-byte loads hold for both).  A block decodes up
+//   to 3 groups of 8 of an axis's k unknown positions (192 KiB of A
+//   fragments at k = 128), fewer when the launch has few axes, so the
+//   prologue -- the unknown positions ranked from a bitmap of the known
+//   ones (rs_decode.cuh), D's rows loaded and expanded -- serves several
+//   groups.  Only the solvable axes are launched, only known positions are
+//   read and only unknown ones written, so the blocks of an axis never
+//   race; this is byte-identical to the JAX program's decode-everything-
+//   then-mask.
 // - K8c: one warp per cell, 16-byte loads, warp vote into two byte masks.
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "rs_decode.cuh"
 
@@ -31,7 +44,6 @@ namespace {
 
 constexpr uint32_t kMaxK = 128;
 constexpr uint32_t kShareBytes = 512;
-constexpr uint32_t kThreads = kShareBytes / 4;  // one 4-byte slice each
 constexpr uint32_t kVerdictCellsPerBlock = 8;
 
 __global__ void rs_decode_matrices_kernel(const uint8_t* known, uint8_t* D,
@@ -57,36 +69,53 @@ __global__ void rs_decode_matrices_kernel(const uint8_t* known, uint8_t* D,
                        D + (static_cast<uint64_t>(a) * 2 * k + i) * k);
 }
 
-__global__ void rs_decode_axes_kernel(uint8_t* eds, const uint8_t* D, const uint8_t* known,
-                                      const int32_t* axes, const uint8_t* gexp_g,
-                                      const uint8_t* glog_g, uint32_t k, uint64_t as,
-                                      uint64_t ps) {
-  __shared__ uint8_t exp_t[ctt::kExpEntries];
-  __shared__ uint16_t log_t[256];
-  __shared__ uint16_t logD[ctt::kRsOutPerBlock * kMaxK];
+// blockIdx.y the axis, blockIdx.x the run of `gpb` output groups (8
+// unknown positions each) the block decodes.
+__global__ void __launch_bounds__(ctt::kGf2Threads, 1)
+    rs_gf2_decode_kernel(uint8_t* eds, const uint8_t* D, const uint8_t* known, const int32_t* axes,
+                         const uint8_t* gexp, const uint8_t* glog, uint32_t k, uint32_t gpb,
+                         uint64_t as, uint64_t ps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ctt::Gf2Smem sh(smem, k);
   __shared__ uint8_t kpos[kMaxK];
   __shared__ uint8_t opos[kMaxK];
-  __shared__ bool in_bounds;
+  __shared__ uint32_t known_bits[2 * kMaxK / 32];
+  __shared__ int out_of_range;
   const uint32_t tid = threadIdx.x, a = blockIdx.y;
-  const uint8_t* kn = known + static_cast<uint64_t>(a) * k;
-  for (uint32_t i = tid; i < ctt::kExpEntries; i += blockDim.x)
-    exp_t[i] = ctt::rs_exp_entry(gexp_g, i);
-  for (uint32_t v = tid; v < 256u; v += blockDim.x) log_t[v] = ctt::rs_log_entry(glog_g, v);
-  for (uint32_t j = tid; j < k; j += blockDim.x) kpos[j] = kn[j];
-  if (tid == 0) {
-    ctt::rs_unknown_positions(kn, k, opos);
-    in_bounds = ctt::rs_axis_in_bounds(kn, k, axes[a]);
+  const int32_t axis = axes[a];
+  if (tid < 2 * kMaxK / 32) known_bits[tid] = 0;
+  if (tid == 0) out_of_range = axis < 0 || static_cast<uint32_t>(axis) >= 2 * k;
+  ctt::gf2_load_tables(sh, gexp, glog);
+  const uint8_t p = tid < k ? known[static_cast<uint64_t>(a) * k + tid] : 0;
+  __syncthreads();
+  ctt::gf2_build_products(sh);
+  if (tid < k) {
+    kpos[tid] = p;
+    if (p < 2 * k)
+      atomicOr(&known_bits[p / 32], 1u << (p % 32));
+    else
+      out_of_range = 1;
   }
   __syncthreads();
-  if (!in_bounds) return;  // the whole block: an axis or position past 2k is not decoded
-  const uint32_t i0 = blockIdx.x * ctt::kRsOutPerBlock;
-  const uint32_t nout = k - i0 < ctt::kRsOutPerBlock ? k - i0 : ctt::kRsOutPerBlock;
-  const uint8_t* Da = D + static_cast<uint64_t>(a) * 2 * k * k;
-  for (uint32_t idx = tid; idx < nout * k; idx += blockDim.x)
-    logD[idx] = ctt::rs_log_entry(glog_g, Da[opos[i0 + idx / k] * k + idx % k]);
+  if (out_of_range) return;  // the whole block: an axis or position past 2k is not decoded
+  const uint32_t i0 = blockIdx.x * gpb * ctt::kGf2Outputs;
+  const uint32_t n_out = k - i0 < gpb * ctt::kGf2Outputs ? k - i0 : gpb * ctt::kGf2Outputs;
+  const uint32_t groups = (n_out + ctt::kGf2Outputs - 1) / ctt::kGf2Outputs;
+  const ctt::Gf2DecodeAxes ax{eds + static_cast<uint32_t>(axis) * as, ps, kpos, opos + i0, n_out};
+  uint32_t first[4][2];  // in flight through the rest of the prologue
+  ctt::gf2_lane_chunk(ax, 0, k, 0, tid / 32, tid % 32, first);
+  if (tid < 2 * k && !ctt::rs_is_known(known_bits, tid)) {
+    const uint32_t r = ctt::rs_unknown_rank(known_bits, tid);
+    if (r < k) opos[r] = static_cast<uint8_t>(tid);
+  }
   __syncthreads();
-  ctt::rs_decode_body(eds, logD, kpos, opos + i0, nout, k, as, ps,
-                      static_cast<uint32_t>(axes[a]), tid, exp_t, log_t);
+  const uint8_t* Da = D + static_cast<uint64_t>(a) * 2 * k * k;
+  uint32_t coef[ctt::kGf2ItemsPerThread];
+  ctt::gf2_fetch_coef(groups, n_out, k,
+                      [&](uint32_t o, uint32_t j) { return Da[opos[i0 + o] * k + j]; }, coef);
+  ctt::gf2_expand(sh, groups, k, coef);
+  __syncthreads();
+  ctt::gf2_gemm(ax, groups, k, sh, first);
 }
 
 __global__ void rs_repair_verdicts_kernel(const uint8_t* repaired, const uint8_t* recomputed,
@@ -131,11 +160,23 @@ extern "C" int ctt_rs_decode_axes(void* eds, const void* D, const void* known, c
   if (n <= 0) return 0;
   const uint64_t S = kShareBytes, n2 = 2 * static_cast<uint64_t>(k);
   const uint64_t as = cols ? S : n2 * S, ps = cols ? n2 * S : S;
-  const unsigned chunks = (k + ctt::kRsOutPerBlock - 1) / ctt::kRsOutPerBlock;
-  rs_decode_axes_kernel<<<dim3(chunks, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  static std::atomic<uint64_t> raised{0};  // the shared memory limit, as launch_encode raises it
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!((raised.load() >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(rs_gf2_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ctt::gf2_smem_bytes(kMaxK, ctt::kGf2MaxGroups));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised |= uint64_t(1) << dev;
+  }
+  const uint32_t groups = (k + ctt::kGf2Outputs - 1) / ctt::kGf2Outputs;
+  const uint32_t gpb = ctt::gf2_groups_per_block(groups, n);
+  rs_gf2_decode_kernel<<<dim3((groups + gpb - 1) / gpb, n), ctt::kGf2Threads,
+                         ctt::gf2_smem_bytes(k, gpb), static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(eds), static_cast<const uint8_t*>(D),
       static_cast<const uint8_t*>(known), static_cast<const int32_t*>(axes),
-      static_cast<const uint8_t*>(gexp), static_cast<const uint8_t*>(glog), k, as, ps);
+      static_cast<const uint8_t*>(gexp), static_cast<const uint8_t*>(glog), k, gpb, as, ps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,7 @@
 // Per-thread bodies of the repair kernels (rs_decode.cu): K8a the Lagrange
-// decode matrices, K8b the decode of an orientation's solvable axes in
-// place, K8c the two per-cell verdicts of a repair.  Shared with the g++
-// CPU twin (cpu_twin.cpp).
-//
-// The JAX package decodes by lifting D to GF(2) bits and multiplying on
-// the MXU (ops/rs.py:191-224); these bodies multiply in GF(256) with the
-// codec's log/antilog tables, as K5 does (rs_extend.cuh).  Both give the
-// same bytes.
+// decode matrices, K8b's prologue (which positions of an axis it decodes;
+// its GEMM is K5's, rs_extend.cuh), K8c the two per-cell verdicts of a
+// repair.  Shared with the g++ CPU twin (cpu_twin.cpp).
 #pragma once
 
 #include <stdint.h>
@@ -15,6 +10,14 @@
 #include "rs_extend.cuh"
 
 namespace ctt {
+
+CTT_HD uint32_t popcount32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return static_cast<uint32_t>(__builtin_popcount(x));
+#endif
+}
 
 constexpr uint32_t kGfOrder = 255;
 constexpr uint32_t kVerdictLanes = 32;  // one warp per 512-byte cell, 16 bytes a lane
@@ -53,56 +56,19 @@ CTT_HD void rs_decode_row(const uint8_t* src, const uint16_t* denom_log, uint32_
   }
 }
 
-// K8b: the positions of a 2k-position axis that are not among its k known
-// ones, ascending, into opos[0..k).  Serial (one thread of a block): 2k
-// flag steps.
-CTT_HD void rs_unknown_positions(const uint8_t* kpos, uint32_t k, uint8_t* opos) {
-  uint8_t known[256];
-  for (uint32_t i = 0; i < 2 * k; ++i) known[i] = 0;
-  for (uint32_t j = 0; j < k; ++j) known[kpos[j]] = 1;
-  uint32_t n = 0;
-  for (uint32_t i = 0; i < 2 * k && n < k; ++i)
-    if (!known[i]) opos[n++] = static_cast<uint8_t>(i);
+// K8b, the block prologue: known_bits (8 words, bit p of word p / 32) marks
+// the axis's known positions.  Position p < 2k, if not known, is output
+// rs_unknown_rank(known_bits, p) of the axis: its rank among the unknown
+// positions, ascending.  The decode writes the first k of them.
+CTT_HD uint32_t rs_unknown_rank(const uint32_t* known_bits, uint32_t p) {
+  uint32_t below = 0;
+  for (uint32_t w = 0; w < p / 32; ++w) below += popcount32(known_bits[w]);
+  below += popcount32(known_bits[p / 32] & ((1u << (p % 32)) - 1u));
+  return p - below;
 }
 
-// K8b: whether axis `axis` and its known positions lie inside the 2k x 2k
-// square, so that a malformed table can neither read nor write past it.
-CTT_HD bool rs_axis_in_bounds(const uint8_t* kpos, uint32_t k, int32_t axis) {
-  bool ok = axis >= 0 && static_cast<uint32_t>(axis) < 2 * k;
-  for (uint32_t j = 0; j < k; ++j) ok = ok && kpos[j] < 2 * k;
-  return ok;
-}
-
-// K8b, one thread: bytes [4t, 4t+4) of outputs opos[0..nout) of axis
-// `axis`, position p of which lies at eds + axis*as + p*ps.  Reads only the
-// known positions kpos[0..k) and writes only unknown ones, so the blocks of
-// one axis never race.  logD holds log D[opos[o]][j] at o*k + j.  The known
-// positions are not written: D's rows there are one-hot, so the JAX
-// program writes back the bytes already present (:249, :252).
-CTT_HD void rs_decode_body(uint8_t* eds, const uint16_t* logD, const uint8_t* kpos,
-                           const uint8_t* opos, uint32_t nout, uint32_t k, uint64_t as,
-                           uint64_t ps, uint32_t axis, uint32_t t, const uint8_t* exp_t,
-                           const uint16_t* log_t) {
-  uint32_t acc[kRsOutPerBlock];
-#pragma unroll
-  for (uint32_t o = 0; o < kRsOutPerBlock; ++o) acc[o] = 0u;
-  uint8_t* base = eds + axis * as + 4u * t;
-  for (uint32_t j = 0; j < k; ++j) {
-    const uint32_t x = *reinterpret_cast<const uint32_t*>(base + kpos[j] * ps);
-    const uint32_t l0 = log_t[x & 0xFFu], l1 = log_t[(x >> 8) & 0xFFu];
-    const uint32_t l2 = log_t[(x >> 16) & 0xFFu], l3 = log_t[x >> 24];
-#pragma unroll
-    for (uint32_t o = 0; o < kRsOutPerBlock; ++o) {
-      if (o < nout) {
-        const uint32_t lc = logD[o * k + j];
-        acc[o] ^= uint32_t(exp_t[l0 + lc]) | (uint32_t(exp_t[l1 + lc]) << 8) |
-                  (uint32_t(exp_t[l2 + lc]) << 16) | (uint32_t(exp_t[l3 + lc]) << 24);
-      }
-    }
-  }
-#pragma unroll
-  for (uint32_t o = 0; o < kRsOutPerBlock; ++o)
-    if (o < nout) *reinterpret_cast<uint32_t*>(base + opos[o] * ps) = acc[o];
+CTT_HD bool rs_is_known(const uint32_t* known_bits, uint32_t p) {
+  return (known_bits[p / 32] >> (p % 32)) & 1u;
 }
 
 struct Bytes16 {

@@ -6,16 +6,22 @@
 // :76, entry `extend_square` :82).  Q1 = row parity of Q0, Q2 = column
 // parity of Q0, Q3 = column parity of Q1, exactly as `_extend` orders them.
 //
-// Bound on the H100: operations.  The JAX formulation's GF(2) bit-GEMM is
-// 2 * 8k * 8k * 3k * 512 int8 operations (412 G at k = 128, ~0.21 ms at
-// 1,979 TOPS) against ~40 MiB of HBM traffic (~13 us).
-// Design (the simple form; the int8 tensor-core bit-GEMM is later work):
-// GF(256) multiply by log/antilog tables held in shared memory (1.5 KB --
-// the 64 KiB full product table would not fit the 48 KB of static shared
-// memory; the exp table is zero-extended so a zero operand needs no
-// branch), one thread per 4-byte column slice of a share, 8 parity
-// positions per block so each loaded input word, and the logs of its four
-// bytes, feed 8 accumulators.
+// Bound on the H100 at k = 128, for three forms of the work:
+// - bytes: ~40 MiB of HBM traffic a square (Q0 read, the EDS written),
+//   ~0.0125 ms at 3.35 TB/s -- the bound chip_smoke.py reports, since the
+//   least-work form (Leopard's O(k log k) IFFT/FFT, leopard-ff8 only) fits
+//   under it;
+// - the JAX package's bit-GEMM, the form computed here: 2 * 8k * 8k * 3k *
+//   512 = 412 G int8 operations, 0.208 ms at the 1,979 TOPS int8
+//   tensor-core peak (the "tensor-core floor").
+// Design: the bit-GEMM on the tensor cores (rs_extend.cuh): int8 mma.sync
+// m16n8k32 with both operands built in registers -- G's rows from a
+// product table made in the block prologue from the codec's exp/log
+// tables, never stored in HBM; the data bits from the input bytes, loaded
+// straight into registers a chunk ahead and never written anywhere -- and
+// the parity bits packed into bytes in the epilogue, 16 bytes a lane.  A
+// block computes 8 outputs of each of up to 8 axes (the coefficient
+// prologue shared by its axes), 8 warps x 64 bytes of each axis.
 // Launch 1 computes Q1 and Q2 (blockIdx.z picks the stride set), launch 2
 // Q3 from Q1; Q0 is one 2D device copy.  All on the caller's stream.
 //
@@ -23,13 +29,12 @@
 // celestia_tpu/ops/rs.py:102 `_extend_batched_fn` (jax.vmap of `_extend`)
 // under :107 `extend_squares_batched`: the same two launches over a batch
 // of n squares, blockIdx.z = square * (stride sets) + set, and one 2D copy
-// of Q0 per square.
+// of Q0 per square.  Its floor is n times K5's.
 //
 // ctt_rs_extend_rows is K5's row pass alone, for K9's shards
 // (celestia_tpu/parallel/sharded.py:60 `_extend_rows_local`): the same
-// kernel over n row axes (gridDim.y = n, a shard's k/R rows times its
-// squares), each row's Q0 half copied beside its parity.  Not a new kernel;
-// its launches count as K5's.
+// kernel over n row axes, each row's Q0 half copied beside its parity.
+// Not a new kernel; its launches count as K5's.
 //
 // K9a `rs_col_parity_partial` (ctt_rs_col_parity_partial) replaces
 // celestia_tpu/parallel/sharded.py:78-87: the `g_cols` dynamic slice of the
@@ -39,20 +44,21 @@
 // every parity row, partial[i, c] = XOR_{j < k/R} E[i][j0 + j] * top[j, c];
 // the parity rows are the XOR of the R shards' partials (K9b,
 // rs_sharded.cu).  It is this file's kernel over the 2k columns as axes with
-// k/R inputs each and the shard's column slice of E as coefficients.  Bound
-// on the H100: bytes at k = 128, R = 8 (16 MiB of top rows read and 128 MiB
-// of partials written over the shards, ~0.045 ms; the multiply-adds, 2.1 G
-// over the shards, are a few microseconds in the least-work Leopard form).
-// Its launches count apart from K5's.
+// k/R inputs each (K = 8k/R deep, zero-padded to whole k-steps below 4
+// inputs) and the shard's column slice of E as coefficients.  Bound on the
+// H100 at k = 128, R = 8: bytes (16 MiB of top rows read and 128 MiB of
+// partials written over the shards, ~0.045 ms); its tensor-core floor over
+// the 8 shards is 275 G int8 operations, 0.139 ms.  Its launches count
+// apart from K5's.
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "rs_extend.cuh"
 
 namespace {
 
-constexpr uint32_t kMaxK = 128;
 constexpr uint32_t kShareBytes = 512;
-constexpr uint32_t kThreads = kShareBytes / 4;  // one 4-byte slice each
 
 // One family of axes: axis a, position j at in + a*as + j*ps; parity
 // position i written to out + a*oas + i*ops.
@@ -63,29 +69,61 @@ struct AxisSet {
 };
 
 // blockIdx.z = b * nsets + set: stride set `set` of square b, whose input
-// and output lie ibs and obs bytes after square 0's.  k parity positions per
-// axis from n_in inputs; E is uint8[k, n_in] (n_in = k for K5, the shard's
-// k/R columns of the encode matrix for K9a).
-__global__ void rs_encode_axes_kernel(AxisSet s0, AxisSet s1, const uint8_t* E,
-                                      const uint8_t* gexp_g, const uint8_t* glog_g,
-                                      uint32_t k, uint32_t n_in, uint32_t nsets, uint64_t ibs,
-                                      uint64_t obs) {
-  __shared__ uint8_t exp_t[ctt::kExpEntries];
-  __shared__ uint16_t log_t[256];
-  __shared__ uint16_t logE[ctt::kRsOutPerBlock * kMaxK];
+// and output lie ibs and obs bytes after square 0's; blockIdx.y the group
+// of `apb` axes of n_axes, blockIdx.x the group of 8 outputs of k.  E is
+// uint8[k, n_in] (n_in = k for K5, the shard's k/R columns of the encode
+// matrix for K9a).
+__global__ void __launch_bounds__(ctt::kGf2Threads, 1)
+    rs_gf2_encode_kernel(AxisSet s0, AxisSet s1, const uint8_t* E, const uint8_t* gexp,
+                         const uint8_t* glog, uint32_t k, uint32_t n_in, uint32_t n_axes,
+                         uint32_t apb, uint32_t nsets, uint64_t ibs, uint64_t obs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ctt::Gf2Smem sh(smem, n_in);
   const AxisSet s = blockIdx.z % nsets ? s1 : s0;
   const uint64_t b = blockIdx.z / nsets;
-  const uint32_t tid = threadIdx.x;
-  for (uint32_t i = tid; i < ctt::kExpEntries; i += blockDim.x)
-    exp_t[i] = ctt::rs_exp_entry(gexp_g, i);
-  for (uint32_t v = tid; v < 256u; v += blockDim.x) log_t[v] = ctt::rs_log_entry(glog_g, v);
-  const uint32_t i0 = blockIdx.x * ctt::kRsOutPerBlock;
-  const uint32_t nout = k - i0 < ctt::kRsOutPerBlock ? k - i0 : ctt::kRsOutPerBlock;
-  for (uint32_t idx = tid; idx < nout * n_in; idx += blockDim.x)
-    logE[idx] = ctt::rs_log_entry(glog_g, E[(i0 + idx / n_in) * n_in + idx % n_in]);
+  const uint32_t i0 = blockIdx.x * ctt::kGf2Outputs;
+  const uint32_t nout = k - i0 < ctt::kGf2Outputs ? k - i0 : ctt::kGf2Outputs;
+  const uint32_t a0 = blockIdx.y * apb;
+  const uint32_t na = n_axes - a0 < apb ? n_axes - a0 : apb;
+  const ctt::Gf2EncodeAxes ax{s.in + b * ibs + a0 * s.as,
+                              s.out + b * obs + a0 * s.oas + i0 * s.ops,
+                              s.as, s.ps, s.oas, s.ops, nout};
+  uint32_t first[4][2], coef[ctt::kGf2ItemsPerThread];
+  ctt::gf2_lane_chunk(ax, 0, n_in, 0, threadIdx.x / 32, threadIdx.x % 32, first);
+  ctt::gf2_fetch_coef(1, nout, n_in, [&](uint32_t o, uint32_t j) { return E[(i0 + o) * n_in + j]; },
+                      coef);
+  ctt::gf2_load_tables(sh, gexp, glog);
   __syncthreads();
-  ctt::rs_axis_body(s.in + b * ibs, s.out + b * obs, logE, nout, n_in, s.as, s.ps, s.oas,
-                    s.ops, blockIdx.y, i0, tid, exp_t, log_t);
+  ctt::gf2_build_products(sh);
+  __syncthreads();
+  ctt::gf2_expand(sh, 1, n_in, coef);
+  __syncthreads();
+  ctt::gf2_gemm(ax, na, n_in, sh, first);
+}
+
+// One launch: k outputs of n_axes axes of each of nz (square, set) pairs.
+// The first launch on a device raises the kernel's dynamic shared memory
+// limit to the most it can ask (k = 128) above the default 48 KB.
+int launch_encode(const AxisSet& s0, const AxisSet& s1, const void* E, const void* gexp,
+                  const void* glog, uint32_t k, uint32_t n_in, uint32_t n_axes, uint32_t nsets,
+                  uint32_t nz, uint64_t ibs, uint64_t obs, cudaStream_t st) {
+  static std::atomic<uint64_t> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!((raised.load() >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(rs_gf2_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ctt::gf2_smem_bytes(ctt::kGf2MaxInputs, 1));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised |= uint64_t(1) << dev;
+  }
+  const uint32_t groups = (k + ctt::kGf2Outputs - 1) / ctt::kGf2Outputs;
+  const uint32_t apb = ctt::gf2_axes_per_block(groups * nz, n_axes);
+  rs_gf2_encode_kernel<<<dim3(groups, (n_axes + apb - 1) / apb, nz), ctt::kGf2Threads,
+                         ctt::gf2_smem_bytes(n_in, 1), st>>>(
+      s0, s1, static_cast<const uint8_t*>(E), static_cast<const uint8_t*>(gexp),
+      static_cast<const uint8_t*>(glog), k, n_in, n_axes, apb, nsets, ibs, obs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -110,20 +148,13 @@ extern "C" int ctt_rs_extend_batched(const void* squares, void* eds, const void*
   uint8_t* q1 = out + K * S;
   uint8_t* q2 = out + K * 2 * K * S;
   uint8_t* q3 = q2 + K * S;
-  const uint8_t* e = static_cast<const uint8_t*>(E);
-  const uint8_t* ge = static_cast<const uint8_t*>(gexp);
-  const uint8_t* gl = static_cast<const uint8_t*>(glog);
-  const unsigned chunks = (k + ctt::kRsOutPerBlock - 1) / ctt::kRsOutPerBlock;
   const AxisSet rows{q0, q1, K * S, S, 2 * K * S, S};
   const AxisSet cols{q0, q2, S, K * S, S, 2 * K * S};
-  rs_encode_axes_kernel<<<dim3(chunks, k, 2 * n), kThreads, 0, st>>>(rows, cols, e, ge, gl, k, k,
-                                                                     2, sq_bytes, eds_bytes);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = launch_encode(rows, cols, E, gexp, glog, k, k, k, 2, 2 * n, sq_bytes, eds_bytes,
+                                st);
+  if (err != 0) return err;
   const AxisSet q1cols{q1, q3, S, 2 * K * S, S, 2 * K * S};
-  rs_encode_axes_kernel<<<dim3(chunks, k, n), kThreads, 0, st>>>(q1cols, q1cols, e, ge, gl, k, k,
-                                                                 1, eds_bytes, eds_bytes);
-  return static_cast<int>(cudaGetLastError());
+  return launch_encode(q1cols, q1cols, E, gexp, glog, k, k, k, 1, n, eds_bytes, eds_bytes, st);
 }
 
 // square uint8[k, k, 512] -> eds uint8[2k, 2k, 512]: the batch of one.
@@ -144,12 +175,8 @@ extern "C" int ctt_rs_extend_rows(const void* rows, void* out, const void* E, co
   const cudaError_t err =
       cudaMemcpy2DAsync(o, 2 * K * S, in, K * S, K * S, n, cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned chunks = (k + ctt::kRsOutPerBlock - 1) / ctt::kRsOutPerBlock;
   const AxisSet set{in, o + K * S, K * S, S, 2 * K * S, S};
-  rs_encode_axes_kernel<<<dim3(chunks, n, 1), kThreads, 0, st>>>(
-      set, set, static_cast<const uint8_t*>(E), static_cast<const uint8_t*>(gexp),
-      static_cast<const uint8_t*>(glog), k, k, 1, 0, 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_encode(set, set, E, gexp, glog, k, k, n, 1, 1, 0, 0, st);
 }
 
 // K9a: top uint8[n, n_in, 2k, 512] (each square's n_in top rows of the
@@ -161,12 +188,8 @@ extern "C" int ctt_rs_col_parity_partial(const void* top, void* partial, const v
                                          int n, void* stream) {
   if (n <= 0) return 0;
   const uint64_t S = kShareBytes, row = 2ull * k * S;
-  const uint8_t* in = static_cast<const uint8_t*>(top);
-  const unsigned chunks = (k + ctt::kRsOutPerBlock - 1) / ctt::kRsOutPerBlock;
-  const AxisSet cols{in, static_cast<uint8_t*>(partial), S, row, S, row};
-  rs_encode_axes_kernel<<<dim3(chunks, 2 * k, n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      cols, cols, static_cast<const uint8_t*>(Es), static_cast<const uint8_t*>(gexp),
-      static_cast<const uint8_t*>(glog), k, n_in, 1, n_in * row, k * row);
-  return static_cast<int>(cudaGetLastError());
+  const AxisSet cols{static_cast<const uint8_t*>(top), static_cast<uint8_t*>(partial), S, row, S,
+                     row};
+  return launch_encode(cols, cols, Es, gexp, glog, k, n_in, 2 * k, 1, n, n_in * row, k * row,
+                       static_cast<cudaStream_t>(stream));
 }

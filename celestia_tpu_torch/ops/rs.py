@@ -13,13 +13,15 @@ Quadrant layout of the extended square (2k x 2k):
     Q2 | Q3
 
 * On a CUDA tensor :func:`extend_square` launches ``rs_extend``
-  (``csrc/rs_extend.cu``): GF(256) products by log/antilog tables with
-  the codec's encode matrix E = ``gf256.encode_matrix(k, codec)``.
-* On a CPU tensor it runs :func:`_extend`, the JAX package's formulation:
-  the GF(256) map lifted to GF(2), ``(G @ bits) & 1`` with
+  (``csrc/rs_extend.cu``), the JAX package's formulation on the int8
+  tensor cores: the GF(256) map lifted to GF(2), ``(G @ bits) & 1``, with
+  G built in the kernel from the codec's encode matrix
+  E = ``gf256.encode_matrix(k, codec)`` and field tables
+  (``csrc/rs_extend.cuh``).
+* On a CPU tensor it runs :func:`_extend`, the same lift in PyTorch, with
   G = ``gf256.encode_matrix_bits(k, codec)`` (see :func:`matmul_gf2`).
-Both give the same bytes, because G is E lifted bit by bit (gf256.py
-``bit_expand_matrix``).
+Both give the same bytes: G is E lifted bit by bit (gf256.py
+``bit_expand_matrix``) either way.
 
 :func:`extend_squares_batched` extends a batch of squares (K5b
 ``rs_extend_batched`` on the card).  The sharded extension
@@ -150,6 +152,13 @@ def _check_square(square: torch.Tensor, share_size=None) -> int:
     return k
 
 
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """The bit-GEMM kernels move 8 and 16 bytes a lane: raise unless ``t``
+    starts on a 16-byte boundary."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _launch_extend(kernel: str, src: torch.Tensor, k: int, n: int, codec: str, *extra):
     """uint8[n, 2k, 2k, 512] from ``kernel`` (K5 or K5b) on ``src``, the
     checked square or batch; ``extra`` follows k in the C entry's arguments."""
@@ -168,6 +177,7 @@ def extend_cuda(square: torch.Tensor, codec: str) -> torch.Tensor:
     """Launch K5 ``rs_extend`` on a square on the card with ``codec``."""
     k = _check_square(square, SHARE_SIZE)
     kernels.check_cuda_tensor(square, "square")
+    _check_aligned(square, "square")
     return _launch_extend("rs_extend", square, k, 1, codec)[0]
 
 
@@ -211,6 +221,7 @@ def extend_batched_cuda(squares: torch.Tensor, codec: str) -> torch.Tensor:
     """Launch K5b ``rs_extend_batched`` on a batch of squares on the card."""
     k = _check_batch(squares, SHARE_SIZE)
     kernels.check_cuda_tensor(squares, "squares")
+    _check_aligned(squares, "squares")
     n = squares.shape[0]
     return _launch_extend("rs_extend_batched", squares, k, n, codec, n)
 
@@ -287,6 +298,8 @@ def extend_rows_cuda(rows: torch.Tensor, codec: str, out: torch.Tensor = None) -
     if out is None:
         out = torch.empty(shape, dtype=torch.uint8, device=rows.device)
     kernels.check_cuda_tensor(out, "out", shape)
+    _check_aligned(rows, "rows")
+    _check_aligned(out, "out")
     E, exp, log = _kernel_constants(k, codec, str(rows.device))
     if n:
         kernels.launch(
@@ -354,6 +367,7 @@ def col_parity_partial_cuda(top: torch.Tensor, Es: torch.Tensor, exp: torch.Tens
         raise ValueError(f"top {tuple(top.shape)} and Es {tuple(Es.shape)} disagree")
     n = top.shape[0]
     kernels.check_cuda_tensor(top, "top", (n, n_in, 2 * k, SHARE_SIZE))
+    _check_aligned(top, "top")
     for t, name in ((Es, "Es"), (exp, "exp"), (log, "log")):
         kernels.check_cuda_tensor(t, name)
         if t.device != top.device:
@@ -426,8 +440,8 @@ def xor_reduce_slabs(staged: torch.Tensor, out: torch.Tensor = None) -> torch.Te
 # peeling schedule on bools and ships only the solvable axes' known
 # positions.  The plain versions below mirror the JAX program
 # (celestia_tpu/ops/rs.py:138-284): decode matrices in the log domain, the
-# GF(2) lift, bit products.  The kernels multiply in GF(256) with the
-# codec's tables; both give the same bytes.
+# GF(2) lift, bit products.  K8b runs the same lift on the tensor cores
+# (K5's kernel with per-axis coefficients); both give the same bytes.
 # ---------------------------------------------------------------------------
 
 
@@ -590,6 +604,7 @@ def decode_axes_cuda(
     unwritten by the kernel rather than read or written out of bounds."""
     k = _check_decode_args(eds, D, known, axes)
     kernels.check_cuda_tensor(eds, "eds", (2 * k, 2 * k, SHARE_SIZE))
+    _check_aligned(eds, "eds")
     kernels.check_cuda_tensor(D, "D")
     kernels.check_cuda_tensor(known, "known")
     if axes.dtype != torch.int32 or axes.device != eds.device or not axes.is_contiguous():

@@ -11,7 +11,10 @@ Phases (any failure raises and the script exits non-zero):
    main path's shapes, byte for byte (K4 with its levels output at 512
    leaves, K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block, K9a
    and K9b on every shard of a k = 128 square over 8 shards, K2 on their
-   row windows);
+   row windows); the tensor-core bit-GEMM kernels K5 and K8b at every k =
+   1..128 and K5's row pass and K9a (n_in = k/R down to 1) for both codecs;
+   each kernel's time beside its bound, plain and library times, and the
+   bit-GEMM kernels' share of their tensor-core floor;
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
    points on the card;
 4. the extension path: seeded BlobTx streams, proposer ``square.build`` ->
@@ -84,6 +87,9 @@ import numpy as np
 # 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# dense int8 tensor-core peak (NVIDIA's data sheet): the floor of the
+# bit-GEMM form that K5, K5b, K8b and K9a compute
+INT8_TENSOR_OPS_PER_S = 1979e12
 # 32-bit integer operations of one SHA-256 compression, counted from
 # csrc/sha256.cuh as sm_90 issues them: a rotate is one funnel shift, 3-input
 # logic one LOP3, and up to three addends (an immediate among them) one
@@ -209,6 +215,12 @@ def sharded_launches_per_call(k: int, R: int, groups: int = 1) -> dict:
                   nmt_combine_level=shards * (lg(2 * k) + lg(k // R)) + groups * lg(2 * R),
                   sha256_batch=groups, rfc6962_root=groups)
     return counts
+
+
+def bit_gemm_ops(rows: int, depth: int, cols: int) -> int:
+    """int8 operations of a GF(2) bit-GEMM: G (rows x depth) times the
+    inputs' bit planes (depth x cols), a multiply and an add each."""
+    return 2 * rows * depth * cols
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -372,7 +384,8 @@ def main() -> int:
             compare("rs_extend", rs.extend_cuda(s, codec), rs.extend_plain(s, codec),
                     f"k={kk} codec={codec}")
     # the repair kernels and the batched extension (K8a at k = 4, 32, 128;
-    # K8b, K8c and K5b at k = 32) and the batched K2/K3, both codecs
+    # K8b at every k; K8c and K5b at k = 32), K5's row pass and K9a, and the
+    # batched K2/K3, both codecs
     def known_sets(kk: int, n: int) -> np.ndarray:
         return np.stack([np.sort(rng.permutation(2 * kk)[:kk]) for _ in range(n)]).astype(np.uint8)
 
@@ -381,18 +394,41 @@ def main() -> int:
             known = upload(known_sets(kk, 2 * kk))
             compare("rs_decode_matrices", rs.decode_matrices_cuda(known, kk, codec),
                     rs._decode_matrices_dev(known, kk, codec), f"k={kk} codec={codec}")
+        for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+            n_ax = min(2 * kk, kk + 3)
+            known_np = known_sets(kk, n_ax)
+            known_np[0] = np.arange(kk)  # the first k positions, as fraud detection asks
+            known = upload(known_np)
+            Dk = rs.decode_matrices_cuda(known, kk, codec)
+            ek = rs.extend_cuda(upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)), codec)
+            for cols in (False, True):
+                axes = upload(np.sort(rng.permutation(2 * kk)[:n_ax]).astype(np.int32))
+                compare("rs_decode_axes",
+                        rs.decode_axes_cuda(ek.clone(), Dk, known, axes, cols, codec),
+                        rs.decode_axes_plain(ek.clone(), Dk, known, axes, cols, codec),
+                        f"k={kk} {'columns' if cols else 'rows'} codec={codec}")
+            if kk == 32:
+                e32 = ek
+        # K5's row pass and K9a on every shard, down to one input a shard
+        for kk, R in ((8, 8), (32, 4), (128, 8)):
+            rows_r = kk // R
+            ek = rs.extend_cuda(upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)), codec)
+            Gk = rs.encode_matrix_bits_tensor(kk, codec, str(dev))
+            parts = []
+            for d in range(R):
+                mine = ek[d * rows_r : (d + 1) * rows_r]
+                compare("rs_extend", rs.extend_rows_cuda(mine[:, :kk].contiguous(), codec), mine,
+                        f"row pass of shard {d} of {R} at k={kk} codec={codec}")
+                top = mine[None]
+                parts.append(rs.col_parity_partial_cuda(
+                    top, *rs.partial_coefficients(kk, d * rows_r, rows_r, codec, dev)))
+                compare("rs_col_parity_partial", parts[-1], rs.col_parity_partial_plain(
+                    top, Gk[:, 8 * d * rows_r : 8 * (d + 1) * rows_r].contiguous()),
+                    f"shard {d} of {R} (n_in={rows_r}) at k={kk} codec={codec}")
+            compare("rs_col_parity_partial", rs.xor_reduce_slabs_plain(torch.stack(parts))[0],
+                    ek[kk:], f"the {R} partials' XOR against the parity rows, k={kk} codec={codec}")
+            del parts, ek
         kk = 32
-        known_np = known_sets(kk, kk + 3)
-        known_np[0] = np.arange(kk)  # the first k positions, as fraud detection asks
-        known = upload(known_np)
-        D32 = rs.decode_matrices_cuda(known, kk, codec)
-        e32 = rs.extend_cuda(upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)), codec)
-        for cols in (False, True):
-            axes = upload(np.sort(rng.permutation(2 * kk)[: kk + 3]).astype(np.int32))
-            compare("rs_decode_axes",
-                    rs.decode_axes_cuda(e32.clone(), D32, known, axes, cols, codec),
-                    rs.decode_axes_plain(e32.clone(), D32, known, axes, cols, codec),
-                    f"k={kk} {'columns' if cols else 'rows'} codec={codec}")
         rec, prov = e32.clone(), e32.clone()
         rec[3, 40, 17] ^= 1
         prov[5, 6, 511] ^= 2
@@ -411,10 +447,11 @@ def main() -> int:
             "batch of 2 EDSs at k=32")
     compare("nmt_combine_level", nmt.eds_nmt_roots(e2), nmt.eds_nmt_roots_plain(e2),
             "batched roots of 2 EDSs at k=32")
-    del D32, e32, rec, prov, av, sq2, e2
+    del Dk, e32, rec, prov, av, sq2, e2
     print("kernels: byte-equal to their plain versions "
-          f"(K5 at k=1..128 x {len(gf256.CODECS)} codecs, K2/K3 at k=128, K4 at n=512, K8a at "
-          "k=4/32/128, K8b/K8c/K5b and batched K2/K3 at k=32)")
+          f"(K5 and K8b at k=1..128 x {len(gf256.CODECS)} codecs, the row pass and K9a at "
+          "k/R = 8/8, 32/4, 128/8 x both codecs, K2/K3 at k=128, K4 at n=512, K8a at "
+          "k=4/32/128, K8c/K5b and batched K2/K3 at k=32)")
 
     # times at the main path's k = 128 shapes (per block)
     codec = gf256.active_codec()
@@ -625,6 +662,25 @@ def main() -> int:
         print(f"{name}: {perf[name]['ms']:.4f} ms, plain {perf[name]['plain_ms']:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
+    # the bit-GEMM kernels against the tensor-core floor of their form: K5 the
+    # three quadrants' 8k x 8k GEMMs over k axes of 512 bytes, K5b 8 squares of
+    # it, K8b the 25 % mask's 2k rows (8k unknown bit rows, 8k deep each), K9a
+    # the 8 shards' 8k x 8(k/R) GEMMs over 2k columns
+    floors = {
+        "rs_extend": bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
+        "rs_extend_batched": 8 * bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
+        "rs_decode_axes": N25 * bit_gemm_ops(8 * k, 8 * k, 512),
+        "rs_col_parity_partial": R9 * bit_gemm_ops(8 * k, 8 * rows9, n2 * 512),
+    }
+    results["tensor_core_floor"] = {}
+    for name, ops in floors.items():
+        floor_ms = ops / INT8_TENSOR_OPS_PER_S * 1e3
+        share = floor_ms / perf[name]["ms"]
+        results["tensor_core_floor"][name] = {"ops": ops, "floor_ms": floor_ms, "share": share}
+        print(f"{name}: tensor-core floor {floor_ms:.4f} ms ({ops / 1e9:.1f} G int8 ops at "
+              f"1,979 TOPS), achieved {100 * share:.1f} % of it in {perf[name]['ms']:.4f} ms "
+              f"(bound {perf[name]['bound_ms']:.4f} ms, plain {perf[name]['plain_ms']:.3f} ms, "
+              f"library {perf[name]['library_ms']:.4f} ms) | {smi}")
     # K1 + K3 over the rows of a proof (da/proof.py row_range_proofs): a
     # namespace or blob spanning 5 rows of a k = 128 block
     row_leaves = nmt.eds_row_leaves(eds, range(5))

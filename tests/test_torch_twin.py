@@ -6,13 +6,14 @@ The kernels themselves run only on a card (chip_smoke.py holds them
 against the plain versions there); this file checks the arithmetic they
 share with the twin: SHA-256 with its in-kernel padding and unaligned
 big-endian loads, the NMT leaf/node message layouts and the parity rule,
-the RFC-6962 level loop and its levels output, the GF(256) log/antilog
-extension (one square and a batch), the proof-path gather (K7b) over a
-device-plane entry's sources, and the repair kernels: decode matrices
-(K8a), the in-place decode of an orientation's axes (K8b) and the repair
-verdicts (K8c); and the sharded extension's kernels: K2 over a window of
-EDS rows, K5's row pass, the column-parity partial (K9a) and the XOR of
-staged slabs (K9b).
+the RFC-6962 level loop and its levels output, the proof-path gather
+(K7b) over a device-plane entry's sources, the repair kernels' decode
+matrices (K8a) and verdicts (K8c), the XOR of staged slabs (K9b), K2 over
+a window of EDS rows, and the tensor-core GF(2) bit-GEMM of K5 (one square
+and a batch), K5's row pass, the column-parity partial (K9a) and the
+in-place decode of an orientation's axes (K8b): its fragments, lane maps
+and padded K through a host emulation of mma.sync in the PTX fragment
+layouts (rs_extend.cuh), held against the JAX package at small k.
 """
 
 import ctypes
@@ -64,6 +65,7 @@ def twin(tmp_path_factory):
     t.twin_rs_extend_batched.argtypes = [_P, _P, _P, _P, _P, I, I]
     t.twin_rs_decode_matrices.argtypes = [_P, _P, _P, _P, I, I, I]
     t.twin_rs_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
+    t.twin_rs_decode_axes_grouped.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I, I]
     t.twin_rs_repair_verdicts.argtypes = [_P, _P, _P, _P, _P, _P, I]
     t.twin_nmt_leaf_digests_window.argtypes = [_P, _P, I, I, I, I]
     t.twin_rs_extend_rows.argtypes = [_P, _P, _P, _P, _P, I, I]
@@ -436,6 +438,102 @@ def test_twin_xor_reduce_slabs_matches_plain(twin, R):
         out, rs.xor_reduce_slabs_plain(torch.from_numpy(staged)).numpy())
 
 
+def _decode_case(rng, k: int, codec: str, n: int):
+    """An EDS of random bytes, n sorted distinct axes, their known sets
+    (sorted, one of them the first k positions) and decode matrices."""
+    n2 = 2 * k
+    eds = rng.integers(0, 256, (n2, n2, 512), dtype=np.uint8)
+    axes = np.sort(rng.permutation(n2)[:n]).astype(np.int32)
+    known = np.stack([np.sort(rng.permutation(n2)[:k]) for _ in range(n)]).astype(np.uint8)
+    known[-1] = np.arange(k)
+    D = rs._decode_matrices_dev(torch.from_numpy(known), k, codec)
+    return eds, axes, known, np.ascontiguousarray(D.numpy())
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("cols", [False, True])
+def test_twin_rs_decode_axes_matches_jax(twin, codec, k, cols):
+    """K8b's bit-GEMM at small k (K = 8k under one 32-deep k-step at k = 1,
+    2), both orientations, against the JAX package's decode of every axis
+    (celestia_tpu/ops/rs.py:206 `_decode_axes_dev`): the decoded axes equal
+    JAX's outright, since D's rows at the known positions are one-hot."""
+    rng = np.random.default_rng(1000 + k + 10 * cols)
+    n2 = 2 * k
+    eds, axes, known, D = _decode_case(rng, k, codec, min(n2, k + 1))
+    gexp, glog = _tables(codec)
+    out = eds.copy()
+    twin.twin_rs_decode_axes(_ptr(out), _ptr(D), _ptr(known), _ptr(axes), _ptr(gexp), _ptr(glog),
+                             len(axes), k, int(cols))
+    known_all = np.tile(np.arange(k, dtype=np.uint8), (n2, 1))
+    known_all[axes] = known
+    view_in = np.ascontiguousarray(eds.transpose(1, 0, 2) if cols else eds)
+    want = np.asarray(jrs._decode_axes_dev(jrs.jnp.asarray(view_in), jrs.jnp.asarray(known_all), k,
+                                           n2, codec))
+    view_out = out.transpose(1, 0, 2) if cols else out
+    np.testing.assert_array_equal(view_out[axes], want[axes])
+    others = np.setdiff1d(np.arange(n2), axes)
+    np.testing.assert_array_equal(view_out[others], view_in[others])
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("gpb", [1, 2, 3])
+def test_twin_rs_decode_axes_groups_per_block(twin, codec, gpb):
+    """K8b with 1, 2 or 3 output groups of 8 a block at k = 32 (4 groups:
+    at 3, a block of 3 and a block of 1), as large launches run it: the
+    per-group coefficients and output positions of a block's tiles."""
+    k = 32
+    rng = np.random.default_rng(1100 + gpb)
+    eds, axes, known, D = _decode_case(rng, k, codec, 5)
+    gexp, glog = _tables(codec)
+    out = eds.copy()
+    twin.twin_rs_decode_axes_grouped(_ptr(out), _ptr(D), _ptr(known), _ptr(axes), _ptr(gexp),
+                                      _ptr(glog), len(axes), k, 0, gpb)
+    want = rs.decode_axes_plain(torch.from_numpy(eds.copy()), torch.from_numpy(D),
+                                torch.from_numpy(known), torch.from_numpy(axes), False, codec)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_twin_rs_extend_batched_matches_jax(twin, codec, k):
+    """K5b's two launches over a batch of 2 squares at small k, against the
+    JAX package's `_extend` of each square."""
+    rng = np.random.default_rng(1200 + k)
+    sq = rng.integers(0, 256, (2, k, k, 512), dtype=np.uint8)
+    gexp, glog = _tables(codec)
+    E = np.ascontiguousarray(gf256.encode_matrix(k, codec), dtype=np.uint8)
+    out = np.zeros((2, 2 * k, 2 * k, 512), dtype=np.uint8)
+    twin.twin_rs_extend_batched(_ptr(sq), _ptr(out), _ptr(E), _ptr(gexp), _ptr(glog), k, 2)
+    G = jrs.jnp.asarray(jgf256.encode_matrix_bits(k, codec))
+    for b in range(2):
+        np.testing.assert_array_equal(out[b], np.asarray(jrs._extend(jrs.jnp.asarray(sq[b]), G)))
+
+
+@pytest.mark.parametrize("codec", gf256.CODECS)
+@pytest.mark.parametrize("k,R", [(1, 1), (2, 2), (4, 4), (8, 8), (8, 2)])
+def test_twin_col_parity_partial_matches_jax(twin, codec, k, R):
+    """K9a at n_in = k/R inputs (1 at every k but the last case: one real
+    input in a 32-deep k-step), every shard, against the JAX package's
+    partial product (celestia_tpu/parallel/sharded.py:82-87: the `g_cols`
+    slice of G times the shard's bit planes by column, & 1), packed."""
+    rows = k // R
+    rng = np.random.default_rng(1300 + k + R)
+    top_all = rng.integers(0, 256, (1, k, 2 * k, 512), dtype=np.uint8)
+    gexp, glog = _tables(codec)
+    G = jgf256.encode_matrix_bits(k, codec)
+    for d in range(R):
+        top = np.ascontiguousarray(top_all[:, d * rows : (d + 1) * rows])
+        Es = np.ascontiguousarray(gf256.encode_matrix(k, codec)[:, d * rows : (d + 1) * rows])
+        out = np.zeros((1, k, 2 * k, 512), dtype=np.uint8)
+        twin.twin_rs_col_parity_partial(_ptr(top), _ptr(out), _ptr(Es), _ptr(gexp), _ptr(glog),
+                                        k, rows, 1)
+        g_cols = jrs.jnp.asarray(G[:, 8 * d * rows : 8 * (d + 1) * rows])
+        bits = jrs.unpack_bits(jrs.jnp.asarray(top[0].transpose(1, 0, 2)))  # (2k, 8 rows, B)
+        want = np.asarray(jrs.pack_bits(jrs.matmul_gf2(g_cols, bits))).transpose(1, 0, 2)
+        np.testing.assert_array_equal(out[0], want)
+
+
 # C entry -> its twin where the names differ (same arguments, no stream)
 _TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
             "ctt_nmt_combine_level": "twin_nmt_combine_level_batched",
@@ -480,8 +578,15 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     monkeypatch.setattr(rs, "partial_coefficients", coefficients)
     monkeypatch.setattr(rs, "col_parity_partial", lambda top, c: rs.col_parity_partial_cuda(top, *c))
     monkeypatch.setattr(rs, "xor_reduce_slabs", rs.xor_reduce_slabs_cuda)
-    with pinned_codec(codec):
-        eds, hdr = sharded.extend_and_header_sharded(sq, sharded.make_mesh(["cpu"] * R))
+    # sharded.py caches each mesh's K9a coefficients: neither the plain
+    # path's form, cached by an earlier test in this process, nor this
+    # test's card form may cross the test's edges
+    sharded._FN_CACHE.clear()
+    try:
+        with pinned_codec(codec):
+            eds, hdr = sharded.extend_and_header_sharded(sq, sharded.make_mesh(["cpu"] * R))
+    finally:
+        sharded._FN_CACHE.clear()
     np.testing.assert_array_equal(eds.shares, eds_1.shares)
     assert hdr == hdr_1
     # one launch per shard of the row pass, K9a and K9b, two K2 windows per
