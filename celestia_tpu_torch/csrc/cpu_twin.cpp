@@ -1,8 +1,10 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
 // nmt.cuh, rs_extend.cuh, rs_decode.cuh, rs_sharded.cuh, das_gather.cuh),
 // compiled by g++ and looped over the thread indices on the host; for the
-// tensor-core bit-GEMM (rs_extend.cuh) over blocks, warps and lanes, with
-// a host emulation of mma.sync in the PTX fragment layouts.  It lets the tests hold the kernels' arithmetic
+// block-cooperative NMT kernels (nmt.cuh) block by block, each step over
+// every thread between the barriers; for the tensor-core bit-GEMM
+// (rs_extend.cuh) over blocks, warps and lanes, with a host emulation of
+// mma.sync in the PTX fragment layouts.  It lets the tests hold the kernels' arithmetic
 // against the JAX package on a machine without a card; it is never on the
 // port's path.  Build: g++ -O2 -std=c++17 -shared -fPIC cpu_twin.cpp.
 #include <string.h>
@@ -135,33 +137,86 @@ void twin_sha256_batch(const uint8_t* msgs, uint8_t* out, long long n, int L, in
   }
 }
 
-// K2 over a window of n_rows EDS rows from row0 (of each of batch EDSs).
-void twin_nmt_leaf_digests_window(const uint8_t* eds, uint8_t* out, int n2, int batch, int row0,
-                                  int n_rows) {
-  for (uint32_t cell = 0; cell < uint32_t(batch) * uint32_t(n_rows) * uint32_t(n2); ++cell)
-    ctt::nmt_leaf_body(eds, out, uint32_t(n2), uint32_t(row0), uint32_t(n_rows), cell);
+// K2 over a window of n_rows EDS rows from row0 (of each of batch EDSs), as
+// ctt_nmt_leaf_digests launches it: the blocks of 64 cells one after
+// another, each step of nmt_leaf_kernel run for every thread before the
+// next (the barriers).  Returns 0, or 1 where the C entry refuses.
+int twin_nmt_leaf_digests_window(const uint8_t* eds, uint8_t* out, int n2, int batch, int row0,
+                                 int n_rows) {
+  using namespace ctt;
+  const uint32_t lg_n2 = log2_exact(uint64_t(n2 > 0 ? n2 : 0));
+  const uint64_t cells = uint64_t(batch) * uint64_t(n_rows) * uint64_t(n2);
+  if (lg_n2 < 1 || lg_n2 > 15 || n_rows < 1 || batch < 1 || cells > 0xFFFFFFFFull ||
+      (reinterpret_cast<uintptr_t>(eds) & 15u) || (reinterpret_cast<uintptr_t>(out) & 1u))
+    return 1;
+  std::vector<uint8_t> rows(kLeafSmemBytes);
+  std::vector<LeafHash> h(kLeafCells);
+  for (uint64_t cell0 = 0; cell0 < cells; cell0 += kLeafCells) {
+    const uint32_t n = uint32_t(std::min<uint64_t>(kLeafCells, cells - cell0));
+    for (uint32_t t = 0; t < kLeafCells; ++t)
+      nmt_leaf_stage(eds, cell0, n, rows.data(), t, kLeafCells);
+    for (uint32_t t = 0; t < n; ++t)
+      nmt_leaf_hash(rows.data() + t * kLeafRow,
+                    nmt_leaf_q0(uint32_t(cell0) + t, lg_n2, uint32_t(row0), uint32_t(n_rows)), &h[t]);
+    for (uint32_t t = 0; t < n; ++t) nmt_leaf_digest(h[t], rows.data() + t * kDigest);
+    for (uint32_t t = 0; t < kLeafCells; ++t)
+      nmt_leaf_store(out, cell0, n, rows.data(), t, kLeafCells);
+  }
+  return 0;
 }
 
-void twin_nmt_leaf_digests_batched(const uint8_t* eds, uint8_t* out, int n2, int batch) {
-  twin_nmt_leaf_digests_window(eds, out, n2, batch, 0, n2);
+int twin_nmt_leaf_digests_batched(const uint8_t* eds, uint8_t* out, int n2, int batch) {
+  return twin_nmt_leaf_digests_window(eds, out, n2, batch, 0, n2);
 }
 
-void twin_nmt_leaf_digests(const uint8_t* eds, uint8_t* out, int n2) {
-  twin_nmt_leaf_digests_batched(eds, out, n2, 1);
+int twin_nmt_leaf_digests(const uint8_t* eds, uint8_t* out, int n2) {
+  return twin_nmt_leaf_digests_batched(eds, out, n2, 1);
 }
 
-void twin_nmt_combine_level_batched(const uint8_t* in, uint8_t* out, long long ntrees, int m_out,
-                                    long long split, long long ts0, long long ns0, long long ts1,
-                                    long long ns1, long long tpb, long long bs) {
-  for (uint64_t idx = 0; idx < uint64_t(ntrees) * uint64_t(m_out); ++idx)
-    ctt::nmt_combine_body(in, out, uint32_t(m_out), uint32_t(split), ts0, ns0, ts1, ns1, tpb, bs,
-                          idx);
+// K3 as ctt_nmt_reduce_levels launches it: every block (x, then the group
+// y) one after another, each step of nmt_reduce_kernel run for its 256
+// threads before the next.  Returns 0, or 1 where the C entry refuses.
+int twin_nmt_reduce_levels(const uint8_t* in, uint8_t* out, long long ntrees, int m,
+                           int n_levels, long long split, long long ts0, long long ns0,
+                           long long ts1, long long ns1, long long tpb, long long bs) {
+  using namespace ctt;
+  NmtReduceArgs a{};
+  const uint32_t per_group = nmt_reduce_setup(&a, in, out, uint64_t(ntrees), uint32_t(m),
+                                              uint32_t(n_levels), uint64_t(split), uint64_t(ts0),
+                                              uint64_t(ns0), uint64_t(ts1), uint64_t(ns1),
+                                              uint64_t(tpb), uint64_t(bs));
+  const uint64_t groups = per_group ? uint64_t(ntrees / tpb) : 0;
+  if (per_group == 0 || groups > 65535) return 1;
+  std::vector<uint8_t> smem(kNmtSmemBytes);
+  uint8_t* const buf_a = smem.data();
+  uint8_t* const buf_b = smem.data() + kNmtTileLeaves * kDigest;
+  for (uint32_t g = 0; g < groups; ++g)
+    for (uint32_t bx = 0; bx < per_group; ++bx) {
+      const NmtTile t = nmt_tile(a, bx, g);
+      for (uint32_t tid = 0; tid < kNmtThreads; ++tid) nmt_stage(t, buf_a, tid, kNmtThreads);
+      for (uint32_t j = 1; j <= a.n_levels; ++j) {
+        const uint8_t* lin = (j & 1u) ? buf_a : buf_b;
+        uint8_t* lout = (j & 1u) ? buf_b : buf_a;
+        for (uint32_t p = 0; p < kNmtThreads; ++p) nmt_level_step(a, t, j, lin, lout, p);
+        for (uint32_t tid = 0; tid < kNmtThreads; ++tid)
+          nmt_store_level(a, t, j, lout, tid, kNmtThreads);
+      }
+    }
+  return 0;
 }
 
-void twin_nmt_combine_level(const uint8_t* in, uint8_t* out, long long ntrees, int m_out,
-                            long long split, long long ts0, long long ns0, long long ts1,
-                            long long ns1) {
-  twin_nmt_combine_level_batched(in, out, ntrees, m_out, split, ts0, ns0, ts1, ns1, ntrees, 0);
+// One level (K3 with n_levels = 1): out uint8[ntrees, m_out, 90].
+int twin_nmt_combine_level_batched(const uint8_t* in, uint8_t* out, long long ntrees, int m_out,
+                                   long long split, long long ts0, long long ns0, long long ts1,
+                                   long long ns1, long long tpb, long long bs) {
+  return twin_nmt_reduce_levels(in, out, ntrees, 2 * m_out, 1, split, ts0, ns0, ts1, ns1, tpb, bs);
+}
+
+int twin_nmt_combine_level(const uint8_t* in, uint8_t* out, long long ntrees, int m_out,
+                           long long split, long long ts0, long long ns0, long long ts1,
+                           long long ns1) {
+  return twin_nmt_combine_level_batched(in, out, ntrees, m_out, split, ts0, ns0, ts1, ns1, ntrees,
+                                        0);
 }
 
 // levels: uint8[batch, 2n - 1, 32] (leaf hashes first, root last), as

@@ -1,70 +1,132 @@
-// K2 `nmt_leaf_digests` and K3 `nmt_combine_level`: the 4k namespaced
-// Merkle trees of an extended data square.
+// K2 `nmt_leaf_digests` and K3 `nmt_combine_level` (C entry
+// ctt_nmt_reduce_levels): the 4k namespaced Merkle trees of an extended
+// data square.
 //
 // Replaces: celestia_tpu/ops/nmt.py:83 `eds_prefixed_leaves` + :42
 // `leaf_digests` (K2), and :53 `combine_level` / :69 `nmt_roots` / :104
-// `eds_nmt_roots` (K3).
+// `eds_nmt_roots` / :326 `nmt_level_stack` (K3).
 //
 // Bound on the H100: integer issue of the SHA-256 compressions (9 per
 // 542-byte leaf, 3 per 181-byte node); the 2k x 2k x 512 EDS read is ~10 us
-// of HBM time at k = 128 against ~0.1 ms of hashing.
-// Design: K2 hashes every cell ONCE, one thread per cell, straight from the
-// EDS: the message `0x00 || prefix || share` is read in place (no 541-byte
-// prefixed leaf is built) into a (2k, 2k, 90) digest grid.  The JAX program
-// hashes each cell twice (row and transposed column trees); the grid read
-// by rows and by columns gives the same bytes for half the leaf work.  K3 is
-// one launch per level, one thread per parent node; its first level reads
-// the grid through two stride sets (rows for trees 0..2k, columns for
-// 2k..4k), later levels read the contiguous previous level.  K2 also takes
-// a window of EDS rows (a K9 shard's slab, parallel/sharded.py).  A batch of
-// EDSs (the catch-up path, JAX `jax.vmap(eds_nmt_roots)` at
-// celestia_tpu/node/network.py:407) is one K2 launch over every cell and
-// one K3 launch per level over all n * 4k trees (groups of 4k per grid).
+// of HBM time at k = 128 against ~0.05 ms of hashing.  Above K3's first
+// levels the bound is the dependency chain: log2(2k) levels of 3
+// compressions each, one after another.
+//
+// K2 design: each EDS cell is hashed ONCE into a (2k, 2k, 90) digest grid
+// that K3 reads by rows and by columns (the JAX program hashes every cell
+// twice).  A block of 64 threads hashes 64 consecutive cells: it stages
+// their shares with 16-byte loads (a warp reads one whole share a load)
+// into shared memory at a 516-byte row stride (conflict-free reads), each
+// thread reads its message words there (one PRMT of two staged words each,
+// the share starting 2 bytes into a word), and the block writes its 5,760
+// bytes of digests as one run of 16-byte stores.  It takes a window of EDS
+// rows (a K9 shard's slab, parallel/sharded.py) and a batch of EDSs.
+//
+// K3 design: one launch runs every level of a set of trees.  A block stages
+// up to 512 level-0 nodes -- one tree of 512 leaves, two rows or two
+// columns of a k = 128 leaf grid, 512 / m trees of m leaves -- into shared
+// memory with wide coalesced copies (by rows: one run of 16-byte loads; by
+// columns: the block's adjacent columns are one run of each grid row), then
+// reduces them level by level in shared memory, one thread a parent, with a
+// barrier between levels, and writes each level to the packed output with
+// coalesced stores as soon as it has it.  No level crosses a launch.  The
+// first level reads the leaf grid through two stride sets (rows for trees
+// 0..2k, columns for 2k..4k), and groups of trees take a batch of grids (the
+// catch-up path, JAX `jax.vmap(eds_nmt_roots)` at celestia_tpu/node/
+// network.py:407).
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "nmt.cuh"
 
 namespace {
 
-__global__ void nmt_leaf_kernel(const uint8_t* eds, uint8_t* out, uint32_t n2, uint32_t row0,
-                                uint32_t n_rows, uint32_t cells) {
-  const uint32_t cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= cells) return;
-  ctt::nmt_leaf_body(eds, out, n2, row0, n_rows, cell);
+__global__ void __launch_bounds__(ctt::kLeafCells)
+    nmt_leaf_kernel(const uint8_t* eds, uint8_t* out, uint32_t lg_n2, uint32_t row0,
+                    uint32_t n_rows, uint32_t cells) {
+  __shared__ __align__(16) uint8_t rows[ctt::kLeafSmemBytes];
+  const uint32_t cell0 = blockIdx.x * ctt::kLeafCells;
+  const uint32_t n = cells - cell0 < ctt::kLeafCells ? cells - cell0 : ctt::kLeafCells;
+  const uint32_t t = threadIdx.x;
+  ctt::nmt_leaf_stage(eds, cell0, n, rows, t, blockDim.x);
+  __syncthreads();
+  ctt::LeafHash h;
+  if (t < n) ctt::nmt_leaf_hash(rows + t * ctt::kLeafRow, ctt::nmt_leaf_q0(cell0 + t, lg_n2, row0, n_rows), &h);
+  __syncthreads();  // every share read: the digests may overwrite them
+  if (t < n) ctt::nmt_leaf_digest(h, rows + t * ctt::kDigest);
+  __syncthreads();
+  ctt::nmt_leaf_store(out, cell0, n, rows, t, blockDim.x);
 }
 
-__global__ void nmt_combine_kernel(const uint8_t* in, uint8_t* out, uint64_t total,
-                                   uint32_t m_out, uint32_t split, uint64_t ts0, uint64_t ns0,
-                                   uint64_t ts1, uint64_t ns1, uint64_t tpb, uint64_t bs) {
-  const uint64_t idx = static_cast<uint64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  ctt::nmt_combine_body(in, out, m_out, split, ts0, ns0, ts1, ns1, tpb, bs, idx);
+__global__ void __launch_bounds__(ctt::kNmtThreads)
+    nmt_reduce_kernel(const ctt::NmtReduceArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* const buf_a = smem;
+  uint8_t* const buf_b = smem + ctt::kNmtTileLeaves * ctt::kDigest;
+  const ctt::NmtTile t = ctt::nmt_tile(a, blockIdx.x, blockIdx.y);
+  ctt::nmt_stage(t, buf_a, threadIdx.x, blockDim.x);
+  __syncthreads();
+  for (uint32_t j = 1; j <= a.n_levels; ++j) {
+    const uint8_t* in = (j & 1u) ? buf_a : buf_b;
+    uint8_t* out = (j & 1u) ? buf_b : buf_a;
+    ctt::nmt_level_step(a, t, j, in, out, threadIdx.x);
+    __syncthreads();
+    // `out` is read-only until level j + 2 writes it, two barriers on
+    ctt::nmt_store_level(a, t, j, out, threadIdx.x, blockDim.x);
+  }
 }
 
 }  // namespace
 
-// eds uint8[batch, n_rows, n2, 512], rows row0 .. row0 + n_rows - 1 of each
-// EDS -> out uint8[batch, n_rows, n2, 90].  A whole EDS: row0 = 0, n_rows = n2.
+// eds uint8[batch, n_rows, n2, 512] (16-byte aligned), rows row0 .. row0 +
+// n_rows - 1 of each EDS -> out uint8[batch, n_rows, n2, 90].  A whole EDS:
+// row0 = 0, n_rows = n2.
 extern "C" int ctt_nmt_leaf_digests(const void* eds, void* out, int n2, int batch, int row0,
                                     int n_rows, void* stream) {
-  const int threads = 128;
-  const unsigned cells =
-      static_cast<unsigned>(batch) * static_cast<unsigned>(n_rows) * static_cast<unsigned>(n2);
-  nmt_leaf_kernel<<<(cells + threads - 1) / threads, threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(eds), static_cast<uint8_t*>(out), n2, row0, n_rows, cells);
+  const uint32_t lg_n2 = ctt::log2_exact(static_cast<uint64_t>(n2));
+  const uint64_t cells = uint64_t(batch) * uint64_t(n_rows) * uint64_t(n2);
+  if (lg_n2 < 1 || lg_n2 > 15 || n_rows < 1 || batch < 1 || cells > 0xFFFFFFFFull ||
+      (reinterpret_cast<uintptr_t>(eds) & 15u) || (reinterpret_cast<uintptr_t>(out) & 1u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks =
+      static_cast<unsigned>((cells + ctt::kLeafCells - 1) / ctt::kLeafCells);
+  nmt_leaf_kernel<<<blocks, ctt::kLeafCells, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(eds), static_cast<uint8_t*>(out), lg_n2,
+      static_cast<uint32_t>(row0), static_cast<uint32_t>(n_rows), static_cast<uint32_t>(cells));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ctt_nmt_combine_level(const void* in, void* out, long long ntrees, int m_out,
-                                     long long split, long long ts0, long long ns0,
+// Levels 1 .. n_levels of ntrees trees of m leaves (strides as
+// ctt::NmtReduceArgs describes) into the packed out: level j is uint8[ntrees,
+// m >> j, 90] from byte ntrees * (m - (m >> (j - 1))) * 90 on; m <= 512
+// (one block's tree), 1 <= n_levels <= log2 m.
+extern "C" int ctt_nmt_reduce_levels(const void* in, void* out, long long ntrees, int m,
+                                     int n_levels, long long split, long long ts0, long long ns0,
                                      long long ts1, long long ns1, long long tpb, long long bs,
                                      void* stream) {
-  const int threads = 128;
-  const uint64_t total = static_cast<uint64_t>(ntrees) * static_cast<uint64_t>(m_out);
-  nmt_combine_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), total,
-      static_cast<uint32_t>(m_out), static_cast<uint32_t>(split), ts0, ns0, ts1, ns1, tpb, bs);
+  ctt::NmtReduceArgs a{};
+  const uint32_t per_group = ctt::nmt_reduce_setup(
+      &a, static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
+      static_cast<uint64_t>(ntrees), static_cast<uint32_t>(m), static_cast<uint32_t>(n_levels),
+      static_cast<uint64_t>(split), static_cast<uint64_t>(ts0), static_cast<uint64_t>(ns0),
+      static_cast<uint64_t>(ts1), static_cast<uint64_t>(ns1), static_cast<uint64_t>(tpb),
+      static_cast<uint64_t>(bs));
+  const uint64_t groups = per_group ? static_cast<uint64_t>(ntrees / tpb) : 0;
+  if (per_group == 0 || groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // the first launch on a device raises the kernel's dynamic shared memory
+  // limit above the default 48 KB
+  static std::atomic<uint64_t> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!((raised.load() >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(nmt_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ctt::kNmtSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised |= uint64_t(1) << dev;
+  }
+  nmt_reduce_kernel<<<dim3(per_group, static_cast<unsigned>(groups)), ctt::kNmtThreads,
+                      ctt::kNmtSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

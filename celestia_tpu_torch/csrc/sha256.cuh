@@ -55,6 +55,53 @@ CTT_HD uint32_t load_be(const uint8_t* p) {
 #endif
 }
 
+// Byte permute of the 8 bytes {y:x} (x bytes 0-3, y bytes 4-7): byte i of
+// the result is the byte that nibble i of s names (one PRMT on the card).
+CTT_HD uint32_t prmt(uint32_t x, uint32_t y, uint32_t s) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(x, y, s);
+#else
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  uint32_t r = 0;
+  for (uint32_t i = 0; i < 4; ++i) r |= static_cast<uint32_t>((v >> (8u * ((s >> (4u * i)) & 7u))) & 0xFFu) << (8u * i);
+  return r;
+#endif
+}
+
+// Little-endian loads and stores at an aligned address (4 and 2 bytes).
+CTT_HD uint32_t ld32(const uint8_t* p) {
+#ifdef __CUDA_ARCH__
+  return *reinterpret_cast<const uint32_t*>(p);
+#else
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24);
+#endif
+}
+
+CTT_HD uint32_t ld16(const uint8_t* p) {
+#ifdef __CUDA_ARCH__
+  return *reinterpret_cast<const uint16_t*>(p);
+#else
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8);
+#endif
+}
+
+CTT_HD void st32(uint8_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint32_t*>(p) = v;
+#else
+  for (int i = 0; i < 4; ++i) p[i] = static_cast<uint8_t>(v >> (8 * i));
+#endif
+}
+
+CTT_HD void st16(uint8_t* p, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(v);
+#else
+  p[0] = static_cast<uint8_t>(v);
+  p[1] = static_cast<uint8_t>(v >> 8);
+#endif
+}
+
 CTT_HD void sha256_init(uint32_t st[8]) {
   st[0] = 0x6A09E667u; st[1] = 0xBB67AE85u; st[2] = 0x3C6EF372u; st[3] = 0xA54FF53Au;
   st[4] = 0x510E527Fu; st[5] = 0x9B05688Cu; st[6] = 0x1F83D9ABu; st[7] = 0x5BE0CD19u;

@@ -281,7 +281,7 @@ def data_roots_batched(squares, device=None) -> Tuple[np.ndarray, Tuple[bytes, .
     (axis roots uint8[n, 2, 2k, 90], the n data roots).
 
     On the card: one K5b launch pair extends the batch, one K2 launch and
-    one K3 launch per level hash all n * 4k trees, then K1 + K4 give each
+    one K3 launch hash all n * 4k trees to their roots, then K1 + K4 give each
     block's data root there (the JAX caller hashes the roots on the host);
     roots and data roots come back in one copy.  A numpy batch is uploaded
     to ``device`` (None: the card); a tensor stays on its device."""

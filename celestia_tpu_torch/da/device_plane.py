@@ -6,9 +6,9 @@ here K7a) takes the original square and leaves on its device the EDS,
 every level of the 4k NMT axis trees and every level of the RFC-6962 tree
 over the 4k axis roots:
 
-    K5 rs_extend -> K2 nmt_leaf_digests -> K3 nmt_combine_level (every
-    level kept) -> K1 sha256_batch (root leaf hashes) -> K4 rfc6962_root
-    with its levels output
+    K5 rs_extend -> K2 nmt_leaf_digests -> K3 nmt_combine_level (one
+    launch, every level kept) -> K1 sha256_batch (root leaf hashes) -> K4
+    rfc6962_root with its levels output
 
 Only the 4k axis roots and the 32-byte data root cross to the host (one
 copy), to build the DAH.  The tensors ride a :class:`DevicePlaneEntry`
@@ -33,7 +33,8 @@ host prover for an EDS on the CPU only.
 Layout.  The JAX entry holds NMT level ``j`` as uint8[2, 2k, 2k>>j, 90]
 (axis 0: row trees, column trees).  The port keeps the leaf digests once,
 as K2's (2k, 2k, 90) grid (column tree c's leaf r is grid[r, c]), and
-level ``j >= 1`` as K3's uint8[4k, 2k>>j, 90] (trees 0..2k the rows);
+level ``j >= 1`` as K3's uint8[4k, 2k>>j, 90] (trees 0..2k the rows), on
+the card views of the one packed buffer K3 writes every level into;
 :meth:`DevicePlaneEntry.level` gives the JAX layout.  The root-tree levels
 are K4's packed uint8[2*4k - 1, 32] (leaf hashes first, the data root last).
 """
@@ -63,9 +64,7 @@ def _extend_levels(square: torch.Tensor):
     k = square.shape[0]
     eds = rs.extend_square(square)
     grid = nmt_ops.eds_leaf_digests(eds)
-    levels = [nmt_ops.combine_grid(grid)]
-    while levels[-1].shape[-2] > 1:
-        levels.append(nmt_ops.combine_level(levels[-1]))
+    levels = nmt_ops.grid_levels(grid)  # on the card: views of one K3 launch's packed output
     roots = levels[-1].reshape(4 * k, DIGEST)
     root_tree = nmt_ops.rfc6962_tree_levels(nmt_ops.rfc6962_leaf_hashes(roots))
     return eds, grid, tuple(levels), root_tree
@@ -351,8 +350,8 @@ def root_tree(dah, device) -> torch.Tensor:
 
 def sample_proofs_from_eds(eds: torch.Tensor, dah, coords: Sequence[Tuple[int, int]]) -> list:
     """Serve n DAS proofs of a block with no cached entry, on the EDS's
-    device: the touched rows' level stacks (K1 leaf digests, then K3 per
-    level, over those rows only), the root tree (:func:`root_tree`), and
+    device: the touched rows' level stacks (K1 leaf digests, then one K3
+    launch for every level, over those rows only), the root tree (:func:`root_tree`), and
     one K7b gather of every sibling, aunt and share.  Byte-identical to
     :func:`sample_proofs_batch` and the host prover."""
     k = eds.shape[0] // 2

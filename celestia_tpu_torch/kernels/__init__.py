@@ -43,7 +43,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ctt_sha256_batch": (_P, _P, _LL, _I, _I, _P),
     "ctt_nmt_leaf_digests": (_P, _P, _I, _I, _I, _I, _P),
-    "ctt_nmt_combine_level": (_P, _P, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    "ctt_nmt_reduce_levels": (_P, _P, _LL, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "ctt_rfc6962_root": (_P, _P, _I, _I, _P),
     "ctt_rs_extend": (_P, _P, _P, _P, _P, _I, _P),
     "ctt_das_proof_gather": (_P, _I, _P, _I, _P, _P),
@@ -60,7 +60,7 @@ _SIGNATURES = {
 KERNELS = {
     "sha256_batch": "ctt_sha256_batch",
     "nmt_leaf_digests": "ctt_nmt_leaf_digests",
-    "nmt_combine_level": "ctt_nmt_combine_level",
+    "nmt_combine_level": "ctt_nmt_reduce_levels",
     "rfc6962_root": "ctt_rfc6962_root",
     "rs_extend": "ctt_rs_extend",
     "das_proof_gather": "ctt_das_proof_gather",

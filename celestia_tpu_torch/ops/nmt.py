@@ -22,18 +22,25 @@ On a CPU tensor each runs its plain PyTorch twin in this module.  Each EDS
 cell is hashed once, into a (2k, 2k, 90) grid that row trees read by rows
 and column trees by columns — the bytes the JAX program gets by hashing
 every cell twice.  K2 also hashes a window of EDS rows
-(:func:`leaf_digests_window`) and K3 reads trees down a grid's columns
-(:func:`combine_columns`): the sharded extension's slabs
-(parallel/sharded.py).
+(:func:`leaf_digests_window`).
+
+K3 runs every level of a set of trees in one launch and writes them all
+into one packed buffer; the levels are views of it (:func:`grid_levels`
+from a leaf grid, :func:`reduce_levels` over contiguous trees,
+:func:`column_levels` down a grid's columns — the sharded extension's
+column subtrees and their finish, parallel/sharded.py).  The one-level
+functions (:func:`combine_level`, :func:`combine_grid`,
+:func:`combine_columns`) are the same kernel with one level.
 
 The level stacks that proofs are served from: :func:`nmt_level_stack` (K1
-leaf digests, then K3 once per level, over any leading batch dimension)
-and :func:`rfc6962_level_stack` (K1 leaf hashes, then K4 writing every
-level into one packed buffer, :func:`rfc6962_tree_levels`).
+leaf digests, then one K3 launch for every level, over any leading batch
+dimension) and :func:`rfc6962_level_stack` (K1 leaf hashes, then K4 writing
+every level into one packed buffer, :func:`rfc6962_tree_levels`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -95,46 +102,103 @@ def combine_level_plain(nodes: torch.Tensor) -> torch.Tensor:
     return torch.cat([l_min, max_ns, h], dim=-1)
 
 
-def _combine_cuda(src, ntrees, m_out, split, strides0, strides1, group=None) -> torch.Tensor:
-    """One K3 launch over ``ntrees`` trees; ``group`` = (trees per grid,
-    bytes between grids) for a batch of grids, else one group of all."""
+# one K3 block holds a whole tree in shared memory (csrc/nmt.cuh
+# kNmtTileLeaves); an EDS axis has at most 256 leaves
+NMT_MAX_LEAVES = 512
+
+
+def _lg(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _reduce_cuda(src, trees: tuple, m, n_levels, split, strides0, strides1, group=None) -> list:
+    """K3 over the trees ``trees`` (a shape: ntrees = its product) of ``m``
+    leaves: levels 1 .. ``n_levels``, views uint8[*trees, m >> j, 90] of one
+    packed buffer, in one launch.  ``strides0`` / ``strides1`` = (bytes
+    between trees, bytes between nodes) of trees below / from ``split`` in a
+    group; ``group`` = (trees per group, bytes between groups) for a batch
+    of grids, else one group of all."""
+    if m > NMT_MAX_LEAVES:
+        raise ValueError(f"K3 reduces trees of at most {NMT_MAX_LEAVES} leaves, got {m}")
+    if src.data_ptr() % 2:
+        raise ValueError("K3 reads 90-byte nodes 2 bytes at a time at least: the input "
+                         "starts at an odd address")
+    ntrees = math.prod(trees)
     tpb, bs = group if group is not None else (ntrees, 0)
-    out = torch.empty((ntrees, m_out, NMT_DIGEST_SIZE), dtype=torch.uint8, device=src.device)
-    kernels.launch(
-        "nmt_combine_level", src.device, src.data_ptr(), out.data_ptr(),
-        ntrees, m_out, split, *strides0, *strides1, tpb, bs,
-    )
-    return out
+    d = NMT_DIGEST_SIZE
+    packed = torch.empty(ntrees * (m - (m >> n_levels)) * d, dtype=torch.uint8, device=src.device)
+    kernels.launch("nmt_combine_level", src.device, src.data_ptr(), packed.data_ptr(), ntrees, m,
+                   n_levels, split, *strides0, *strides1, tpb, bs)
+    sizes = [ntrees * (m >> j) * d for j in range(1, n_levels + 1)]
+    return [lv.view(trees + (m >> j, d)) for j, lv in enumerate(packed.split(sizes), 1)]
+
+
+def _level_count(m: int, n_levels) -> int:
+    _check_pow2(m)
+    if n_levels is None:
+        return _lg(m)
+    if not 0 <= n_levels <= _lg(m):
+        raise ValueError(f"n_levels must be in 0..{_lg(m)} for {m} leaves, got {n_levels}")
+    return n_levels
+
+
+def _empty_levels(lead: tuple, m: int, n_levels: int, device) -> list:
+    """Levels 1 .. n_levels of no trees: uint8[*lead, m >> j, 90] each."""
+    return [torch.empty(lead + (m >> j, NMT_DIGEST_SIZE), dtype=torch.uint8, device=device)
+            for j in range(1, n_levels + 1)]
+
+
+def _plain_chain(nodes: torch.Tensor, n_levels: int) -> list:
+    levels = []
+    for _ in range(n_levels):
+        nodes = combine_level_plain(nodes)
+        levels.append(nodes)
+    return levels
+
+
+def reduce_levels_plain(nodes: torch.Tensor, n_levels=None) -> list:
+    """Plain twin of :func:`reduce_levels` on any device."""
+    return _plain_chain(nodes, _level_count(nodes.shape[-2], n_levels))
+
+
+def reduce_levels(nodes: torch.Tensor, n_levels=None) -> list:
+    """Levels 1 .. ``n_levels`` (default: to the root) of the trees
+    uint8[..., m, 90]: ``[(..., m/2, 90), (..., m/4, 90), ...]``.  On the
+    card one K3 launch for every level of every tree (views of one packed
+    buffer), m <= 512."""
+    n_levels = _level_count(nodes.shape[-2], n_levels)
+    if _is_cpu(nodes):
+        return _plain_chain(nodes, n_levels)
+    kernels.check_cuda_tensor(nodes, "nodes")
+    m = nodes.shape[-2]
+    if nodes.shape[-1] != NMT_DIGEST_SIZE:
+        raise ValueError(f"nodes must be [..., m, 90], got {tuple(nodes.shape)}")
+    lead = tuple(nodes.shape[:-2])
+    ntrees = math.prod(lead)
+    if n_levels == 0 or ntrees == 0:
+        return _empty_levels(lead, m, n_levels, nodes.device)
+    stride = (m * NMT_DIGEST_SIZE, NMT_DIGEST_SIZE)
+    return _reduce_cuda(nodes, lead, m, n_levels, ntrees, stride, stride)
 
 
 def combine_level(nodes: torch.Tensor) -> torch.Tensor:
     """One reduction level: uint8[..., m, 90] -> uint8[..., m//2, 90]."""
+    m = nodes.shape[-2]
+    if m < 2 or m % 2:
+        raise ValueError(f"nodes must be [..., even m, 90], got {tuple(nodes.shape)}")
     if _is_cpu(nodes):
         return combine_level_plain(nodes)
     kernels.check_cuda_tensor(nodes, "nodes")
-    m = nodes.shape[-2]
-    if nodes.shape[-1] != NMT_DIGEST_SIZE or m < 2 or m % 2:
-        raise ValueError(f"nodes must be [..., even m, 90], got {tuple(nodes.shape)}")
-    lead = tuple(nodes.shape[:-2])
-    ntrees = int(np.prod(lead))
-    stride = (m * NMT_DIGEST_SIZE, NMT_DIGEST_SIZE)
-    out = _combine_cuda(nodes, ntrees, m // 2, ntrees, stride, stride)
-    return out.reshape(lead + (m // 2, NMT_DIGEST_SIZE))
-
-
-def _level_stack(leaves: torch.Tensor, leaf_fn, level_fn) -> list:
-    _check_pow2(leaves.shape[-2])
-    levels = [leaf_fn(leaves)]
-    while levels[-1].shape[-2] > 1:
-        levels.append(level_fn(levels[-1]))
-    return levels
+    # K3 with one level over the m/2 pairs as trees of two leaves
+    pairs = nodes.view(nodes.shape[:-2] + (m // 2, 2, NMT_DIGEST_SIZE))
+    return reduce_levels(pairs, 1)[0].view(nodes.shape[:-2] + (m // 2, NMT_DIGEST_SIZE))
 
 
 def nmt_level_stack_plain(leaves: torch.Tensor) -> list:
     """Plain twin of :func:`nmt_level_stack` on any device."""
-    return _level_stack(
-        leaves, lambda x: _leaf_digests_with(rfc6962_leaf_hashes_plain, x), combine_level_plain
-    )
+    _check_pow2(leaves.shape[-2])
+    digests = _leaf_digests_with(rfc6962_leaf_hashes_plain, leaves)
+    return [digests] + reduce_levels_plain(digests)
 
 
 def nmt_level_stack(leaves: torch.Tensor) -> list:
@@ -143,12 +207,14 @@ def nmt_level_stack(leaves: torch.Tensor) -> list:
 
     Counterpart of ``celestia_tpu/ops/nmt.py:326``: what proof generation
     reads (the sibling at every aligned span).  On the card: one K1 launch
-    for the leaf digests, then one K3 launch per level, each over every
-    tree of the leading dimensions."""
+    for the leaf digests, then one K3 launch for every level of every tree
+    of the leading dimensions."""
     if _is_cpu(leaves):
         return nmt_level_stack_plain(leaves)
     kernels.check_cuda_tensor(leaves, "leaves")
-    return _level_stack(leaves, leaf_digests, combine_level)
+    _check_pow2(leaves.shape[-2])
+    digests = leaf_digests(leaves)
+    return [digests] + reduce_levels(digests)
 
 
 def nmt_roots(leaves: torch.Tensor) -> torch.Tensor:
@@ -156,10 +222,9 @@ def nmt_roots(leaves: torch.Tensor) -> torch.Tensor:
 
     n must be a power of two (EDS axes always are)."""
     _check_pow2(leaves.shape[-2])
-    nodes = leaf_digests(leaves)
-    while nodes.shape[-2] > 1:
-        nodes = combine_level(nodes)
-    return nodes[..., 0, :]
+    digests = leaf_digests(leaves)
+    levels = reduce_levels(digests)
+    return (levels[-1] if levels else digests)[..., 0, :]
 
 
 def _prefix_leaves(block: torch.Tensor, row_ids: torch.Tensor, k: int) -> torch.Tensor:
@@ -267,6 +332,10 @@ def leaf_digests_window(rows: torch.Tensor, row0: int, out: torch.Tensor = None)
     if out is None:
         out = torch.empty(shape, dtype=torch.uint8, device=rows.device)
     kernels.check_cuda_tensor(out, "out", shape)
+    if rows.data_ptr() % 16 or out.data_ptr() % 2:
+        raise ValueError("K2 loads shares 16 bytes at a time and stores digests 2 bytes at a "
+                         "time at least: rows must start on a 16-byte boundary, out on an even "
+                         "address")
     batch = rows.shape[0] if rows.dim() == 4 else 1
     kernels.launch("nmt_leaf_digests", rows.device, rows.data_ptr(), out.data_ptr(), n2, batch,
                    row0, n_rows)
@@ -282,28 +351,64 @@ def eds_leaf_digests(eds: torch.Tensor) -> torch.Tensor:
     return leaf_digests_window(eds, 0)
 
 
-def combine_columns_plain(grid: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`combine_columns` on any device."""
-    return combine_level_plain(grid.transpose(-3, -2))
+def column_levels_plain(grid: torch.Tensor, n_levels=None) -> list:
+    """Plain twin of :func:`column_levels` on any device."""
+    return reduce_levels_plain(grid.transpose(-3, -2), n_levels)
+
+
+def column_levels(grid: torch.Tensor, n_levels=None) -> list:
+    """K3 over the trees that run down the columns of leaf grids (tree c's
+    leaf i is ``grid[..., i, c]``): uint8[..., m, n, 90] -> levels 1 ..
+    ``n_levels`` (default: to the root), uint8[..., n, m >> j, 90], one
+    launch for every grid of the batch and every level.  A K9 shard's
+    column subtrees read its slab's leaf grid this way, and the finish
+    reads the gathered subtree nodes (parallel/sharded.py)."""
+    m, n = grid.shape[-3], grid.shape[-2]
+    n_levels = _level_count(m, n_levels)
+    if _is_cpu(grid):
+        return column_levels_plain(grid, n_levels)
+    lead = tuple(grid.shape[:-3])
+    d = NMT_DIGEST_SIZE
+    kernels.check_cuda_tensor(grid, "grid", lead + (m, n, d))
+    batch = math.prod(lead)
+    if n_levels == 0 or batch * n == 0:
+        return _empty_levels(lead + (n,), m, n_levels, grid.device)
+    return _reduce_cuda(grid, lead + (n,), m, n_levels, n, (d, n * d), (d, n * d),
+                        group=(n, m * n * d))
 
 
 def combine_columns(grid: torch.Tensor) -> torch.Tensor:
-    """K3's first level of the trees that run down the columns of a leaf
-    grid (tree c's leaf i is ``grid[..., i, c]``): uint8[..., m, n, 90] ->
-    uint8[..., n, m/2, 90], one launch for every grid of the batch.  A K9
-    shard's column subtrees read its slab's leaf grid this way, and the
-    finish reads the gathered subtree nodes (parallel/sharded.py)."""
+    """The first level of :func:`column_levels`: uint8[..., m, n, 90] ->
+    uint8[..., n, m/2, 90]."""
+    return column_levels(grid, 1)[0]
+
+
+def grid_levels_plain(grid: torch.Tensor, n_levels=None) -> list:
+    """Plain twin of :func:`grid_levels` on any device."""
+    n_levels = _level_count(grid.shape[-2], n_levels)
+    if n_levels == 0:
+        return []
+    first = combine_grid_plain(grid)
+    return [first] + reduce_levels_plain(first, n_levels - 1)
+
+
+def grid_levels(grid: torch.Tensor, n_levels=None) -> list:
+    """K3 over the 4k trees of leaf grids uint8[..., 2k, 2k, 90] (trees
+    0..2k the rows, 2k..4k the columns): levels j = 1 .. ``n_levels``
+    (default: to the roots) as uint8[..., 4k, 2k >> j, 90], views of one
+    packed buffer, in one launch for one grid or a batch."""
+    n2 = grid.shape[-2]
+    n_levels = _level_count(n2, n_levels)
     if _is_cpu(grid):
-        return combine_columns_plain(grid)
-    m, n = grid.shape[-3], grid.shape[-2]
+        return grid_levels_plain(grid, n_levels)
     lead = tuple(grid.shape[:-3])
-    kernels.check_cuda_tensor(grid, "grid", lead + (m, n, NMT_DIGEST_SIZE))
-    if m < 2 or m % 2:
-        raise ValueError(f"grid must be [..., even m, n, 90], got {tuple(grid.shape)}")
     d = NMT_DIGEST_SIZE
-    batch = int(np.prod(lead))
-    out = _combine_cuda(grid, batch * n, m // 2, n, (d, n * d), (d, n * d), group=(n, m * n * d))
-    return out.reshape(lead + (n, m // 2, d))
+    kernels.check_cuda_tensor(grid, "grid", lead + (n2, n2, d))
+    batch = math.prod(lead)
+    if n_levels == 0 or batch == 0:
+        return _empty_levels(lead + (2 * n2,), n2, n_levels, grid.device)
+    return _reduce_cuda(grid, lead + (2 * n2,), n2, n_levels, n2, (n2 * d, d), (d, n2 * d),
+                        group=(2 * n2, n2 * n2 * d))
 
 
 def combine_grid_plain(grid: torch.Tensor) -> torch.Tensor:
@@ -315,30 +420,19 @@ def combine_grid(grid: torch.Tensor) -> torch.Tensor:
     """K3's first level, read from the leaf grid: uint8[..., 2k, 2k, 90] ->
     uint8[..., 4k, k, 90] (trees 0..2k are the rows, 2k..4k the columns),
     for one grid or a batch uint8[n, 2k, 2k, 90] in one launch."""
-    if _is_cpu(grid):
-        return combine_grid_plain(grid)
-    n2 = grid.shape[-2]
-    lead = tuple(grid.shape[:-3])
-    kernels.check_cuda_tensor(grid, "grid", lead + (n2, n2, NMT_DIGEST_SIZE))
-    d = NMT_DIGEST_SIZE
-    batch = int(np.prod(lead))
-    out = _combine_cuda(grid, batch * 2 * n2, n2 // 2, n2, (n2 * d, d), (d, n2 * d),
-                        group=(2 * n2, n2 * n2 * d))
-    return out.reshape(lead + (2 * n2, n2 // 2, d))
+    return grid_levels(grid, 1)[0]
 
 
-def _eds_roots(eds, leaf_fn, grid_fn, level_fn) -> torch.Tensor:
+def _eds_roots(eds, leaf_fn, levels_fn) -> torch.Tensor:
     n2 = _check_eds(eds, batched=eds.dim() == 4)
-    nodes = grid_fn(leaf_fn(eds))
-    while nodes.shape[-2] > 1:
-        nodes = level_fn(nodes)
-    return nodes[..., 0, :].reshape(eds.shape[:-3] + (2, n2, NMT_DIGEST_SIZE))
+    roots = levels_fn(leaf_fn(eds))[-1]
+    return roots[..., 0, :].reshape(eds.shape[:-3] + (2, n2, NMT_DIGEST_SIZE))
 
 
 def eds_nmt_roots_plain(eds: torch.Tensor) -> torch.Tensor:
     """Plain twin of K2 + K3 on any device: uint8[..., 2k, 2k, 512] ->
     uint8[..., 2, 2k, 90]."""
-    return _eds_roots(eds, eds_leaf_digests_plain, combine_grid_plain, combine_level_plain)
+    return _eds_roots(eds, eds_leaf_digests_plain, grid_levels_plain)
 
 
 def eds_nmt_roots(eds: torch.Tensor) -> torch.Tensor:
@@ -346,9 +440,9 @@ def eds_nmt_roots(eds: torch.Tensor) -> torch.Tensor:
 
     A batch uint8[n, 2k, 2k, 512] gives uint8[n, 2, 2k, 90] (JAX
     ``jax.vmap(eds_nmt_roots)``, celestia_tpu/node/network.py:407): on the
-    card one K2 launch for the batch and one K3 launch per level over all
-    n * 4k trees."""
-    return _eds_roots(eds, eds_leaf_digests, combine_grid, combine_level)
+    card one K2 launch for the batch and one K3 launch for every level of
+    all n * 4k trees."""
+    return _eds_roots(eds, eds_leaf_digests, grid_levels)
 
 
 def empty_root_np() -> np.ndarray:
@@ -414,7 +508,7 @@ def rfc6962_tree_levels(hashes: torch.Tensor) -> torch.Tensor:
             f"hashes must be [..., n <= {RFC6962_MAX_LEAVES}, 32], got {tuple(hashes.shape)}"
         )
     lead = tuple(hashes.shape[:-2])
-    batch = int(np.prod(lead))
+    batch = math.prod(lead)
     levels = torch.empty(lead + (2 * n - 1, 32), dtype=torch.uint8, device=hashes.device)
     if batch:
         kernels.launch("rfc6962_root", hashes.device, hashes.data_ptr(), levels.data_ptr(), batch, n)

@@ -25,11 +25,12 @@ squares of data group g, and computes, in order:
 4. the leaf digests of its 2 x k/R x 2k cells, each hashed once (K2 over
    its top rows from EDS row d k/R and its bottom rows from k + d k/R;
    sharded.py:99-114), its k/R x 2 row trees and, per column, the two
-   subtrees over its top and its bottom rows (K3 by rows and by columns;
+   subtrees over its top and its bottom rows (K3 by rows and by columns,
+   one launch each for all their levels, none for the columns at k/R = 1;
    sharded.py:116-142);
 5. ``all_gather`` of the row roots (tiled) and of the 2R subtree nodes per
-   column (sharded.py:119-146), and the log2(2R) K3 levels that finish the
-   column trees (sharded.py:147-150), once per device;
+   column (sharded.py:119-146), and the log2(2R) levels that finish the
+   column trees (one K3 launch; sharded.py:147-150), once per device;
 6. the data root (K1 + K4; sharded.py:153-154), once, on the group's
    first device (JAX computes it on every device: the bytes are the same).
 
@@ -192,19 +193,25 @@ def _writable(arr: np.ndarray) -> np.ndarray:
 
 
 def _reduce_rows(nodes: torch.Tensor) -> torch.Tensor:
-    """K3 levels until one node: uint8[..., m, 90] -> uint8[..., 90]."""
-    while nodes.shape[-2] > 1:
-        nodes = nmt_ops.combine_level(nodes)
-    return nodes[..., 0, :]
+    """The roots of the trees uint8[..., m, 90] -> uint8[..., 90]: every
+    level in one K3 launch."""
+    levels = nmt_ops.reduce_levels(nodes)
+    return (levels[-1] if levels else nodes)[..., 0, :]
+
+
+def _column_roots(grid: torch.Tensor) -> torch.Tensor:
+    """The roots of the trees down the columns of grids uint8[..., m, n,
+    90] -> uint8[..., n, 90]: every level in one K3 launch, none for m = 1."""
+    levels = nmt_ops.column_levels(grid)
+    return levels[-1][..., 0, :] if levels else grid[..., 0, :, :]
 
 
 def _finish_columns(nodes: torch.Tensor) -> torch.Tensor:
     """The gathered subtree nodes uint8[2, R, n, 2k, 90] (top subtrees of
     shards 0..R-1, then bottom ones: a column's 2R nodes in EDS row order)
-    -> the column roots uint8[n, 2k, 90]: log2(2R) K3 levels."""
+    -> the column roots uint8[n, 2k, 90]: log2(2R) levels, one K3 launch."""
     _, R, n, n2, _ = nodes.shape
-    first = nmt_ops.combine_columns(nodes.reshape(2 * R, n * n2, DIGEST))
-    return _reduce_rows(first).reshape(n, n2, DIGEST)
+    return _column_roots(nodes.reshape(2 * R, n * n2, DIGEST)).reshape(n, n2, DIGEST)
 
 
 def _extend_sharded(squares: np.ndarray, mesh: Mesh, groups: int,
@@ -260,11 +267,7 @@ def _extend_sharded(squares: np.ndarray, mesh: Mesh, groups: int,
         nmt_ops.leaf_digests_window(slabs[g, d][0], d * rows, out=grid[0])
         nmt_ops.leaf_digests_window(slabs[g, d][1], k + d * rows, out=grid[1])
         row_part[g, d] = _reduce_rows(grid.view(2 * nb * rows, n2, DIGEST)).view(2, nb, rows, DIGEST)
-        if rows == 1:
-            col_part[g, d] = grid[:, :, 0]
-        else:
-            sub = nmt_ops.combine_columns(grid.view(2 * nb, rows, n2, DIGEST))
-            col_part[g, d] = _reduce_rows(sub).view(2, nb, n2, DIGEST)
+        col_part[g, d] = _column_roots(grid.view(2 * nb, rows, n2, DIGEST)).view(2, nb, n2, DIGEST)
     mark("hashing")
     gathered_rows, gathered_nodes = [], []
     for g in range(groups):

@@ -11,17 +11,24 @@ Phases (any failure raises and the script exits non-zero):
    main path's shapes, byte for byte (K4 with its levels output at 512
    leaves, K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block, K9a
    and K9b on every shard of a k = 128 square over 8 shards, K2 on their
-   row windows); the tensor-core bit-GEMM kernels K5 and K8b at every k =
-   1..128 and K5's row pass and K9a (n_in = k/R down to 1) for both codecs;
-   each kernel's time beside its bound, plain and library times, and the
-   bit-GEMM kernels' share of their tensor-core floor;
+   row windows); K2 and every level of K3 (one launch) at every k =
+   1..128, on the 8-EDS catch-up batch and a 5-row level stack, and K3's
+   column subtrees and finishing levels of K9 at k/R = 8/8, 32/4, 128/8;
+   the tensor-core bit-GEMM kernels K5 and K8b at every k = 1..128 and K5's
+   row pass and K9a (n_in = k/R down to 1) for both codecs; each kernel's
+   time as the host issues it and its GPU time (queued behind a sleep)
+   beside its bound, plain and library times, the bit-GEMM kernels' share
+   of their tensor-core floor, and K3's and K4's dependency floor (their
+   levels' chain of compressions at one compression's latency, measured as
+   K1's time per block on one long message, its one-block time taken off);
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
    points on the card;
 4. the extension path: seeded BlobTx streams, proposer ``square.build`` ->
    ``dah.extend_block`` on the card (through the device-resident plane),
    validator ``square.construct`` -> ``extend_block`` again, 4 blocks at
    max square size 64 and 4 at 128; the two data roots must agree with each
-   other and with the port's plain path (``device="cpu"``);
+   other and with the port's plain path (``device="cpu"``); the launches
+   exactly 6 a block (K5 2, K2, K3, K1, K4 one each);
 4b. the serving path on the same 8 blocks, each extended through the plane
    on the card: 64 seeded light clients x 16 samples as one
    ``das.sample_proofs_batch`` of 1,024 cells served by the K7b gather,
@@ -50,8 +57,9 @@ Phases (any failure raises and the script exits non-zero):
    the card's BEFP equals the ``device="cpu"`` path's;
 4e. catch-up (BASELINE config 5): the 8 blocks grouped by size through
    ``dah.data_roots_batched`` (K5b, batched K2/K3, K1 + K4 per block), each
-   data root equal to the block's DAH hash; then one batch of 8 k = 128
-   squares (the 4 seeded ones and 4 more from the seeded tx stream), timed;
+   data root equal to the block's DAH hash, the launches exactly 6 a batch
+   (K5b 2, K2, K3, K1, K4 one each); then one batch of 8 k = 128 squares
+   (the 4 seeded ones and 4 more from the seeded tx stream), timed;
 4f. the sharded extension (K9, ``parallel/sharded.py``) on meshes that
    repeat the card R times (``make_mesh([cuda:0] * R)``, R = 1, 2, 4, 8) at
    k = 64 and 128, the 8 seeded blocks at R = 4 and the catch-up batch of 8
@@ -144,6 +152,12 @@ CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level",
 SHARDED_KERNELS = ("rs_extend", "rs_col_parity_partial", "xor_reduce_slabs", "nmt_leaf_digests",
                    "nmt_combine_level", "sha256_batch", "rfc6962_root")
 SHARDS = 8  # row shards of the kernels' checks and times at k = 128
+# the sleep a timed run is queued behind (~50 ms at 1.98 GHz): longer than
+# the host takes to issue its calls
+QUEUE_SLEEP_CYCLES = 100_000_000
+# SHA-256 blocks of the one message whose time per block prices one
+# compression's latency (the dependency floor of K3 and K4)
+CHAIN_BLOCKS = 1025
 SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
@@ -202,18 +216,32 @@ def deep_peel_mask(k: int) -> np.ndarray:
 def sharded_launches_per_call(k: int, R: int, groups: int = 1) -> dict:
     """The launches of one sharded extension on a mesh that repeats one card,
     ``groups`` data groups of R row shards (parallel/sharded.py): per shard
-    K5's row pass, K9a, K9b and two K2 windows, and K3's log2(2k) row-tree
-    and log2(k/R) column-subtree levels; per group log2(2R) finishing K3
-    levels (once: the group's shards share the device), K1 and K4."""
+    K5's row pass, K9a, K9b and two K2 windows, and one K3 launch for all
+    the row-tree levels and one for all the column-subtree levels (none at
+    k/R = 1, a subtree of one leaf); per group one K3 launch for the
+    log2(2R) finishing levels (once: the group's shards share the device),
+    K1 and K4."""
     from celestia_tpu_torch import kernels
 
-    lg = lambda n: n.bit_length() - 1  # noqa: E731
     shards = groups * R
     counts = {name: 0 for name in kernels.KERNELS}
     counts.update(rs_extend=shards, rs_col_parity_partial=shards, xor_reduce_slabs=shards,
                   nmt_leaf_digests=2 * shards,
-                  nmt_combine_level=shards * (lg(2 * k) + lg(k // R)) + groups * lg(2 * R),
+                  nmt_combine_level=shards * (1 + (k // R > 1)) + groups,
                   sha256_batch=groups, rfc6962_root=groups)
+    return counts
+
+
+def block_launches(calls: int, batched: bool = False) -> dict:
+    """The launches of ``calls`` extensions of one square (or, ``batched``,
+    of one batch of squares) through the plane: K5 (or K5b) twice, then K2,
+    one K3 launch for every level of the 4k trees, K1 and K4 once each."""
+    from celestia_tpu_torch import kernels
+
+    counts = {name: 0 for name in kernels.KERNELS}
+    counts.update({"rs_extend_batched" if batched else "rs_extend": 2 * calls},
+                  nmt_leaf_digests=calls, nmt_combine_level=calls, sha256_batch=calls,
+                  rfc6962_root=calls)
     return counts
 
 
@@ -270,12 +298,19 @@ def main() -> int:
     def upload(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def time_ms(fn, reps: int = 20, warm: int = 2) -> float:
+    def time_ms(fn, reps: int = 20, warm: int = 2, queued: bool = False) -> float:
+        """Milliseconds of one call of fn on the card: reps calls between two
+        events as the host issues them (for a kernel shorter than its Python
+        wrapper, the wrapper's time); queued=True puts the calls behind a
+        sleep, so that the card runs them back to back and the host's issue
+        time stays out: the GPU time."""
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -311,23 +346,27 @@ def main() -> int:
         b_ms, _ = bound(65536 * (L + 32), ops, INT32_OPS_PER_S)
         print(f"K1 sha256_batch L={L} n=65536: {ms:.4f} ms (bound {b_ms:.4f} ms) byte-equal")
 
+    # K2, and every level of K3 from one launch against the plain chain of
+    # combine_level_plain, at every k; k = 128 gives the main path's shapes
+    # (the EDS, the leaf grid, the levels) to the checks and times below
+    for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+        sq_np = rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)
+        sq_np[..., :18] = 0  # version-0 namespaces: real min/max ranges
+        sq = upload(sq_np)
+        eds = rs.extend_cuda(sq, gf256.active_codec())
+        grid = nmt.eds_leaf_digests(eds)
+        compare("nmt_leaf_digests", grid, nmt.eds_leaf_digests_plain(eds), f"k={kk} EDS")
+        levels = nmt.grid_levels(grid)
+        check(len(levels) == (2 * kk).bit_length() - 1, f"K3 gave {len(levels)} levels at k={kk}")
+        for j, (got, want) in enumerate(zip(levels, nmt.grid_levels_plain(grid)), 1):
+            compare("nmt_combine_level", got, want, f"k={kk} level {j} of the 4k trees")
+        compare("nmt_combine_level", levels[-1][:, 0].reshape(2, 2 * kk, 90),
+                nmt.eds_nmt_roots_plain(eds), f"k={kk} roots")
+    # the one-level functions (K3 with one level) against those levels
+    compare("nmt_combine_level", nmt.combine_grid(grid), levels[0], "k=128 combine_grid")
+    compare("nmt_combine_level", nmt.combine_level(levels[0]), levels[1], "k=128 combine_level")
     k = 128
     n2 = 2 * k
-    sq = upload(rng.integers(0, 256, (k, k, 512), dtype=np.uint8))
-    # the main path's shapes at k = 128: the EDS, the leaf grid, the roots
-    eds = rs.extend_cuda(sq, gf256.active_codec())
-    grid = nmt.eds_leaf_digests(eds)
-    compare("nmt_leaf_digests", grid, nmt.eds_leaf_digests_plain(eds), "k=128 EDS")
-    lvl = nmt.combine_grid(grid)
-    compare("nmt_combine_level", lvl, nmt.combine_grid_plain(grid), "k=128 first level")
-    nodes = lvl
-    while nodes.shape[-2] > 1:
-        nxt = nmt.combine_level(nodes)
-        compare("nmt_combine_level", nxt, nmt.combine_level_plain(nodes),
-                f"k=128 level m={nodes.shape[-2]}")
-        nodes = nxt
-    roots = nodes[:, 0].reshape(2, n2, 90)
-    compare("nmt_combine_level", roots, nmt.eds_nmt_roots_plain(eds), "k=128 roots")
 
     rand_roots = upload(rng.integers(0, 256, (4 * k, 90), dtype=np.uint8))
     leaf_hashes = nmt.rfc6962_leaf_hashes(rand_roots)
@@ -427,7 +466,26 @@ def main() -> int:
                     f"shard {d} of {R} (n_in={rows_r}) at k={kk} codec={codec}")
             compare("rs_col_parity_partial", rs.xor_reduce_slabs_plain(torch.stack(parts))[0],
                     ek[kk:], f"the {R} partials' XOR against the parity rows, k={kk} codec={codec}")
-            del parts, ek
+            # K3's column subtrees over each shard's top and bottom rows (one
+            # launch each, none at k/R = 1), then the finish over the 2R
+            # gathered nodes a column: the EDS's column roots
+            gk = nmt.eds_leaf_digests(ek)
+            sub = []
+            for d in range(R):
+                win = torch.stack([gk[d * rows_r : (d + 1) * rows_r],
+                                   gk[kk + d * rows_r : kk + (d + 1) * rows_r]])
+                got = nmt.column_levels(win)
+                for j, (a, b) in enumerate(zip(got, nmt.column_levels_plain(win)), 1):
+                    compare("nmt_combine_level", a, b,
+                            f"column subtrees of shard {d} of {R}, level {j}, k={kk}")
+                sub.append(got[-1][..., 0, :] if got else win[:, 0])
+            gathered = torch.stack(sub, dim=1).reshape(2 * R, 2 * kk, 90)
+            fin = nmt.column_levels(gathered)
+            for j, (a, b) in enumerate(zip(fin, nmt.column_levels_plain(gathered)), 1):
+                compare("nmt_combine_level", a, b, f"finishing level {j} of {R} shards, k={kk}")
+            compare("nmt_combine_level", fin[-1][:, 0], nmt.eds_nmt_roots_plain(ek)[1],
+                    f"column roots from {R} shards' subtrees, k={kk} codec={codec}")
+            del parts, ek, gk, sub, gathered, fin
         kk = 32
         rec, prov = e32.clone(), e32.clone()
         rec[3, 40, 17] ^= 1
@@ -449,9 +507,10 @@ def main() -> int:
             "batched roots of 2 EDSs at k=32")
     del Dk, e32, rec, prov, av, sq2, e2
     print("kernels: byte-equal to their plain versions "
-          f"(K5 and K8b at k=1..128 x {len(gf256.CODECS)} codecs, the row pass and K9a at "
-          "k/R = 8/8, 32/4, 128/8 x both codecs, K2/K3 at k=128, K4 at n=512, K8a at "
-          "k=4/32/128, K8c/K5b and batched K2/K3 at k=32)")
+          f"(K5 and K8b at k=1..128 x {len(gf256.CODECS)} codecs, the row pass, K9a and K3's "
+          "column subtrees and finish at k/R = 8/8, 32/4, 128/8 x both codecs, K2 and every K3 "
+          "level at k=1..128, K4 at n=512, K8a at k=4/32/128, K8c/K5b and batched K2/K3 at "
+          "k=32)")
 
     # times at the main path's k = 128 shapes (per block)
     codec = gf256.active_codec()
@@ -461,12 +520,6 @@ def main() -> int:
     # (8k, k*512), three times over
     q0_bits = rs.unpack_bits(sq).permute(1, 0, 2).reshape(8 * k, k * 512)
     bits = torch.cat([q0_bits] * 3, dim=1).contiguous()
-
-    def k3_all_levels(first, level):
-        nodes = first(grid)
-        while nodes.shape[-2] > 1:
-            nodes = level(nodes)
-        return nodes
 
     parents = 4 * k * (n2 - 1)
     # K8a/K8b/K8c at a repair's k = 128 shapes: under the 25 % mask of
@@ -575,10 +628,11 @@ def main() -> int:
                   n2 * n2 * compressions(542) * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
         ),
         "nmt_combine_level": (
-            lambda: k3_all_levels(nmt.combine_grid, nmt.combine_level),
-            lambda: k3_all_levels(nmt.combine_grid_plain, nmt.combine_level_plain),
+            lambda: nmt.grid_levels(grid),
+            lambda: nmt.grid_levels_plain(grid),
             None,
-            bound(n2 * n2 * 90 + 2 * n2 * 90,
+            # the leaf grid read once, every level (4k trees x 2k - 1 nodes) written once
+            bound(n2 * n2 * 90 + parents * 90,
                   parents * compressions(181) * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
         ),
         "rfc6962_root": (
@@ -653,15 +707,59 @@ def main() -> int:
     for name, (fast, plain, lib, (b_ms, b_by)) in timings.items():
         perf[name] = {
             "ms": time_ms(fast),
+            "gpu_ms": time_ms(fast, queued=True),
             "plain_ms": time_ms(plain, reps=3),
             "library_ms": time_ms(lib) if lib is not None else None,
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
         lib_ms = perf[name]["library_ms"]
-        print(f"{name}: {perf[name]['ms']:.4f} ms, plain {perf[name]['plain_ms']:.3f} ms, "
+        print(f"{name}: {perf[name]['ms']:.4f} ms as issued (GPU time "
+              f"{perf[name]['gpu_ms']:.4f} ms, queued), plain {perf[name]['plain_ms']:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
+    # the launch sequences' bounds, the sums of their kernels' at these
+    # shapes: K6/K7a's extension of one k = 128 square (K5, K2, K3, K1 on the
+    # 4k roots, K4), and K9's over R = 8 shards (the row passes -- Q0 read,
+    # Q0 | Q1 written --, K9a, K9b, K2 and K3 over the shards, K1 + K4)
+    row_pass_ms, _ = bound(k * k * 512 + k * n2 * 512, 0, INT32_OPS_PER_S)
+    seq_bounds = {
+        "K6/K7a extend_and_header k=128": sum(perf[n]["bound_ms"] for n in (
+            "rs_extend", "nmt_leaf_digests", "nmt_combine_level", "sha256_batch", "rfc6962_root")),
+        f"K9 extend_and_header_sharded k=128 R={R9}": row_pass_ms + sum(perf[n]["bound_ms"] for n in (
+            "rs_col_parity_partial", "xor_reduce_slabs", "nmt_leaf_digests", "nmt_combine_level",
+            "sha256_batch", "rfc6962_root")),
+    }
+    results["sequence_bounds_ms"] = seq_bounds
+    for name, b_ms in seq_bounds.items():
+        print(f"{name}: bound {b_ms:.4f} ms (the sum of its kernels' bounds) | {smi}")
+    # the tree kernels' dependency floor: their levels run one after another,
+    # each a chain of compressions (K3: log2(2k) levels of one 181-byte node,
+    # 3 compressions; K4: log2(4k) levels of one 65-byte node, 2), at one
+    # compression's latency: K1 on one message of CHAIN_BLOCKS blocks less K1
+    # on one of 1 block, over the blocks between them (the launch and the
+    # message's first load and digest store cancel), queued behind a sleep
+    # so the card runs them back to back.  A block's message words come from
+    # L2, not shared memory, so this is an upper estimate.
+    chain = {}
+    for blocks in (1, CHAIN_BLOCKS):
+        msg = upload(rng.integers(0, 256, (1, 64 * blocks - 9), dtype=np.uint8))
+        chain[blocks] = statistics.median(
+            time_ms(lambda: sha256_cuda(msg), reps=16, queued=True) for _ in range(5))
+    compression_ms = (chain[CHAIN_BLOCKS] - chain[1]) / (CHAIN_BLOCKS - 1)
+    results["dependency_floor"] = {"k1_one_block_ms": chain[1],
+                                   f"k1_{CHAIN_BLOCKS}_blocks_ms": chain[CHAIN_BLOCKS],
+                                   "compression_ms": compression_ms}
+    for name, levels_, per_level in (("nmt_combine_level", n2.bit_length() - 1, compressions(181)),
+                                     ("rfc6962_root", (4 * k).bit_length() - 1, compressions(65))):
+        floor_ms = levels_ * per_level * compression_ms
+        results["dependency_floor"][name] = floor_ms
+        print(f"{name}: dependency floor {floor_ms:.4f} ms ({levels_} levels x {per_level} "
+              f"compressions at {compression_ms * 1e3:.4f} us each: K1 on one message of "
+              f"{CHAIN_BLOCKS} blocks {chain[CHAIN_BLOCKS]:.4f} ms less one of 1 block "
+              f"{chain[1]:.4f} ms, over {CHAIN_BLOCKS - 1} blocks, queued); GPU time "
+              f"{perf[name]['gpu_ms']:.4f} ms, as issued {perf[name]['ms']:.4f} ms, bound "
+              f"{perf[name]['bound_ms']:.6f} ms ({perf[name]['bound_by']}) | {smi}")
     # the bit-GEMM kernels against the tensor-core floor of their form: K5 the
     # three quadrants' 8k x 8k GEMMs over k axes of 512 bytes, K5b 8 squares of
     # it, K8b the 25 % mask's 2k rows (8k unknown bit rows, 8k deep each), K9a
@@ -687,17 +785,20 @@ def main() -> int:
     for got, want in zip(nmt.nmt_level_stack(row_leaves), nmt.nmt_level_stack_plain(row_leaves)):
         compare("nmt_combine_level", got, want, f"5-row level stack, level of {want.shape[-2]}")
     rows_ms = time_ms(lambda: nmt.nmt_level_stack(row_leaves))
+    rows_gpu_ms = time_ms(lambda: nmt.nmt_level_stack(row_leaves), queued=True)
     rows_plain_ms = time_ms(lambda: nmt.nmt_level_stack_plain(row_leaves), reps=3)
     rows_bound, rows_by = bound(
         row_leaves.numel() + 5 * (2 * n2 - 1) * 90,
         5 * (n2 * compressions(542) + (n2 - 1) * compressions(181)) * SHA_OPS_PER_COMPRESSION,
         INT32_OPS_PER_S,
     )
-    print(f"nmt_level_stack, 5 rows at k=128 (K1 + {n2.bit_length() - 1} x K3): {rows_ms:.4f} ms, "
+    print(f"nmt_level_stack, 5 rows at k=128 (K1, then K3 for {n2.bit_length() - 1} levels in "
+          f"one launch): {rows_ms:.4f} ms as issued (GPU time {rows_gpu_ms:.4f} ms), "
           f"plain {rows_plain_ms:.3f} ms, bound {rows_bound:.4f} ms ({rows_by}), library none "
           f"| {smi}")
-    results["row_level_stack_5_rows"] = {"ms": rows_ms, "plain_ms": rows_plain_ms,
-                                         "bound_ms": rows_bound, "bound_by": rows_by}
+    results["row_level_stack_5_rows"] = {"ms": rows_ms, "gpu_ms": rows_gpu_ms,
+                                         "plain_ms": rows_plain_ms, "bound_ms": rows_bound,
+                                         "bound_by": rows_by}
     # the outputs of the timed calls at the main path's k = 128 shapes
     compare("rs_decode_axes", scratch, scratch_plain, "k=128 rows of the 25 % mask")
     check(torch.equal(scratch, eds), "K8b did not restore the k=128 codeword's unknown cells")
@@ -712,25 +813,31 @@ def main() -> int:
     # all 8 x 4k trees (the JAX vmap of eds_nmt_roots)
     e8 = rs.extend_batched_cuda(sq8, codec)
     compare("rs_extend_batched", e8, rs.extend_batched_plain(sq8, codec), "n=8 k=128")
-    compare("nmt_leaf_digests", nmt.eds_leaf_digests(e8), nmt.eds_leaf_digests_plain(e8),
-            "batch of 8 EDSs at k=128")
+    g8 = nmt.eds_leaf_digests(e8)
+    compare("nmt_leaf_digests", g8, nmt.eds_leaf_digests_plain(e8), "batch of 8 EDSs at k=128")
+    for j, (got, want) in enumerate(zip(nmt.grid_levels(g8), nmt.grid_levels_plain(g8)), 1):
+        compare("nmt_combine_level", got, want, f"batch of 8 EDSs at k=128, level {j}")
     compare("nmt_combine_level", nmt.eds_nmt_roots(e8), nmt.eds_nmt_roots_plain(e8),
             "batched roots of 8 EDSs at k=128")
+    del g8
     print("kernels at the main path's k=128 shapes: K8a (25 % mask's schedule), K8b (its rows, "
           "unknown cells garbage), K8c (flipped cells), K5b and batched K2/K3 (n=8) byte-equal "
           "to their plain versions")
     vmap_ms = time_ms(lambda: nmt.eds_nmt_roots(e8))
+    vmap_gpu_ms = time_ms(lambda: nmt.eds_nmt_roots(e8), queued=True)
     vmap_plain_ms = time_ms(lambda: nmt.eds_nmt_roots_plain(e8), reps=1, warm=0)
     vmap_bound, vmap_by = bound(
         8 * (n2 * n2 * (512 + 90) + n2 * n2 * 90 + 2 * n2 * 90),
         8 * (n2 * n2 * compressions(542) + parents * compressions(181)) * SHA_OPS_PER_COMPRESSION,
         INT32_OPS_PER_S,
     )
-    print(f"eds_nmt_roots, batch of 8 at k=128 (K2 + {n2.bit_length() - 1} x K3): {vmap_ms:.4f} ms, "
+    print(f"eds_nmt_roots, batch of 8 at k=128 (K2, then K3 for {n2.bit_length() - 1} levels in "
+          f"one launch): {vmap_ms:.4f} ms as issued (GPU time {vmap_gpu_ms:.4f} ms), "
           f"plain {vmap_plain_ms:.3f} ms, bound {vmap_bound:.4f} ms ({vmap_by}), library none "
           f"| {smi}")
-    results["eds_nmt_roots_batch_8"] = {"ms": vmap_ms, "plain_ms": vmap_plain_ms,
-                                        "bound_ms": vmap_bound, "bound_by": vmap_by}
+    results["eds_nmt_roots_batch_8"] = {"ms": vmap_ms, "gpu_ms": vmap_gpu_ms,
+                                        "plain_ms": vmap_plain_ms, "bound_ms": vmap_bound,
+                                        "bound_by": vmap_by}
     del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out, row_leaves
     del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
     del tops, coeffs9, g_cols9, partials9, staged9, bits9
@@ -778,6 +885,8 @@ def main() -> int:
           f"launches {extend_launches}")
     for name in EXTEND_KERNELS:
         check(extend_launches[name] > 0, f"kernel {name} was not launched on the extension path")
+    check(extend_launches == block_launches(2 * len(blocks)),
+          f"extension launches {extend_launches} != {block_launches(2 * len(blocks))}")
 
     plain_out = []
     for max_size, sq_p, block_txs, txs_v, eds_p, dah_p, dah_v in main_out:
@@ -1142,6 +1251,8 @@ def main() -> int:
     catchup_launches = kernels.launch_counts()
     for name in CATCHUP_KERNELS:
         check(catchup_launches[name] > 0, f"kernel {name} was not launched on the catch-up path")
+    check(catchup_launches == block_launches(len(by_size), batched=True),
+          f"catch-up launches {catchup_launches} != {block_launches(len(by_size), batched=True)}")
     more = [square_mod.build(tx_stream(128 * 128 * 478), max_square_size=128)[0] for _ in range(4)]
     batch8 = np.stack([sq_p.to_array().reshape(128, 128, 512)
                        for sq_p in [it[0] for it in by_size[128]] + more])

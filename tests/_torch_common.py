@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from celestia_tpu.ops import gf256 as jgf256
+from celestia_tpu.ops import sha256 as jsha
 from celestia_tpu_torch.ops import gf256
 
 
@@ -21,6 +22,18 @@ def pinned_codec(codec: str):
     finally:
         jgf256.set_active_codec(saved[0], force=True)
         gf256.set_active_codec(saved[1], force=True)
+
+
+@contextmanager
+def sha_scan_unrolled_once():
+    """Trace the JAX package's SHA-256 with its round scans unrolled once
+    (``_SCAN_UNROLL = 1``, not 8): the same integer results, and a several
+    times shorter XLA compile for a test's reference program."""
+    saved, jsha._SCAN_UNROLL = jsha._SCAN_UNROLL, 1
+    try:
+        yield
+    finally:
+        jsha._SCAN_UNROLL = saved
 
 
 @pytest.fixture

@@ -10,6 +10,7 @@ import torch
 from celestia_tpu.da import dah as jdah
 from celestia_tpu.da import golden as jgolden
 from celestia_tpu.ops import gf256 as jgf256
+from _torch_common import sha_scan_unrolled_once
 from _torch_common import codec_pair, torch_one_thread  # noqa: F401 (fixtures)
 from celestia_tpu_torch.da import dah, golden
 from celestia_tpu_torch.ops import gf256
@@ -27,10 +28,12 @@ def _random_square(seed: int, k: int) -> np.ndarray:
 
 def _jax_program(k: int, codec: str, square: np.ndarray):
     """The JAX package's fused program ``_extend_and_roots_fn(k, codec)``,
-    compiled at LLVM optimisation level 0: XLA's compile is almost all of
-    a case's time, level 0 shortens it, and the program's integer results
-    are the same."""
-    lowered = jdah._extend_and_roots_fn(k, codec).lower(square)
+    traced with SHA-256's round scans unrolled once (``_SCAN_UNROLL = 1``,
+    not 8) and compiled at LLVM optimisation level 0: XLA's compile is
+    almost all of a case's time, both shorten it, and the program's integer
+    results are the same."""
+    with sha_scan_unrolled_once():
+        lowered = jdah._extend_and_roots_fn(k, codec).lower(square)
     return lowered.compile(compiler_options={"xla_backend_optimization_level": 0})
 
 

@@ -16,6 +16,7 @@ import torch
 from celestia_tpu.da import dah as jdah
 from celestia_tpu.da import das as jdas
 from celestia_tpu.da import device_plane as jdp
+from _torch_common import sha_scan_unrolled_once
 from _torch_common import codec_pair, torch_one_thread  # noqa: F401 (fixtures)
 from celestia_tpu_torch.da import dah, das, device_plane, eds_cache
 from celestia_tpu_torch.ops import gf256
@@ -31,13 +32,14 @@ def _square(k: int, seed: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _jax_plane(k: int, codec: str):
-    """JAX ``_extend_levels_fn(k, codec)`` on ``_square(k, k)``, compiled at
-    LLVM optimisation level 0 (the same integer results, a shorter
-    compile): (eds, levels, root_levels) as numpy arrays."""
+    """JAX ``_extend_levels_fn(k, codec)`` on ``_square(k, k)``, traced with
+    SHA-256's scans unrolled once and compiled at LLVM optimisation level 0
+    (the same integer results, a shorter compile): (eds, levels,
+    root_levels) as numpy arrays."""
     sq = _square(k, k)
-    run = jdp._extend_levels_fn(k, codec, False).lower(sq).compile(
-        compiler_options={"xla_backend_optimization_level": 0}
-    )
+    with sha_scan_unrolled_once():
+        lowered = jdp._extend_levels_fn(k, codec, False).lower(sq)
+    run = lowered.compile(compiler_options={"xla_backend_optimization_level": 0})
     eds, levels, root_levels = run(sq)
     return (
         np.asarray(eds),

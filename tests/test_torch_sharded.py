@@ -8,6 +8,7 @@ and the port's own single-device path.  The bar is byte equality
 import os
 import subprocess
 import sys
+import time
 from functools import lru_cache
 from pathlib import Path
 
@@ -330,31 +331,125 @@ from celestia_tpu.parallel import sharded
 # of XLA's compile time for the shard_map program (~16 s, not ~45 s)
 jsha._SCAN_UNROLL = 1
 
-out, codec, R = sys.argv[1], sys.argv[2], int(sys.argv[3])
+root, codec = sys.argv[1], sys.argv[2]
 gf256.set_active_codec(codec, force=True)
-sq = np.load(os.path.join(out, "square.npy"))
-k = sq.shape[0]
-mesh = sharded.make_mesh(jax.devices()[:R], data=1, row=R)
-x = jax.device_put(sq, NamedSharding(mesh, P("row", None, None)))
-fn = sharded._sharded_fn(mesh, k, False, codec).lower(x).compile(
-    compiler_options={"xla_backend_optimization_level": 0})
-for name, a in zip(("eds_local", "row_roots", "col_roots", "data_root"), fn(x)):
-    np.save(os.path.join(out, name + ".npy"), np.asarray(a))
+for R in map(int, sys.argv[3:]):  # one R after another, each marked done
+    out = os.path.join(root, f"R{R}")
+    sq = np.load(os.path.join(out, "square.npy"))
+    k = sq.shape[0]
+    mesh = sharded.make_mesh(jax.devices()[:R], data=1, row=R)
+    x = jax.device_put(sq, NamedSharding(mesh, P("row", None, None)))
+    fn = sharded._sharded_fn(mesh, k, False, codec).lower(x).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    for name, a in zip(("eds_local", "row_roots", "col_roots", "data_root"), fn(x)):
+        np.save(os.path.join(out, name + ".npy"), np.asarray(a))
+    open(os.path.join(out, "done"), "w").close()
 """
 
 
-@pytest.mark.parametrize("R", [2, 4, 8])
-def test_matches_jax_shard_map_in_a_child(tmp_path, R):
+_CHILD_RS = (2, 4, 8)
+_CHILD_K, _CHILD_CODEC = 8, gf256.CODEC_LEOPARD
+
+
+# xdist schedules under which one process runs every selected test of a
+# module ("no": no workers)
+_WHOLE_MODULE_SCHEDULES = ("no", "loadfile", "loadscope", "each")
+
+
+def _schedule(config) -> str:
+    """xdist's schedule of this run, "no" without workers.  A worker resets
+    its own ``dist`` option to "no", so it reads its controller's
+    arguments; ``-n`` alone is "load"."""
+    if not hasattr(config, "workerinput"):
+        return getattr(config.option, "dist", "no")
+    args = list(config.invocation_params.args)
+    for i, a in enumerate(args):
+        if a == "--dist" and i + 1 < len(args):
+            return args[i + 1]
+        if a.startswith("--dist="):
+            return a.split("=", 1)[1]
+    return "load"
+
+
+class _ShardMapChildren:
+    """Child interpreters that compile and run JAX's ``shard_map`` program
+    at k = 8, one R after another each (one ``jax`` import a child), R's
+    arrays in ``root/R<R>`` followed by a ``done`` file."""
+
+    def __init__(self, root: Path):
+        self.root = root
+        self.procs = []  # (process, stderr file)
+        self.proc_of = {}  # R -> index into procs
+
+    def start(self, rs) -> None:
+        rs = [R for R in rs if R not in self.proc_of]
+        if not rs:
+            return
+        for R in rs:
+            (self.root / f"R{R}").mkdir()
+            np.save(self.root / f"R{R}" / "square.npy", _square(60 + R, _CHILD_K))
+            self.proc_of[R] = len(self.procs)
+        env = dict(os.environ, PYTHONPATH=str(ROOT), TF_CPP_MIN_LOG_LEVEL="3")
+        stderr = self.root / f"stderr{len(self.procs)}.txt"
+        with open(stderr, "wb") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _CHILD, str(self.root), _CHILD_CODEC, *map(str, rs)],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        self.procs.append((proc, stderr))
+
+    def result(self, R) -> Path:
+        """R's directory once its arrays are written (starting a child for R
+        alone if none has it)."""
+        self.start([R])
+        proc, stderr = self.procs[self.proc_of[R]]
+        out = self.root / f"R{R}"
+        deadline = time.monotonic() + 600
+        while not (out / "done").exists():
+            assert proc.poll() is None or (out / "done").exists(), stderr.read_text()[-3000:]
+            assert time.monotonic() < deadline, f"the shard_map child gave no result for R={R}"
+            time.sleep(0.1)
+        return out
+
+    def close(self) -> None:
+        for proc, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def shard_map_children(tmp_path_factory):
+    children = _ShardMapChildren(tmp_path_factory.mktemp("shard_map"))
+    try:
+        yield children
+    finally:
+        children.close()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _shard_map_children_early(request):
+    """Start one child for every R when this module's first test runs, so
+    that its three compiles (most of its ~75 s) overlap the module's other
+    tests and each child test waits only for its own R -- but only where
+    this process runs every selected test of the module (serially, or under
+    xdist's loadfile, loadscope or each) and a child test is selected.
+    Under other schedules each child test starts a child for its own R
+    (~30 s), so no worker compiles an R it does not test."""
+    selected = any(item.module is request.module
+                   and item.originalname == "test_matches_jax_shard_map_in_a_child"
+                   for item in request.session.items)
+    if selected and _schedule(request.config) in _WHOLE_MODULE_SCHEDULES:
+        request.getfixturevalue("shard_map_children").start(_CHILD_RS)
+
+
+@pytest.mark.parametrize("R", _CHILD_RS)
+def test_matches_jax_shard_map_in_a_child(shard_map_children, R):
     """JAX's ``shard_map`` program at k = 8 in a fresh interpreter (the
     late-compile jaxlib crash of tests/test_sharded.py), its per-shard EDS
     rows and replicated roots held against the port's."""
-    k, codec = 8, gf256.CODEC_LEOPARD
-    sq = _square(60 + R, k)
-    np.save(tmp_path / "square.npy", sq)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), TF_CPP_MIN_LOG_LEVEL="3")
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path), codec, str(R)],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    k, codec = _CHILD_K, _CHILD_CODEC
+    tmp_path = shard_map_children.result(R)
+    sq = np.load(tmp_path / "square.npy")
     with pinned_codec(codec):
         run = sharded._extend_and_roots_sharded_device(
             sq, sharded.make_mesh(["cpu"] * R), record_stats=False

@@ -9,7 +9,10 @@ big-endian loads, the NMT leaf/node message layouts and the parity rule,
 the RFC-6962 level loop and its levels output, the proof-path gather
 (K7b) over a device-plane entry's sources, the repair kernels' decode
 matrices (K8a) and verdicts (K8c), the XOR of staged slabs (K9b), K2 over
-a window of EDS rows, and the tensor-core GF(2) bit-GEMM of K5 (one square
+a window of EDS rows and K3's every level in one launch -- both
+block-cooperative, run block by block, each step over every thread between
+the barriers, with the kernels' own staging, index maps and packed
+outputs -- and the tensor-core GF(2) bit-GEMM of K5 (one square
 and a batch), K5's row pass, the column-parity partial (K9a) and the
 in-place decode of an orientation's axes (K8b): its fragments, lane maps
 and padded K through a host emulation of mma.sync in the PTX fragment
@@ -62,6 +65,7 @@ def twin(tmp_path_factory):
     t.twin_das_proof_gather.argtypes = [_P, I, _P, I, _P]
     t.twin_nmt_leaf_digests_batched.argtypes = [_P, _P, I, I]
     t.twin_nmt_combine_level_batched.argtypes = [_P, _P, LL, I, LL, LL, LL, LL, LL, LL, LL]
+    t.twin_nmt_reduce_levels.argtypes = [_P, _P, LL, I, I, LL, LL, LL, LL, LL, LL, LL]
     t.twin_rs_extend_batched.argtypes = [_P, _P, _P, _P, _P, I, I]
     t.twin_rs_decode_matrices.argtypes = [_P, _P, _P, _P, I, I, I]
     t.twin_rs_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
@@ -536,8 +540,38 @@ def test_twin_col_parity_partial_matches_jax(twin, codec, k, R):
 
 # C entry -> its twin where the names differ (same arguments, no stream)
 _TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
-            "ctt_nmt_combine_level": "twin_nmt_combine_level_batched",
             "ctt_rfc6962_root": "twin_rfc6962_levels"}
+# twins that return the C entry's verdict on its arguments (0: launched)
+_CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_reduce_levels")
+
+
+def _route_launches_to_twin(monkeypatch, twin) -> dict:
+    """Run the wrappers' CUDA branches on CPU tensors: ops/nmt.py takes
+    them as the card's, and every ``kernels.launch`` goes to the g++ twin
+    of its C entry (raising where the entry would refuse).  Returns the
+    launch counts, kept as ``kernels.launch`` keeps them."""
+    from celestia_tpu_torch import kernels
+
+    launched = {}
+
+    def launch(kernel, device, *args, launches=1, entry=None):
+        c_entry = entry or kernels.KERNELS[kernel]
+        name = _TWIN_OF.get(c_entry, c_entry.replace("ctt_", "twin_"))
+        fn = getattr(twin, name)
+        fn.argtypes = list(kernels._SIGNATURES[c_entry][:-1])  # no stream
+        rc = fn(*args)
+        if name in _CHECKED_TWINS and rc != 0:
+            raise RuntimeError(f"{c_entry} refused its arguments")
+        launched[kernel] = launched.get(kernel, 0) + launches
+
+    def check_tensor(t, name, shape=None):
+        assert t.dtype == torch.uint8 and t.is_contiguous(), name
+        assert shape is None or tuple(t.shape) == tuple(shape), (name, tuple(t.shape), shape)
+
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(kernels, "check_cuda_tensor", check_tensor)
+    monkeypatch.setattr(nmt, "_is_cpu", lambda t: False)
+    return launched
 
 
 @pytest.mark.parametrize("R", [2, 8])
@@ -546,34 +580,19 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     wrapper's CUDA branch: its strides, windows, out= views and launch
     arguments) on CPU tensors, each launch going to the g++ twin of its C
     entry: the same EDS and DAH as the plain single-device path."""
-    from celestia_tpu_torch import kernels
     from celestia_tpu_torch.da import dah
     from celestia_tpu_torch.parallel import sharded
 
     codec, k = gf256.CODEC_LEOPARD, 8
     sq = _random_eds(np.random.default_rng(904 + R), k)[:k, :k].copy()
     eds_1, hdr_1 = dah.extend_and_header(sq, device="cpu")
-    launched = {}
-
-    def launch(kernel, device, *args, launches=1, entry=None):
-        c_entry = entry or kernels.KERNELS[kernel]
-        fn = getattr(twin, _TWIN_OF.get(c_entry, c_entry.replace("ctt_", "twin_")))
-        fn.argtypes = list(kernels._SIGNATURES[c_entry][:-1])  # no stream
-        fn(*args)
-        launched[kernel] = launched.get(kernel, 0) + launches
-
-    def check_tensor(t, name, shape=None):
-        assert t.dtype == torch.uint8 and t.is_contiguous(), name
-        assert shape is None or tuple(t.shape) == tuple(shape), (name, tuple(t.shape), shape)
+    launched = _route_launches_to_twin(monkeypatch, twin)
 
     def coefficients(k, j0, n_in, codec, device):
         E = gf256.encode_matrix(k, codec)[:, j0 : j0 + n_in]
         return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8))
                      for a in (E, *gf256.field_tables(codec)))
 
-    monkeypatch.setattr(kernels, "launch", launch)
-    monkeypatch.setattr(kernels, "check_cuda_tensor", check_tensor)
-    monkeypatch.setattr(nmt, "_is_cpu", lambda t: False)
     monkeypatch.setattr(rs, "extend_rows", rs.extend_rows_cuda)
     monkeypatch.setattr(rs, "partial_coefficients", coefficients)
     monkeypatch.setattr(rs, "col_parity_partial", lambda top, c: rs.col_parity_partial_cuda(top, *c))
@@ -590,12 +609,277 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     np.testing.assert_array_equal(eds.shares, eds_1.shares)
     assert hdr == hdr_1
     # one launch per shard of the row pass, K9a and K9b, two K2 windows per
-    # shard, K3: log2(2k) row-tree levels and log2(k/R) column-subtree levels
-    # per shard, then log2(2R) finishing levels once on the one device; K1 + K4
-    lg = lambda n: n.bit_length() - 1  # noqa: E731
+    # shard, K3: one launch for every row-tree level and one for every
+    # column-subtree level per shard (none at k/R = 1), then one for the
+    # log2(2R) finishing levels on the one device; K1 + K4
     assert launched == {
         "rs_extend": R, "rs_col_parity_partial": R, "xor_reduce_slabs": R,
         "nmt_leaf_digests": 2 * R,
-        "nmt_combine_level": R * (lg(2 * k) + lg(k // R)) + lg(2 * R),
+        "nmt_combine_level": R * (1 + (k // R > 1)) + 1,
         "sha256_batch": 1, "rfc6962_root": 1,
     }
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3 as blocks (csrc/nmt.cuh): every level of a tree set in one
+# launch, against the JAX package and the plain twins
+# ---------------------------------------------------------------------------
+
+_D = 90
+
+
+def _lg(n: int) -> int:
+    return n.bit_length() - 1
+
+
+@pytest.fixture(scope="module")
+def jax_eds_levels():
+    """JAX's level stacks of the 4k trees of an EDS (``nmt_level_stack``
+    over ``eds_prefixed_leaves``): [(2, 2k, 2k, 90), (2, 2k, k, 90), ...],
+    compiled once per k at LLVM optimisation level 0 (the same bytes)."""
+    compiled = {}
+
+    def levels(eds: np.ndarray) -> list:
+        n2 = eds.shape[0]
+        if n2 not in compiled:
+            fn = jax.jit(lambda e: jnmt.nmt_level_stack(jnmt.eds_prefixed_leaves(e)))
+            compiled[n2] = fn.lower(eds).compile(
+                compiler_options={"xla_backend_optimization_level": 0})
+        return [np.asarray(lv) for lv in compiled[n2](eds)]
+
+    return levels
+
+
+def _split_packed(packed: np.ndarray, ntrees: int, m: int, n_levels: int) -> list:
+    """The levels of K3's packed output: level j is (ntrees, m >> j, 90)."""
+    out, off = [], 0
+    for j in range(1, n_levels + 1):
+        size = ntrees * (m >> j) * _D
+        out.append(packed[off : off + size].reshape(ntrees, m >> j, _D))
+        off += size
+    assert off == packed.size
+    return out
+
+
+def _twin_grid_levels(twin, grids: np.ndarray, n_levels: int) -> list:
+    """K3 over the 4k trees of each leaf grid (n, 2k, 2k, 90): rows by the
+    first stride set, columns by the second, groups of 4k trees a grid."""
+    n, n2 = grids.shape[0], grids.shape[1]
+    ntrees = n * 2 * n2
+    packed = np.zeros(ntrees * (n2 - (n2 >> n_levels)) * _D, dtype=np.uint8)
+    rc = twin.twin_nmt_reduce_levels(_ptr(grids), _ptr(packed), ntrees, n2, n_levels, n2,
+                                     n2 * _D, _D, _D, n2 * _D, 2 * n2, n2 * n2 * _D)
+    assert rc == 0
+    return [lv.reshape(n, 2 * n2, -1, _D) for lv in _split_packed(packed, ntrees, n2, n_levels)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_twin_k2_k3_blocks_match_jax_level_stack(twin, jax_eds_levels, k):
+    """K2's blocks hash the leaf grid and one K3 launch gives every level
+    of all 4k trees, rows and columns, byte-equal to JAX's level stack and
+    to the plain twins."""
+    rng = np.random.default_rng(1400 + k)
+    eds = _random_eds(rng, k)
+    n2 = 2 * k
+    want = jax_eds_levels(eds)
+    grid = np.zeros((n2, n2, _D), dtype=np.uint8)
+    assert twin.twin_nmt_leaf_digests(_ptr(eds), _ptr(grid), n2) == 0
+    np.testing.assert_array_equal(grid, want[0][0])
+    np.testing.assert_array_equal(grid.transpose(1, 0, 2), want[0][1])
+    got = _twin_grid_levels(twin, grid[None], _lg(n2))
+    plain = nmt.grid_levels_plain(torch.from_numpy(grid))
+    assert len(got) == len(want) - 1 == len(plain)
+    for j, (g, w, p) in enumerate(zip(got, want[1:], plain), 1):
+        np.testing.assert_array_equal(g[0], w.reshape(2 * n2, n2 >> j, _D), err_msg=f"level {j}")
+        np.testing.assert_array_equal(g[0], p.numpy(), err_msg=f"level {j}")
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_twin_k3_batch_of_grids_and_partial_reductions(twin, k):
+    """The catch-up batch (groups of 4k trees, 3 grids) to the roots,
+    against the JAX package's roots of each EDS, and every partial
+    reduction (n_levels < log2 2k) against the full one's first levels."""
+    rng = np.random.default_rng(1500 + k)
+    eds = np.stack([_random_eds(rng, k) for _ in range(3)])
+    n2 = 2 * k
+    grids = np.zeros((3, n2, n2, _D), dtype=np.uint8)
+    assert twin.twin_nmt_leaf_digests_batched(_ptr(eds), _ptr(grids), n2, 3) == 0
+    full = _twin_grid_levels(twin, grids, _lg(n2))
+    for b in range(3):
+        roots = full[-1][b, :, 0].reshape(2, n2, _D)
+        np.testing.assert_array_equal(roots, jnmt.eds_nmt_roots_host(eds[b]))
+    for n_levels in range(1, _lg(n2)):
+        part = _twin_grid_levels(twin, grids, n_levels)
+        assert len(part) == n_levels
+        for a, b in zip(part, full):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("k,R", [(2, 2), (8, 2), (8, 4), (16, 4), (16, 2)])
+def test_twin_k3_column_subtrees_and_finish(twin, k, R):
+    """K9's column trees on the twin: the column subtrees of every shard's
+    top and bottom windows (trees down the columns of a (k/R, 2k) leaf
+    grid, 2 windows a launch; none at k/R = 1), then the finish over the 2R
+    gathered nodes a column, one launch each: the column roots of the
+    whole EDS."""
+    rng = np.random.default_rng(1600 + k + R)
+    eds = _random_eds(rng, k)
+    n2, rows = 2 * k, k // R
+    grid = np.zeros((n2, n2, _D), dtype=np.uint8)
+    assert twin.twin_nmt_leaf_digests(_ptr(eds), _ptr(grid), n2) == 0
+    nodes = []
+    for d in range(R):
+        win = np.ascontiguousarray(np.stack([grid[d * rows : (d + 1) * rows],
+                                             grid[k + d * rows : k + (d + 1) * rows]]))
+        if rows == 1:  # a subtree of one leaf: no level, nothing launched
+            nodes.append(win[:, 0])
+            continue
+        packed = np.zeros(2 * n2 * (rows - 1) * _D, dtype=np.uint8)
+        assert twin.twin_nmt_reduce_levels(_ptr(win), _ptr(packed), 2 * n2, rows, _lg(rows), n2,
+                                           _D, n2 * _D, _D, n2 * _D, n2, rows * n2 * _D) == 0
+        levels = _split_packed(packed, 2 * n2, rows, _lg(rows))
+        plain = nmt.column_levels_plain(torch.from_numpy(win))
+        for a, b in zip(levels, plain):
+            np.testing.assert_array_equal(a.reshape(2, n2, -1, _D), b.numpy())
+        nodes.append(levels[-1][:, 0].reshape(2, n2, _D))
+    gathered = np.ascontiguousarray(np.stack(nodes, axis=1).reshape(2 * R, n2, _D))
+    packed = np.zeros(n2 * (2 * R - 1) * _D, dtype=np.uint8)
+    assert twin.twin_nmt_reduce_levels(_ptr(gathered), _ptr(packed), n2, 2 * R, _lg(2 * R), n2,
+                                       _D, n2 * _D, _D, n2 * _D, n2, 0) == 0
+    roots = _split_packed(packed, n2, 2 * R, _lg(2 * R))[-1][:, 0]
+    np.testing.assert_array_equal(roots, jnmt.eds_nmt_roots_host(eds)[1])
+
+
+@pytest.mark.parametrize("k,window", [(2, (1, 3)), (4, (3, 2)), (8, (5, 7)), (8, (9, 5))])
+def test_twin_k2_odd_row_windows_match_jax(twin, jax_eds_levels, k, window):
+    """K2's blocks over a window that starts at an odd EDS row (a batch of
+    two EDSs' windows): the Q0 rule at the rows' EDS coordinates, against
+    the JAX package's leaf digests of those rows."""
+    row0, n_rows = window
+    n2 = 2 * k
+    rng = np.random.default_rng(1700 + k + row0)
+    eds = np.stack([_random_eds(rng, k) for _ in range(2)])
+    rows = np.ascontiguousarray(eds[:, row0 : row0 + n_rows])
+    out = np.zeros((2, n_rows, n2, _D), dtype=np.uint8)
+    assert twin.twin_nmt_leaf_digests_window(_ptr(rows), _ptr(out), n2, 2, row0, n_rows) == 0
+    for b in range(2):
+        want = jax_eds_levels(eds[b])[0][0, row0 : row0 + n_rows]
+        np.testing.assert_array_equal(out[b], want)
+    np.testing.assert_array_equal(out, nmt.leaf_digests_window_plain(torch.from_numpy(rows),
+                                                                     row0).numpy())
+
+
+def test_twin_k3_refuses_what_it_cannot_take(twin):
+    """The C entries' refusals: m not a power of two or above 512, levels
+    outside 1 .. log2 m, trees that interleave neither by rows nor by columns
+    several to a block, odd strides or addresses; K2 off a 16-byte
+    boundary."""
+    buf = np.zeros(1 << 16, dtype=np.uint8)
+    out = np.zeros(1 << 16, dtype=np.uint8)
+    p, o = _ptr(buf), _ptr(out)
+    ok = (p, o, 4, 8, 3, 4, 8 * _D, _D, 8 * _D, _D, 4, 0)
+    assert twin.twin_nmt_reduce_levels(*ok) == 0
+    bad = [
+        (p, o, 4, 6, 1, 4, 6 * _D, _D, 6 * _D, _D, 4, 0),       # m = 6
+        (p, o, 4, 8, 0, 4, 8 * _D, _D, 8 * _D, _D, 4, 0),       # no level
+        (p, o, 4, 8, 4, 4, 8 * _D, _D, 8 * _D, _D, 4, 0),       # 4 levels of 8 leaves
+        (p, o, 2, 1024, 10, 2, 0, _D, 0, _D, 2, 0),             # 10 levels in one launch
+        (p, o, 1, 1024, 1, 1, 0, _D, 0, _D, 1, 0),              # 1,024 leaves: above a block
+        (p, o, 4, 8, 1, 4, 8 * _D, 2 * _D, 8 * _D, _D, 4, 0),   # strided both ways
+        (p, o, 4, 8, 1, 4, 8 * _D + 1, _D, 8 * _D, _D, 4, 0),   # odd stride
+        (p + 1, o, 4, 8, 1, 4, 8 * _D, _D, 8 * _D, _D, 4, 0),   # odd address
+        (p, o, 4, 8, 1, 4, 8 * _D, _D, 8 * _D, _D, 3, 0),       # groups do not divide
+    ]
+    for args in bad:
+        assert twin.twin_nmt_reduce_levels(*args) == 1, args
+    shares = np.zeros(4 * 4 * 512 + 16, dtype=np.uint8)
+    digests = np.zeros(4 * 4 * _D, dtype=np.uint8)
+    base = _ptr(shares)
+    assert twin.twin_nmt_leaf_digests_window(base, _ptr(digests), 4, 1, 0, 4) == 0
+    assert twin.twin_nmt_leaf_digests_window(base + 8, _ptr(digests), 4, 1, 0, 4) == 1
+    assert twin.twin_nmt_leaf_digests_window(base, _ptr(digests), 6, 1, 0, 4) == 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
+    """The wrappers' CUDA branches on the twin: K7a's levels (one K2 and
+    one K3 launch, the levels views of one packed buffer, the plane
+    entry's bytes exact), the catch-up roots of a batch, a proof's row
+    level stack and the one-level functions, against JAX and the plain
+    path."""
+    rng = np.random.default_rng(1800 + k)
+    eds = _random_eds(rng, k)
+    n2 = 2 * k
+    want = jax_eds_levels(eds)
+    plain = device_plane._extend_levels(torch.from_numpy(eds[:k, :k].copy()))
+    launched = _route_launches_to_twin(monkeypatch, twin)
+    sq = torch.from_numpy(eds[:k, :k].copy())
+    _, grid, levels, tree = device_plane._extend_levels(sq)
+    assert launched["nmt_leaf_digests"] == 1 and launched["nmt_combine_level"] == 1
+    np.testing.assert_array_equal(grid.numpy(), want[0][0])
+    base = levels[0].untyped_storage().data_ptr()
+    for j, (lv, w, p) in enumerate(zip(levels, want[1:], plain[2]), 1):
+        np.testing.assert_array_equal(lv.numpy(), w.reshape(2 * n2, n2 >> j, _D))
+        np.testing.assert_array_equal(lv.numpy(), p.numpy())
+        assert lv.untyped_storage().data_ptr() == base  # one packed buffer
+    np.testing.assert_array_equal(tree.numpy(), plain[3].numpy())
+    entry = device_plane.DevicePlaneEntry(k, bytes(32), torch.from_numpy(eds), grid, levels, tree)
+    assert entry.nbytes == eds.nbytes + grid.numel() + levels[0].untyped_storage().nbytes() \
+        + tree.numel()
+    # catch-up: a batch of 2 EDSs, one K2 and one K3 launch
+    launched.clear()
+    batch = np.stack([eds, _random_eds(rng, k)])
+    roots = nmt.eds_nmt_roots(torch.from_numpy(batch)).numpy()
+    assert launched == {"nmt_leaf_digests": 1, "nmt_combine_level": 1}
+    for b in range(2):
+        np.testing.assert_array_equal(roots[b], jnmt.eds_nmt_roots_host(batch[b]))
+    # a proof's rows: K1 leaf digests, one K3 launch
+    launched.clear()
+    leaves = nmt.eds_row_leaves(torch.from_numpy(eds), range(min(3, n2)))
+    stack = nmt.nmt_level_stack(leaves)
+    assert launched == {"sha256_batch": 1, "nmt_combine_level": 1}
+    for j, (g, w) in enumerate(zip(stack, want)):
+        np.testing.assert_array_equal(g.numpy(), w[0, : min(3, n2)], err_msg=f"level {j}")
+    # the one-level functions are K3 with one level
+    launched.clear()
+    nodes = want[0][0]
+    np.testing.assert_array_equal(nmt.combine_level(torch.from_numpy(nodes.copy())).numpy(),
+                                  want[1][0])
+    np.testing.assert_array_equal(nmt.combine_grid(torch.from_numpy(grid.numpy())).numpy(),
+                                  want[1].reshape(2 * n2, k, _D))
+    np.testing.assert_array_equal(nmt.combine_columns(torch.from_numpy(grid.numpy())).numpy(),
+                                  want[1][1])
+    assert launched == {"nmt_combine_level": 3}
+
+
+def test_twin_k3_trees_taller_than_a_block(twin, monkeypatch):
+    """A block holds one tree of 512 leaves at most (an EDS axis has 256):
+    trees of 512 give every level equal to the plain twin's in one launch,
+    by rows and by columns; trees of 1,024 are refused by the wrappers
+    before any launch, and by the C entry."""
+    rng = np.random.default_rng(1900)
+    nodes = rng.integers(0, 256, (2, 512, _D), dtype=np.uint8)
+    nodes[:, 1::3, :29] = 0xFF  # parity right children for IgnoreMaxNamespace
+    want = nmt.reduce_levels_plain(torch.from_numpy(nodes))
+    launched = _route_launches_to_twin(monkeypatch, twin)
+    got = nmt.reduce_levels(torch.from_numpy(nodes))
+    assert launched == {"nmt_combine_level": 1}
+    assert len(got) == len(want) == 9
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    cols = np.ascontiguousarray(nodes.transpose(1, 0, 2))  # (512, 2, 90): 2 column trees
+    got = nmt.column_levels(torch.from_numpy(cols))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    tall = torch.zeros(2, 1024, _D, dtype=torch.uint8)
+    launched.clear()
+    for fn in (nmt.reduce_levels, lambda t: nmt.column_levels(t.transpose(0, 1).contiguous())):
+        with pytest.raises(ValueError, match="at most 512 leaves"):
+            fn(tall)
+    assert launched == {}
+    out = np.zeros(2 * 1023 * _D, dtype=np.uint8)
+    assert twin.twin_nmt_reduce_levels(_ptr(tall.numpy()), _ptr(out), 2, 1024, 1, 2,
+                                       1024 * _D, _D, 1024 * _D, _D, 2, 0) == 1
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat = torch.zeros(4 * 4 * 512 + 8, dtype=torch.uint8)
+        nmt.leaf_digests_window(flat[8:].view(4, 4, 512), 0)
