@@ -219,31 +219,47 @@ int twin_nmt_combine_level(const uint8_t* in, uint8_t* out, long long ntrees, in
                                         0);
 }
 
-// levels: uint8[batch, 2n - 1, 32] (leaf hashes first, root last), as
-// ctt_rfc6962_root writes them.
-void twin_rfc6962_levels(const uint8_t* leaves, uint8_t* levels, int batch, int n) {
-  std::vector<uint8_t> nodes(size_t(n) * 32);
-  for (int b = 0; b < batch; ++b) {
-    memcpy(nodes.data(), leaves + size_t(b) * n * 32, size_t(n) * 32);
-    uint8_t* level = levels + size_t(b) * (2 * size_t(n) - 1) * 32;
-    memcpy(level, nodes.data(), size_t(n) * 32);
-    for (uint32_t m = uint32_t(n); m > 1; m >>= 1) {
-      std::vector<uint32_t> st(size_t(m / 2) * 8);
-      for (uint32_t j = 0; j < m / 2; ++j) ctt::rfc6962_inner_body(nodes.data(), j, &st[8 * j]);
-      for (uint32_t j = 0; j < m / 2; ++j) ctt::store_digest(&st[8 * j], nodes.data() + 32 * j);
-      level += size_t(m) * 32;
-      memcpy(level, nodes.data(), size_t(m / 2) * 32);
+// K4 as ctt_rfc6962_root launches it: every block (tree) one after
+// another, each step of rfc6962_tree_kernel run for all its threads before
+// the next (the barriers), the last levels over warp 0's 32 lanes (the
+// __syncwarp steps).  levels: uint8[batch, 2n - 1, 32] (leaf hashes first,
+// root last).  Returns 0, or 1 where the C entry refuses.
+int twin_rfc6962_levels(const uint8_t* in, uint8_t* levels, int batch, int n, int L,
+                        int leaf_pass) {
+  using namespace ctt;
+  RfcArgs a{};
+  const uint32_t nt = rfc6962_setup(&a, in, levels, uint64_t(batch > 0 ? batch : 0),
+                                    uint32_t(n > 0 ? n : 0), uint32_t(L > 0 ? L : 0),
+                                    uint32_t(leaf_pass));
+  if (nt == 0) return 1;
+  std::vector<uint8_t> smem(a.smem);
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem.data());
+  uint8_t* stage = smem.data() + a.stage_off;
+  for (uint64_t b = 0; b < uint64_t(batch); ++b) {
+    for (uint32_t t0 = 0; t0 < a.n; t0 += a.tile) {
+      const RfcTile t = rfc6962_tile(a, b, t0);
+      for (uint32_t tid = 0; tid < nt; ++tid) rfc6962_stage(t, stage, tid, nt);
+      for (uint32_t tid = 0; tid < nt; ++tid) rfc6962_leaf(a, t, stage, planes, tid);
+    }
+    uint8_t* tree = levels + b * (2 * a.n - 1) * 32;
+    for (uint32_t m = a.n; m >= 1; m >>= 1) {
+      const uint32_t step = m > kRfcWarpNodes ? nt : 32u;
+      for (uint32_t tid = 0; tid < step; ++tid) rfc6962_level_step(a, planes, tree, m, tid, step);
     }
   }
+  return 0;
 }
 
 // The root alone: the last row of each tree's levels.
-void twin_rfc6962_root(const uint8_t* leaves, uint8_t* out, int batch, int n) {
+int twin_rfc6962_root(const uint8_t* in, uint8_t* out, int batch, int n, int L, int leaf_pass) {
+  if (batch < 1 || n < 1) return 1;
   const size_t rows = 2 * size_t(n) - 1;
-  std::vector<uint8_t> levels(size_t(batch) * rows * 32);
-  twin_rfc6962_levels(leaves, levels.data(), batch, n);
-  for (int b = 0; b < batch; ++b)
-    memcpy(out + size_t(b) * 32, levels.data() + (size_t(b) * rows + rows - 1) * 32, 32);
+  std::vector<uint8_t> levels(size_t(batch) * rows * 32 + 16);
+  // a 16-byte aligned output, as the wrappers allocate it
+  uint8_t* base = levels.data() + ((16 - reinterpret_cast<uintptr_t>(levels.data()) % 16) % 16);
+  if (twin_rfc6962_levels(in, base, batch, n, L, leaf_pass)) return 1;
+  for (int b = 0; b < batch; ++b) memcpy(out + size_t(b) * 32, base + (size_t(b) * rows + rows - 1) * 32, 32);
+  return 0;
 }
 
 // srcs: n_srcs x 4 int64 (base pointer, row stride, item stride, width), as
@@ -306,18 +322,44 @@ void twin_xor_reduce_slabs(const uint8_t* staged, uint8_t* out, int R, long long
   for (uint64_t w = 0; w < n_words; ++w) ctt::xor_reduce_body(staged, out, uint32_t(R), n_words, w);
 }
 
-// K8a: one "block" per axis, as ctt_rs_decode_matrices launches them.
-void twin_rs_decode_matrices(const uint8_t* known, uint8_t* D, const uint8_t* gexp,
-                             const uint8_t* glog, int n, int k, int xor_const) {
-  std::vector<uint8_t> src(static_cast<size_t>(k));
-  std::vector<uint16_t> denom(static_cast<size_t>(k));
-  for (int a = 0; a < n; ++a) {
-    for (int j = 0; j < k; ++j) src[j] = uint8_t(known[size_t(a) * k + j] ^ xor_const);
-    for (int j = 0; j < k; ++j) denom[j] = uint16_t(ctt::rs_denom_log(src.data(), k, j, glog));
-    for (int i = 0; i < 2 * k; ++i)
-      ctt::rs_decode_row(src.data(), denom.data(), k, uint32_t(i ^ xor_const), gexp, glog,
-                         D + (size_t(a) * 2 * k + i) * k);
+// K8a as ctt_rs_decode_matrices launches it: the blocks of `apb` axes one
+// after another (apb as the C entry picks it, or given), each step of
+// rs_decode_matrices_kernel run for its 256 threads before the next; the
+// sums by warps of 8 items, each item's 4 lanes added as the shuffles add
+// them.  Returns 0, or 1 where the C entry refuses.
+int twin_rs_decode_matrices_grouped(const uint8_t* known, uint8_t* D, const uint8_t* gexp,
+                                    const uint8_t* glog, int n, int k, int xor_const,
+                                    int apb_arg) {
+  using namespace ctt;
+  if (n <= 0) return 0;
+  const uint32_t lg_k = log2_exact(uint64_t(k > 0 ? k : 0));
+  if (lg_k > 7 || (reinterpret_cast<uintptr_t>(D) & 15u)) return 1;
+  const uint32_t K = uint32_t(k), nt = kDmThreads;
+  const uint32_t apb = apb_arg > 0 ? uint32_t(apb_arg) : rs_dm_axes_per_block(uint32_t(n), K);
+  if (apb * K > kDmMaxK) return 1;  // a block's shared memory holds 128 source points
+  DmSmem sh;
+  for (uint64_t a0 = 0; a0 < uint64_t(n); a0 += apb) {
+    const uint32_t na = uint32_t(std::min<uint64_t>(apb, uint64_t(n) - a0));
+    for (uint32_t tid = 0; tid < nt; ++tid)
+      rs_dm_stage(sh, known, a0, na, K, uint32_t(xor_const), gexp, glog, tid, nt);
+    const uint32_t items = 3 * na * K, per_warp = 32 / kDmGroup;
+    for (uint32_t warp = 0; warp < nt / 32; ++warp)
+      for (uint32_t it0 = warp * per_warp; it0 < items; it0 += nt / kDmGroup)
+        for (uint32_t g = 0; g < per_warp; ++g) {
+          uint32_t sum = 0;
+          for (uint32_t part = 0; part < kDmGroup; ++part)
+            sum += rs_dm_partial(sh, lg_k, na, uint32_t(xor_const), it0 + g, part);
+          rs_dm_finish(sh, lg_k, na, it0 + g, sum);
+        }
+    for (uint32_t tid = 0; tid < nt; ++tid)
+      rs_dm_write(sh, D + a0 * 2 * K * K, lg_k, na, uint32_t(xor_const), tid, nt);
   }
+  return 0;
+}
+
+int twin_rs_decode_matrices(const uint8_t* known, uint8_t* D, const uint8_t* gexp,
+                            const uint8_t* glog, int n, int k, int xor_const) {
+  return twin_rs_decode_matrices_grouped(known, D, gexp, glog, n, k, xor_const, 0);
 }
 
 // K8b: the blocks of ctt_rs_decode_axes one after another, `gpb` output

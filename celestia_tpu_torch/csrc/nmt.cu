@@ -36,9 +36,8 @@
 // network.py:407).
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "nmt.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -114,18 +113,8 @@ extern "C" int ctt_nmt_reduce_levels(const void* in, void* out, long long ntrees
       static_cast<uint64_t>(bs));
   const uint64_t groups = per_group ? static_cast<uint64_t>(ntrees / tpb) : 0;
   if (per_group == 0 || groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // the first launch on a device raises the kernel's dynamic shared memory
-  // limit above the default 48 KB
-  static std::atomic<uint64_t> raised{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = ctt::raise_smem_once<nmt_reduce_kernel>(ctt::kNmtSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!((raised.load() >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(nmt_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ctt::kNmtSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised |= uint64_t(1) << dev;
-  }
   nmt_reduce_kernel<<<dim3(per_group, static_cast<unsigned>(groups)), ctt::kNmtThreads,
                       ctt::kNmtSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
 // The NMT kernels' pieces (K2 leaf digests, K3 the namespace-aware level
-// reduction) and the RFC-6962 inner node (K4), shared by nmt.cu /
-// rfc6962.cu and the g++ CPU twin (cpu_twin.cpp).
+// reduction) and the RFC-6962 tree's (K4), shared by nmt.cu / rfc6962.cu
+// and the g++ CPU twin (cpu_twin.cpp).
 //
 // K2 and K3 are block-cooperative: a block stages its inputs in shared
 // memory, hashes, and writes its outputs back with wide copies, with
@@ -8,6 +8,10 @@
 // here; the kernels run the steps on their threads with __syncthreads()
 // between them, and the twin runs a block by looping each step over every
 // thread index, so the CPU tests run the kernels' own index maps.
+//
+// K4 (the RFC-6962 tree) is a block-cooperative kernel of the same kind:
+// the leaves staged, one thread a leaf hash, the levels reduced in shared
+// memory (the 65-byte inner node is sha256.cuh's sha256_inner65).
 //
 // Digest layout (ops/nmt.py): leaf = ns || ns || sha256(0x00 || ns || share),
 // node = l.min || max || sha256(0x01 || l || r) with max = l.max when r.min
@@ -103,12 +107,6 @@ struct NmtReduceArgs {
   uint32_t blocks0;       // blocks of set 0 in a group
   uint32_t n_levels;      // levels written, 1 .. lg_m
 };
-
-CTT_HD uint32_t log2_exact(uint64_t x) {
-  uint32_t l = 0;
-  while ((uint64_t(1) << l) < x) ++l;
-  return (uint64_t(1) << l) == x ? l : 64u;
-}
 
 // Fill `a` for one launch; returns the blocks of a group (the grid's x;
 // the groups, ntrees / tpb, are its y), or 0 for what the kernel does not
@@ -444,29 +442,170 @@ CTT_HD void nmt_leaf_store(uint8_t* out, uint64_t cell0, uint32_t n, const uint8
   copy_bytes(dst, digests, nb, copy_unit(reinterpret_cast<uintptr_t>(dst) | nb), tid, nthreads);
 }
 
-// --- K4 --------------------------------------------------------------------
+// --- K4: the RFC-6962 tree, leaves to root, in one block --------------------
 
-// `tag || l[0..half) || r[0..half)`: an RFC-6962 inner node (tag 0x01,
-// half 32).
-struct PairSrc {
-  const uint8_t* l;
-  const uint8_t* r;
-  uint32_t half;
-  CTT_HD uint32_t byte(uint32_t p) const {
-    if (p == 0) return 1u;
-    if (p <= half) return l[p - 1];
-    return r[p - 1 - half];
-  }
-  CTT_HD uint32_t word(uint32_t p) const {
-    if (p >= 1 && p + 3 <= half) return load_be(l + (p - 1));
-    if (p > half) return load_be(r + (p - 1 - half));
-    return (byte(p) << 24) | (byte(p + 1) << 16) | (byte(p + 2) << 8) | byte(p + 3);
-  }
+// One block builds one tree of n (a power of two, at most 1024) leaves.
+// The nodes live in shared memory as 8 word planes: word i of the node in
+// packed row x (the n leaf hashes first, then n/2, ..., the root last: row
+// 2n - 2m + p is node p of the level of m nodes) is planes[i * plane + x],
+// the big-endian state word.  A parent's thread reads its two children as
+// one 8-byte load a plane (neighbouring threads, neighbouring 8 bytes), a
+// node's thread writes its 8 words to 8 planes, and no level overwrites
+// another, so a level goes out to device memory while the next computes.
+constexpr uint32_t kRfcMaxLeaves = 1024;
+constexpr uint32_t kRfcMaxThreads = 512;
+constexpr uint32_t kRfcStageBudget = 65536;  // staged leaf bytes a pass
+constexpr uint32_t kRfcStagePad = 16;        // readable bytes before the staged leaves
+constexpr uint32_t kRfcWarpNodes = 32;       // levels of at most this many nodes: warp 0 alone
+// the planes at their largest, the staging buffer and its slack
+constexpr uint32_t kRfcMaxSmem =
+    8 * (2 * kRfcMaxLeaves + 4) * 4 + kRfcStagePad + kRfcStageBudget + 32;
+
+struct RfcArgs {
+  const uint8_t* in;   // leaves uint8[batch, n, L], or level-0 hashes uint8[batch, n, 32]
+  uint8_t* out;        // uint8[batch, 2n - 1, 32]
+  uint32_t n, L;
+  uint32_t leaf_pass;  // 1: level 0 is sha256(0x00 || leaf); 0: the inputs are level 0
+  uint32_t threads;    // a block's: n clamped to 32..512
+  uint32_t tile;       // leaves staged a pass
+  uint32_t plane;      // words between two planes: 2n + 4
+  uint32_t stage_off;  // byte offset of the staged leaves (past their front pad)
+  uint32_t smem;       // dynamic shared memory bytes
 };
 
-// K4: sha256(0x01 || nodes[2j] || nodes[2j+1]) over 32-byte nodes.
-CTT_HD void rfc6962_inner_body(const uint8_t* nodes, uint32_t j, uint32_t st[8]) {
-  sha256_message(PairSrc{nodes + 64u * j, nodes + 64u * j + 32u, 32u}, 65u, st);
+// Fill `a`; returns the threads of a block, or 0 for what the kernel does
+// not take: n not a power of two in 1..1024, no trees, L = 0 (or not 32
+// without the leaf pass), a leaf longer than the staging buffer, a tree
+// whose leaves start at an odd address, an output off a 16-byte boundary.
+CTT_HD uint32_t rfc6962_setup(RfcArgs* a, const uint8_t* in, uint8_t* out, uint64_t batch,
+                              uint32_t n, uint32_t L, uint32_t leaf_pass) {
+  if (log2_exact(n) > 10 || batch == 0 || batch > 0x7FFFFFFFull || L == 0 ||
+      L > kRfcStageBudget || (!leaf_pass && L != 32))
+    return 0;
+  if (((reinterpret_cast<uintptr_t>(in) | (uint64_t(n) * L)) & 1u) ||
+      (reinterpret_cast<uintptr_t>(out) & 15u))
+    return 0;
+  a->in = in;
+  a->out = out;
+  a->n = n;
+  a->L = L;
+  a->leaf_pass = leaf_pass ? 1u : 0u;
+  a->threads = n < 32 ? 32 : (n > kRfcMaxThreads ? kRfcMaxThreads : n);
+  const uint32_t fit = kRfcStageBudget / L;
+  a->tile = fit < a->threads ? fit : a->threads;
+  a->plane = 2 * n + 4;
+  a->stage_off = 8 * a->plane * 4 + kRfcStagePad;  // 16-byte aligned: plane is even
+  a->smem = a->stage_off + (a->tile * L + 32u + 15u) / 16u * 16u;
+  return a->threads;
+}
+
+// The leaves of tree b's pass from leaf t0: `cnt` leaves, one run of
+// cnt * L bytes at `src`, staged from the 16-byte boundary `skew` bytes
+// below it, so that every load is 16 bytes whatever the run's alignment.
+struct RfcTile {
+  const uint8_t* src;
+  uint32_t t0, cnt, len, skew, chunks;
+};
+
+CTT_HD RfcTile rfc6962_tile(const RfcArgs& a, uint64_t b, uint32_t t0) {
+  RfcTile t;
+  t.src = a.in + (b * a.n + t0) * a.L;
+  t.t0 = t0;
+  t.cnt = a.n - t0 < a.tile ? a.n - t0 : a.tile;
+  t.len = t.cnt * a.L;
+  t.skew = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(t.src) & 15u);
+  t.chunks = (t.skew + t.len + 15u) / 16u;
+  return t;
+}
+
+// Thread tid of nthreads stages its 16-byte chunks: chunk c of the run's
+// aligned cover to stage + 16c, so leaf i starts at stage + skew + i*L.
+// The cover's bytes outside the run lie in a 16-byte granule that holds a
+// byte of the tensor (inside its allocation) and are never message bytes;
+// the host copies only the run's own bytes.
+CTT_HD void rfc6962_stage(const RfcTile& t, uint8_t* stage, uint32_t tid, uint32_t nthreads) {
+  const uint8_t* cover = t.src - t.skew;
+  for (uint32_t c = tid; c < t.chunks; c += nthreads) {
+#ifdef __CUDA_ARCH__
+    reinterpret_cast<uint4*>(stage)[c] = reinterpret_cast<const uint4*>(cover)[c];
+#else
+    for (uint32_t p = 16 * c; p < 16 * c + 16; ++p)
+      if (p >= t.skew && p < t.skew + t.len) stage[p] = cover[p];
+#endif
+  }
+}
+
+// `0x00 || leaf` (an RFC-6962 leaf) from a staged leaf, with readable bytes
+// before and after it: message word q is leaf bytes 4q-1 .. 4q+2, one PRMT
+// of two aligned shared words, the byte before the leaf masked to 0x00.
+struct StagedLeafSrc {
+  NodeWords w;
+  const uint8_t* leaf;
+  CTT_HD StagedLeafSrc(const uint8_t* l) : w(l - 1, 0), leaf(l) {}
+  CTT_HD uint32_t byte(uint32_t p) const { return p ? leaf[p - 1] : 0u; }
+  CTT_HD uint32_t word(uint32_t p) const { return p ? w(p / 4) : w(0) & 0x00FFFFFFu; }
+};
+
+// Thread tid's level-0 node of the pass: sha256(0x00 || leaf) (the leaf
+// pass) or the given hash's words, into the planes at row t0 + tid.
+CTT_HD void rfc6962_leaf(const RfcArgs& a, const RfcTile& t, const uint8_t* stage,
+                         uint32_t* planes, uint32_t tid) {
+  if (tid >= t.cnt) return;
+  const uint8_t* leaf = stage + t.skew + tid * a.L;
+  uint32_t st[8];
+  if (!a.leaf_pass) {
+    const NodeWords w(leaf, 0);
+#pragma unroll
+    for (uint32_t i = 0; i < 8; ++i) st[i] = w(i);
+  } else {
+    sha256_message(StagedLeafSrc(leaf), a.L + 1u, st);
+  }
+#pragma unroll
+  for (uint32_t i = 0; i < 8; ++i) planes[i * a.plane + t.t0 + tid] = st[i];
+}
+
+// One level step of the tree, thread tid of nthreads, on the level of m
+// nodes (rows 2n - 2m ..): threads below m/2 compute the parents (rows
+// 2n - m ..), and the others write level m out -- or every thread does both
+// when none is free (1,024 leaves) -- as 16-byte stores, neighbouring
+// threads on neighbouring 16 bytes, each word byte-swapped to the digest's
+// bytes.  Level m is read-only from here on, so the stores need no barrier.
+CTT_HD void rfc6962_level_step(const RfcArgs& a, uint32_t* planes, uint8_t* tree, uint32_t m,
+                               uint32_t tid, uint32_t nthreads) {
+  const uint32_t mo = m >> 1, row = 2 * a.n - 2 * m;
+  const uint32_t spare = nthreads > mo ? nthreads - mo : nthreads, first = nthreads - spare;
+  if (tid >= first) {
+    for (uint32_t c = tid - first; c < 2 * m; c += spare) {
+      const uint32_t x = row + (c >> 1), h = 4 * (c & 1u);
+      uint32_t v[4];
+#pragma unroll
+      for (uint32_t e = 0; e < 4; ++e) v[e] = prmt(planes[(h + e) * a.plane + x], 0u, 0x0123u);
+      uint8_t* dst = tree + 32u * x + 4u * h;
+#ifdef __CUDA_ARCH__
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+#else
+      for (uint32_t e = 0; e < 4; ++e) st32(dst + 4 * e, v[e]);
+#endif
+    }
+  }
+  if (tid < mo) {
+    uint32_t l[8], r[8], st[8];
+#pragma unroll
+    for (uint32_t i = 0; i < 8; ++i) {
+      const uint32_t* pair = planes + i * a.plane + row + 2 * tid;
+#ifdef __CUDA_ARCH__
+      const uint2 lr = *reinterpret_cast<const uint2*>(pair);
+      l[i] = lr.x;
+      r[i] = lr.y;
+#else
+      l[i] = pair[0];
+      r[i] = pair[1];
+#endif
+    }
+    sha256_inner65(l, r, st);
+#pragma unroll
+    for (uint32_t i = 0; i < 8; ++i) planes[i * a.plane + row + m + tid] = st[i];
+  }
 }
 
 }  // namespace ctt

@@ -36,9 +36,8 @@
 // - K8c: one warp per cell, 16-byte loads, warp vote into two byte masks.
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "rs_decode.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -46,27 +45,28 @@ constexpr uint32_t kMaxK = 128;
 constexpr uint32_t kShareBytes = 512;
 constexpr uint32_t kVerdictCellsPerBlock = 8;
 
-__global__ void rs_decode_matrices_kernel(const uint8_t* known, uint8_t* D,
-                                          const uint8_t* gexp_g, const uint8_t* glog_g,
-                                          uint32_t k, uint32_t xor_const) {
-  __shared__ uint8_t exp_s[256];
-  __shared__ uint8_t log_s[256];
-  __shared__ uint8_t src[kMaxK];
-  __shared__ uint16_t denom[kMaxK];
-  const uint32_t tid = threadIdx.x, a = blockIdx.x;
-  for (uint32_t v = tid; v < 256u; v += blockDim.x) {
-    exp_s[v] = gexp_g[v];
-    log_s[v] = glog_g[v];
+// Block b builds the matrices of axes b * apb .. (at most apb of them).
+__global__ void __launch_bounds__(ctt::kDmThreads)
+    rs_decode_matrices_kernel(const uint8_t* known, uint8_t* D, const uint8_t* gexp,
+                              const uint8_t* glog, uint32_t n, uint32_t lg_k, uint32_t apb,
+                              uint32_t xor_const) {
+  __shared__ __align__(16) ctt::DmSmem sh;
+  const uint32_t tid = threadIdx.x, k = 1u << lg_k;
+  const uint64_t a0 = static_cast<uint64_t>(blockIdx.x) * apb;
+  const uint32_t na = n - a0 < apb ? static_cast<uint32_t>(n - a0) : apb;
+  ctt::rs_dm_stage(sh, known, a0, na, k, xor_const, gexp, glog, tid, blockDim.x);
+  __syncthreads();
+  // the sums: a group of 4 lanes an item, 8 items a warp at a time
+  const uint32_t items = 3 * na * k, lane = tid % 32, per_warp = 32 / ctt::kDmGroup;
+  for (uint32_t it0 = (tid / 32) * per_warp; it0 < items; it0 += blockDim.x / ctt::kDmGroup) {
+    const uint32_t it = it0 + lane / ctt::kDmGroup;
+    uint32_t sum = ctt::rs_dm_partial(sh, lg_k, na, xor_const, it, lane % ctt::kDmGroup);
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 1);
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, 2);
+    if (lane % ctt::kDmGroup == 0) ctt::rs_dm_finish(sh, lg_k, na, it, sum);
   }
-  for (uint32_t j = tid; j < k; j += blockDim.x)
-    src[j] = static_cast<uint8_t>(known[static_cast<uint64_t>(a) * k + j] ^ xor_const);
   __syncthreads();
-  for (uint32_t j = tid; j < k; j += blockDim.x)
-    denom[j] = static_cast<uint16_t>(ctt::rs_denom_log(src, k, j, log_s));
-  __syncthreads();
-  for (uint32_t i = tid; i < 2 * k; i += blockDim.x)
-    ctt::rs_decode_row(src, denom, k, i ^ xor_const, exp_s, log_s,
-                       D + (static_cast<uint64_t>(a) * 2 * k + i) * k);
+  ctt::rs_dm_write(sh, D + a0 * 2 * k * k, lg_k, na, xor_const, tid, blockDim.x);
 }
 
 // blockIdx.y the axis, blockIdx.x the run of `gpb` output groups (8
@@ -139,15 +139,20 @@ __global__ void rs_repair_verdicts_kernel(const uint8_t* repaired, const uint8_t
 // known uint8[n, k] (distinct positions per axis) -> D uint8[n, 2k, k];
 // gexp uint8[512] / glog uint8[256] the codec's tables; xor_const is k
 // under leopard-ff8 (position -> point is XOR with k), 0 under
-// lagrange-gf256.
+// lagrange-gf256.  k a power of two <= 128; D 16-byte aligned.
 extern "C" int ctt_rs_decode_matrices(const void* known, void* D, const void* gexp,
                                       const void* glog, int n, int k, int xor_const,
                                       void* stream) {
   if (n <= 0) return 0;
-  const unsigned threads = static_cast<unsigned>(2 * k);
-  rs_decode_matrices_kernel<<<n, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const uint32_t lg_k = ctt::log2_exact(static_cast<uint64_t>(k > 0 ? k : 0));
+  if (lg_k > 7 || (reinterpret_cast<uintptr_t>(D) & 15u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t apb = ctt::rs_dm_axes_per_block(static_cast<uint32_t>(n), static_cast<uint32_t>(k));
+  const unsigned blocks = (static_cast<uint32_t>(n) + apb - 1) / apb;
+  rs_decode_matrices_kernel<<<blocks, ctt::kDmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(known), static_cast<uint8_t*>(D),
-      static_cast<const uint8_t*>(gexp), static_cast<const uint8_t*>(glog), k, xor_const);
+      static_cast<const uint8_t*>(gexp), static_cast<const uint8_t*>(glog),
+      static_cast<uint32_t>(n), lg_k, apb, static_cast<uint32_t>(xor_const));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,16 +165,10 @@ extern "C" int ctt_rs_decode_axes(void* eds, const void* D, const void* known, c
   if (n <= 0) return 0;
   const uint64_t S = kShareBytes, n2 = 2 * static_cast<uint64_t>(k);
   const uint64_t as = cols ? S : n2 * S, ps = cols ? n2 * S : S;
-  static std::atomic<uint64_t> raised{0};  // the shared memory limit, as launch_encode raises it
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // the most any call asks (k = 128), as launch_encode raises it
+  const cudaError_t err =
+      ctt::raise_smem_once<rs_gf2_decode_kernel>(ctt::gf2_smem_bytes(kMaxK, ctt::kGf2MaxGroups));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!((raised.load() >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(rs_gf2_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ctt::gf2_smem_bytes(kMaxK, ctt::kGf2MaxGroups));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised |= uint64_t(1) << dev;
-  }
   const uint32_t groups = (k + ctt::kGf2Outputs - 1) / ctt::kGf2Outputs;
   const uint32_t gpb = ctt::gf2_groups_per_block(groups, n);
   rs_gf2_decode_kernel<<<dim3((groups + gpb - 1) / gpb, n), ctt::kGf2Threads,

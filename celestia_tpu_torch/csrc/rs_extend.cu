@@ -52,9 +52,8 @@
 // apart from K5's.
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "rs_extend.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -107,16 +106,9 @@ __global__ void __launch_bounds__(ctt::kGf2Threads, 1)
 int launch_encode(const AxisSet& s0, const AxisSet& s1, const void* E, const void* gexp,
                   const void* glog, uint32_t k, uint32_t n_in, uint32_t n_axes, uint32_t nsets,
                   uint32_t nz, uint64_t ibs, uint64_t obs, cudaStream_t st) {
-  static std::atomic<uint64_t> raised{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      ctt::raise_smem_once<rs_gf2_encode_kernel>(ctt::gf2_smem_bytes(ctt::kGf2MaxInputs, 1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!((raised.load() >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(rs_gf2_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ctt::gf2_smem_bytes(ctt::kGf2MaxInputs, 1));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised |= uint64_t(1) << dev;
-  }
   const uint32_t groups = (k + ctt::kGf2Outputs - 1) / ctt::kGf2Outputs;
   const uint32_t apb = ctt::gf2_axes_per_block(groups * nz, n_axes);
   rs_gf2_encode_kernel<<<dim3(groups, (n_axes + apb - 1) / apb, nz), ctt::kGf2Threads,

@@ -68,6 +68,13 @@ CTT_HD uint32_t prmt(uint32_t x, uint32_t y, uint32_t s) {
 #endif
 }
 
+// log2 of a power of two x >= 1; 64 for any other x.
+CTT_HD uint32_t log2_exact(uint64_t x) {
+  uint32_t l = 0;
+  while ((uint64_t(1) << l) < x) ++l;
+  return (uint64_t(1) << l) == x ? l : 64u;
+}
+
 // Little-endian loads and stores at an aligned address (4 and 2 bytes).
 CTT_HD uint32_t ld32(const uint8_t* p) {
 #ifdef __CUDA_ARCH__
@@ -190,6 +197,30 @@ CTT_HD void sha256_message(const Src& src, uint32_t len, uint32_t st[8]) {
     }
     sha256_compress(st, w);
   }
+}
+
+// The RFC-6962 inner node sha256(0x01 || l || r) of two digests given as
+// their state words (word i = big-endian bytes 4i..4i+3): 65 bytes, two
+// blocks.  The 0x01 prefix shifts every message word of block 1 by a byte,
+// so each is one PRMT of two neighbouring digest words (in registers).
+// Block 2 is r[31], 0x80, zeros and the bit length 520: its words 1..15
+// are constants, and with the rounds unrolled the compiler folds them into
+// the schedule.
+CTT_HD void sha256_inner65(const uint32_t l[8], const uint32_t r[8], uint32_t st[8]) {
+  uint32_t w[16];
+  w[0] = prmt(l[0], 0x01u, 0x4321u);  // (prev << 24) | (cur >> 8)
+#pragma unroll
+  for (int q = 1; q < 8; ++q) w[q] = prmt(l[q], l[q - 1], 0x4321u);
+  w[8] = prmt(r[0], l[7], 0x4321u);
+#pragma unroll
+  for (int q = 9; q < 16; ++q) w[q] = prmt(r[q - 8], r[q - 9], 0x4321u);
+  sha256_init(st);
+  sha256_compress(st, w);
+  w[0] = prmt(0x00800000u, r[7], 0x4210u);  // r[31], 0x80, 0, 0
+#pragma unroll
+  for (int q = 1; q < 15; ++q) w[q] = 0u;
+  w[15] = 65u * 8u;
+  sha256_compress(st, w);
 }
 
 CTT_HD void store_digest(const uint32_t st[8], uint8_t* out) {

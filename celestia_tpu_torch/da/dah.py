@@ -8,8 +8,8 @@ MinDataAvailabilityHeader :179) and app/extend_block.go:14-32.
 :func:`extend_and_header` goes through the device-resident plane
 (da/device_plane.py) on every device, as the JAX package does with an
 accelerator attached (its dah.py:540): the square is uploaded once, RS
-extension (K5) -> NMT leaf digests (K2) -> one NMT level per launch (K3)
--> RFC-6962 leaf hashes (K1) -> the root tree (K4) run on the current
+extension (K5) -> NMT leaf digests (K2) -> every NMT level in one launch
+(K3) -> the root tree from the axis roots in one launch (K4) run on the current
 stream with no host sync between them, only the 4k axis roots and the
 32-byte data root come back to the host, and the EDS and every level stay
 on the card, cached under the data root for DAS serving.  With
@@ -281,8 +281,8 @@ def data_roots_batched(squares, device=None) -> Tuple[np.ndarray, Tuple[bytes, .
     (axis roots uint8[n, 2, 2k, 90], the n data roots).
 
     On the card: one K5b launch pair extends the batch, one K2 launch and
-    one K3 launch hash all n * 4k trees to their roots, then K1 + K4 give each
-    block's data root there (the JAX caller hashes the roots on the host);
+    one K3 launch hash all n * 4k trees to their roots, then one K4 launch
+    gives every block's data root there (the JAX caller hashes the roots on the host);
     roots and data roots come back in one copy.  A numpy batch is uploaded
     to ``device`` (None: the card); a tensor stays on its device."""
     if isinstance(squares, torch.Tensor):

@@ -7,8 +7,8 @@ every level of the 4k NMT axis trees and every level of the RFC-6962 tree
 over the 4k axis roots:
 
     K5 rs_extend -> K2 nmt_leaf_digests -> K3 nmt_combine_level (one
-    launch, every level kept) -> K1 sha256_batch (root leaf hashes) -> K4
-    rfc6962_root with its levels output
+    launch, every level kept) -> K4 rfc6962_root (one launch: the axis
+    roots' leaf hashes and every level above them)
 
 Only the 4k axis roots and the 32-byte data root cross to the host (one
 copy), to build the DAH.  The tensors ride a :class:`DevicePlaneEntry`
@@ -66,7 +66,7 @@ def _extend_levels(square: torch.Tensor):
     grid = nmt_ops.eds_leaf_digests(eds)
     levels = nmt_ops.grid_levels(grid)  # on the card: views of one K3 launch's packed output
     roots = levels[-1].reshape(4 * k, DIGEST)
-    root_tree = nmt_ops.rfc6962_tree_levels(nmt_ops.rfc6962_leaf_hashes(roots))
+    root_tree = nmt_ops.rfc6962_levels(roots)  # one K4 launch, axis roots to data root
     return eds, grid, tuple(levels), root_tree
 
 
@@ -336,7 +336,7 @@ def sample_proofs_batch(entry: DevicePlaneEntry, dah, coords: Sequence[Tuple[int
 def root_tree(dah, device) -> torch.Tensor:
     """The packed RFC-6962 tree uint8[2 * 4k - 1, 32] over the DAH's 4k axis
     roots on ``device``: the cached entry's when the block is parked there,
-    else K1 + K4 over the roots, uploaded once (46 KB at k = 128)."""
+    else one K4 launch over the roots, uploaded once (46 KB at k = 128)."""
     from celestia_tpu_torch.da import eds_cache
 
     k = len(dah.row_roots) // 2
@@ -345,7 +345,7 @@ def root_tree(dah, device) -> torch.Tensor:
         return entry.root_tree
     roots = np.frombuffer(b"".join([*dah.row_roots, *dah.col_roots]), dtype=np.uint8)
     roots = torch.from_numpy(roots.reshape(4 * k, DIGEST).copy()).to(device)
-    return nmt_ops.rfc6962_tree_levels(nmt_ops.rfc6962_leaf_hashes(roots))
+    return nmt_ops.rfc6962_levels(roots)
 
 
 def sample_proofs_from_eds(eds: torch.Tensor, dah, coords: Sequence[Tuple[int, int]]) -> list:

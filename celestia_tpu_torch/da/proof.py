@@ -16,7 +16,7 @@ device leg of :func:`new_share_inclusion_proof` differ.  There the touched
 rows are sliced from the EDS on its device, their level stacks computed
 there (K1 + K3 over the rows, :func:`row_range_proofs`), the root aunts
 read from the block's root tree on that device (the cached entry's, else
-K1 + K4 over the DAH's roots), and one K7b ``das_proof_gather`` launch
+one K4 launch over the DAH's roots), and one K7b ``das_proof_gather`` launch
 copies out only the sibling digests, shares and aunts that go into the
 proof, fetched with one copy.
 """
@@ -179,8 +179,8 @@ def row_range_proofs(
     gathers the proofs' sibling digests, for each ``share_ranges[i]``
     given the shares of that column range of row ``rows[i]``, and, when
     ``dah`` is given, each row root's aunts in the block's root tree
-    (``device_plane.root_tree``: the cached entry's, else K1 + K4 over the
-    DAH's roots).  One copy brings them to the host.  Returns (proofs,
+    (``device_plane.root_tree``: the cached entry's, else one K4 launch over
+    the DAH's roots).  One copy brings them to the host.  Returns (proofs,
     shares per row, root proofs -- empty without ``dah``)."""
     block, row_ids = nmt_ops.eds_rows(eds.tensor, rows)  # only these rows are copied
     n2 = eds.width

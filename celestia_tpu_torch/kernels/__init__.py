@@ -44,7 +44,7 @@ _SIGNATURES = {
     "ctt_sha256_batch": (_P, _P, _LL, _I, _I, _P),
     "ctt_nmt_leaf_digests": (_P, _P, _I, _I, _I, _I, _P),
     "ctt_nmt_reduce_levels": (_P, _P, _LL, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
-    "ctt_rfc6962_root": (_P, _P, _I, _I, _P),
+    "ctt_rfc6962_root": (_P, _P, _I, _I, _I, _I, _P),
     "ctt_rs_extend": (_P, _P, _P, _P, _P, _I, _P),
     "ctt_das_proof_gather": (_P, _I, _P, _I, _P, _P),
     "ctt_rs_extend_batched": (_P, _P, _P, _P, _P, _I, _I, _P),

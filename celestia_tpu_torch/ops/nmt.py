@@ -17,7 +17,8 @@ every cell outside Q0 with the parity namespace.
 
 On a CUDA tensor the EDS passes go through the kernels of ``csrc/nmt.cu``
 (K2 ``nmt_leaf_digests``, K3 ``nmt_combine_level``) and the data root
-through K1 (leaf hashes) and ``csrc/rfc6962.cu`` (K4 ``rfc6962_root``).
+through one launch of ``csrc/rfc6962.cu`` (K4 ``rfc6962_root``), from the
+axis roots to the root.
 On a CPU tensor each runs its plain PyTorch twin in this module.  Each EDS
 cell is hashed once, into a (2k, 2k, 90) grid that row trees read by rows
 and column trees by columns — the bytes the JAX program gets by hashing
@@ -34,8 +35,10 @@ functions (:func:`combine_level`, :func:`combine_grid`,
 
 The level stacks that proofs are served from: :func:`nmt_level_stack` (K1
 leaf digests, then one K3 launch for every level, over any leading batch
-dimension) and :func:`rfc6962_level_stack` (K1 leaf hashes, then K4 writing
-every level into one packed buffer, :func:`rfc6962_tree_levels`).
+dimension) and :func:`rfc6962_level_stack` (one K4 launch that hashes the
+leaves and writes every level into one packed buffer,
+:func:`rfc6962_levels`; :func:`rfc6962_tree_levels` is the same kernel
+over given leaf hashes).
 """
 
 from __future__ import annotations
@@ -58,8 +61,10 @@ NMT_DIGEST_SIZE = 2 * NAMESPACE_SIZE + 32  # 90
 
 _PARITY_NS = np.frombuffer(PARITY_SHARE_NAMESPACE_RAW, dtype=np.uint8)
 
-# one K4 block holds the whole tree in shared memory (csrc/rfc6962.cu)
+# one K4 block holds the whole tree in shared memory, and stages its leaves
+# in passes of at most 64 KiB (csrc/nmt.cuh kRfcMaxLeaves, kRfcStageBudget)
 RFC6962_MAX_LEAVES = 1024
+RFC6962_MAX_LEAF_BYTES = 65536
 
 
 def _is_cpu(t: torch.Tensor) -> bool:
@@ -488,31 +493,46 @@ def _tree_levels_plain(hashes: torch.Tensor) -> list:
     return levels
 
 
+def _rfc6962_cuda(src: torch.Tensor, leaf_pass: bool) -> torch.Tensor:
+    """One K4 launch: the packed tree uint8[..., 2n - 1, 32] over src
+    uint8[..., n, L], from the leaves (``leaf_pass``: level 0 is
+    sha256(0x00 || leaf)) or over given level-0 hashes (L = 32)."""
+    n = src.shape[-2]
+    _check_pow2(n)
+    kernels.check_cuda_tensor(src, "leaves" if leaf_pass else "hashes")
+    L = src.shape[-1]
+    if n > RFC6962_MAX_LEAVES or L < 1 or (not leaf_pass and L != 32):
+        want = "L >= 1" if leaf_pass else "32"
+        raise ValueError(f"K4 takes [..., n <= {RFC6962_MAX_LEAVES}, {want}], "
+                         f"got {tuple(src.shape)}")
+    if L > RFC6962_MAX_LEAF_BYTES:
+        raise ValueError(f"K4 stages leaves of at most {RFC6962_MAX_LEAF_BYTES} bytes, got {L}")
+    if (src.data_ptr() | n * L) % 2:
+        raise ValueError("K4 takes trees whose leaves start at even addresses: the input "
+                         "starts at an odd address or a tree has an odd byte count")
+    lead = tuple(src.shape[:-2])
+    batch = math.prod(lead)
+    levels = torch.empty(lead + (2 * n - 1, 32), dtype=torch.uint8, device=src.device)
+    if batch:
+        kernels.launch("rfc6962_root", src.device, src.data_ptr(), levels.data_ptr(), batch, n,
+                       L, int(leaf_pass))
+    return levels
+
+
 def rfc6962_tree_levels_plain(hashes: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K4 on any device."""
+    """Plain twin of K4 over given leaf hashes, on any device."""
     _check_pow2(hashes.shape[-2])
     return torch.cat(_tree_levels_plain(hashes), dim=-2)
 
 
 def rfc6962_tree_levels(hashes: torch.Tensor) -> torch.Tensor:
-    """K4: the RFC-6962 tree over a power-of-two count of leaf hashes,
+    """The RFC-6962 tree over a power-of-two count of given leaf hashes,
     uint8[..., n, 32] -> uint8[..., 2n - 1, 32], every level packed (the n
-    leaf hashes first, then n/2, ..., the root last); on the card n <= 1024."""
+    leaf hashes first, then n/2, ..., the root last); on the card one K4
+    launch without its leaf pass, n <= 1024."""
     if _is_cpu(hashes):
         return rfc6962_tree_levels_plain(hashes)
-    n = hashes.shape[-2]
-    _check_pow2(n)
-    kernels.check_cuda_tensor(hashes, "hashes")
-    if hashes.shape[-1] != 32 or n > RFC6962_MAX_LEAVES:
-        raise ValueError(
-            f"hashes must be [..., n <= {RFC6962_MAX_LEAVES}, 32], got {tuple(hashes.shape)}"
-        )
-    lead = tuple(hashes.shape[:-2])
-    batch = math.prod(lead)
-    levels = torch.empty(lead + (2 * n - 1, 32), dtype=torch.uint8, device=hashes.device)
-    if batch:
-        kernels.launch("rfc6962_root", hashes.device, hashes.data_ptr(), levels.data_ptr(), batch, n)
-    return levels
+    return _rfc6962_cuda(hashes, leaf_pass=False)
 
 
 def rfc6962_tree_plain(hashes: torch.Tensor) -> torch.Tensor:
@@ -539,6 +559,22 @@ def split_tree_levels(packed: torch.Tensor) -> list:
     return levels
 
 
+def rfc6962_levels_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`rfc6962_levels` on any device."""
+    return rfc6962_tree_levels_plain(rfc6962_leaf_hashes_plain(leaves))
+
+
+def rfc6962_levels(leaves: torch.Tensor) -> torch.Tensor:
+    """The RFC-6962 tree over a power-of-two count of equal-length leaves,
+    packed: uint8[..., n, L] -> uint8[..., 2n - 1, 32], the leaf hashes
+    sha256(0x00 || leaf) first, the root last (``celestia_tpu/ops/
+    nmt.py:272`` and ``:287`` as a whole).  On the card one K4 launch,
+    leaves to root; n <= 1024."""
+    if _is_cpu(leaves):
+        return rfc6962_levels_plain(leaves)
+    return _rfc6962_cuda(leaves, leaf_pass=True)
+
+
 def rfc6962_level_stack_plain(leaves: torch.Tensor) -> list:
     """Plain twin of :func:`rfc6962_level_stack` on any device."""
     _check_pow2(leaves.shape[-2])
@@ -548,22 +584,22 @@ def rfc6962_level_stack_plain(leaves: torch.Tensor) -> list:
 def rfc6962_level_stack(leaves: torch.Tensor) -> list:
     """All levels of the RFC-6962 tree over a power-of-two count of
     equal-length leaves: ``[leaf hashes (..., n, 32), ..., root (..., 1,
-    32)]`` (``celestia_tpu/ops/nmt.py:287``).  On the card: K1 for the leaf
-    hashes, then one K4 launch that writes every level; the levels are
-    views of its packed output."""
+    32)]`` (``celestia_tpu/ops/nmt.py:287``).  On the card one K4 launch
+    from the leaves; the levels are views of its packed output."""
     _check_pow2(leaves.shape[-2])
     if _is_cpu(leaves):
         return rfc6962_level_stack_plain(leaves)
-    return split_tree_levels(rfc6962_tree_levels(rfc6962_leaf_hashes(leaves)))
+    return split_tree_levels(rfc6962_levels(leaves))
 
 
 def rfc6962_root_pow2(leaves: torch.Tensor) -> torch.Tensor:
     """Merkle root of a power-of-two number of equal-length leaves.
 
     uint8[..., n, L] -> uint8[..., 32].  Matches tendermint's simple merkle
-    for power-of-two counts (split point = n/2 at every level)."""
+    for power-of-two counts (split point = n/2 at every level).  On the
+    card the last row of one K4 launch from the leaves."""
     _check_pow2(leaves.shape[-2])
-    return rfc6962_tree(rfc6962_leaf_hashes(leaves))
+    return rfc6962_levels(leaves)[..., -1, :]
 
 
 def rfc6962_root_np(leaves: list) -> np.ndarray:

@@ -31,7 +31,7 @@ squares of data group g, and computes, in order:
 5. ``all_gather`` of the row roots (tiled) and of the 2R subtree nodes per
    column (sharded.py:119-146), and the log2(2R) levels that finish the
    column trees (one K3 launch; sharded.py:147-150), once per device;
-6. the data root (K1 + K4; sharded.py:153-154), once, on the group's
+6. the data root (one K4 launch; sharded.py:153-154), once, on the group's
    first device (JAX computes it on every device: the bytes are the same).
 
 A shard keeps its rows as a slab uint8[2, n, k/R, 2k, 512] (top rows, then

@@ -8,8 +8,9 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit, and the nvcc build of
    ``celestia_tpu_torch/csrc/*.cu``;
 2. every CUDA kernel against its plain PyTorch twin on the card, at the
-   main path's shapes, byte for byte (K4 with its levels output at 512
-   leaves, K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block, K9a
+   main path's shapes, byte for byte (K4 from the leaves at n = 4k for k =
+   1..128, at batch 8 and over given hashes; K8a at k = 1..128 for both
+   codecs and the 25 % mask's 256 axes; K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block, K9a
    and K9b on every shard of a k = 128 square over 8 shards, K2 on their
    row windows); K2 and every level of K3 (one launch) at every k =
    1..128, on the 8-EDS catch-up batch and a 5-row level stack, and K3's
@@ -18,9 +19,12 @@ Phases (any failure raises and the script exits non-zero):
    row pass and K9a (n_in = k/R down to 1) for both codecs; each kernel's
    time as the host issues it and its GPU time (queued behind a sleep)
    beside its bound, plain and library times, the bit-GEMM kernels' share
-   of their tensor-core floor, and K3's and K4's dependency floor (their
-   levels' chain of compressions at one compression's latency, measured as
-   K1's time per block on one long message, its one-block time taken off);
+   of their tensor-core floor; K4's per-level latency, the slope of its GPU
+   time at batch 1 over n = 2..1024 leaves and over n = 2..32 (warp 0
+   alone: half of it is one compression's latency in the kernel), and K3's
+   and K4's dependency floor (their levels' chain of compressions at that
+   latency), beside the same chain at K1's time per block on one long
+   message (a compression fed from L2); the SASS opcode mix of K4;
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
    points on the card;
 4. the extension path: seeded BlobTx streams, proposer ``square.build`` ->
@@ -28,14 +32,14 @@ Phases (any failure raises and the script exits non-zero):
    validator ``square.construct`` -> ``extend_block`` again, 4 blocks at
    max square size 64 and 4 at 128; the two data roots must agree with each
    other and with the port's plain path (``device="cpu"``); the launches
-   exactly 6 a block (K5 2, K2, K3, K1, K4 one each);
+   exactly 5 a block (K5 2, K2, K3, K4 one each);
 4b. the serving path on the same 8 blocks, each extended through the plane
    on the card: 64 seeded light clients x 16 samples as one
    ``das.sample_proofs_batch`` of 1,024 cells served by the K7b gather,
    every proof verified against the data root; namespace data for every
    blob namespace and a share proof for every blob, equal to the plain
    path's; the same cells after the card's entry is dropped, served from
-   the EDS on the card (K1 + K3 over the touched rows, K1 + K4 for the root
+   the EDS on the card (K1 + K3 over the touched rows, K4 for the root
    tree, one K7b gather: each launched), and by the host prover from the
    plain path's EDS, all with equal bytes.  Serving a block on the card
    must make no host-prover call and no whole-EDS fetch.  Each path's
@@ -56,9 +60,9 @@ Phases (any failure raises and the script exits non-zero):
    the card verifies against the bad DAH and not the honest one; at k = 32
    the card's BEFP equals the ``device="cpu"`` path's;
 4e. catch-up (BASELINE config 5): the 8 blocks grouped by size through
-   ``dah.data_roots_batched`` (K5b, batched K2/K3, K1 + K4 per block), each
-   data root equal to the block's DAH hash, the launches exactly 6 a batch
-   (K5b 2, K2, K3, K1, K4 one each); then one batch of 8 k = 128 squares
+   ``dah.data_roots_batched`` (K5b, batched K2/K3, one K4 for the batch),
+   each data root equal to the block's DAH hash, the launches exactly 5 a
+   batch (K5b 2, K2, K3, K4 one each); then one batch of 8 k = 128 squares
    (the 4 seeded ones and 4 more from the seeded tx stream), timed;
 4f. the sharded extension (K9, ``parallel/sharded.py``) on meshes that
    repeat the card R times (``make_mesh([cuda:0] * R)``, R = 1, 2, 4, 8) at
@@ -135,8 +139,7 @@ SOURCES = {
     "xor_reduce_slabs": "celestia_tpu_torch/csrc/rs_sharded.cu",
 }
 # the kernels each path must launch
-EXTEND_KERNELS = ("sha256_batch", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root",
-                  "rs_extend")
+EXTEND_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "rs_extend")
 SERVE_KERNELS = ("das_proof_gather",)
 # a block on the card with no cached entry (da/device_plane.py sample_proofs_from_eds)
 MISS_KERNELS = ("sha256_batch", "nmt_combine_level", "rfc6962_root", "das_proof_gather")
@@ -146,17 +149,16 @@ REPAIR_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_extend", "rs_repai
 # fraud: detection (decode + verdicts), then the BEFP's orthogonal trees and gather
 FRAUD_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_repair_verdicts", "sha256_batch",
                  "nmt_combine_level", "das_proof_gather")
-CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level", "sha256_batch",
-                   "rfc6962_root")
-# the sharded extension: K5's row pass, K9a, K9b, K2 windows, K3, K1 + K4
+CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root")
+# the sharded extension: K5's row pass, K9a, K9b, K2 windows, K3, K4
 SHARDED_KERNELS = ("rs_extend", "rs_col_parity_partial", "xor_reduce_slabs", "nmt_leaf_digests",
-                   "nmt_combine_level", "sha256_batch", "rfc6962_root")
+                   "nmt_combine_level", "rfc6962_root")
 SHARDS = 8  # row shards of the kernels' checks and times at k = 128
 # the sleep a timed run is queued behind (~50 ms at 1.98 GHz): longer than
 # the host takes to issue its calls
 QUEUE_SLEEP_CYCLES = 100_000_000
 # SHA-256 blocks of the one message whose time per block prices one
-# compression's latency (the dependency floor of K3 and K4)
+# compression fed from L2 (K1's dependency floor)
 CHAIN_BLOCKS = 1025
 SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
@@ -220,7 +222,7 @@ def sharded_launches_per_call(k: int, R: int, groups: int = 1) -> dict:
     the row-tree levels and one for all the column-subtree levels (none at
     k/R = 1, a subtree of one leaf); per group one K3 launch for the
     log2(2R) finishing levels (once: the group's shards share the device),
-    K1 and K4."""
+    and one K4 launch from the axis roots (no K1)."""
     from celestia_tpu_torch import kernels
 
     shards = groups * R
@@ -228,20 +230,20 @@ def sharded_launches_per_call(k: int, R: int, groups: int = 1) -> dict:
     counts.update(rs_extend=shards, rs_col_parity_partial=shards, xor_reduce_slabs=shards,
                   nmt_leaf_digests=2 * shards,
                   nmt_combine_level=shards * (1 + (k // R > 1)) + groups,
-                  sha256_batch=groups, rfc6962_root=groups)
+                  rfc6962_root=groups)
     return counts
 
 
 def block_launches(calls: int, batched: bool = False) -> dict:
     """The launches of ``calls`` extensions of one square (or, ``batched``,
     of one batch of squares) through the plane: K5 (or K5b) twice, then K2,
-    one K3 launch for every level of the 4k trees, K1 and K4 once each."""
+    one K3 launch for every level of the 4k trees, and one K4 launch from
+    the 4k axis roots to the data root (no K1)."""
     from celestia_tpu_torch import kernels
 
     counts = {name: 0 for name in kernels.KERNELS}
     counts.update({"rs_extend_batched" if batched else "rs_extend": 2 * calls},
-                  nmt_leaf_digests=calls, nmt_combine_level=calls, sha256_batch=calls,
-                  rfc6962_root=calls)
+                  nmt_leaf_digests=calls, nmt_combine_level=calls, rfc6962_root=calls)
     return counts
 
 
@@ -249,6 +251,41 @@ def bit_gemm_ops(rows: int, depth: int, cols: int) -> int:
     """int8 operations of a GF(2) bit-GEMM: G (rows x depth) times the
     inputs' bit planes (depth x cols), a multiply and an add each."""
     return 2 * rows * depth * cols
+
+
+def kernel_sass_mix(kernel: str) -> dict:
+    """Opcode counts of the built library's SASS for the kernel whose mangled
+    name holds ``kernel`` (``cuobjdump -sass``, beside nvcc): how its rounds
+    compile (SHF / LOP3 / IADD3), how many loads it holds and whether any
+    spill (LDL / STL), and its longest runs of instructions with no load
+    between them (in code order, with their SHF counts): a run that holds
+    the rounds of two compressions took every message word from registers."""
+    import os
+    import re
+    from collections import Counter
+
+    from celestia_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(kernels.build())], capture_output=True, text=True,
+                          check=True).stdout
+    for func in re.split(r"\n\s*Function : ", sass):
+        if kernel in func.split("\n", 1)[0]:
+            code = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", func)
+            ops = Counter(code)
+            runs, length, shf = [], 0, 0
+            for op in code + ["LDS"]:
+                if op in ("LDS", "LDG", "LDL", "LD", "LDSM"):
+                    runs.append({"instructions": length, "SHF": shf})
+                    length, shf = 0, 0
+                else:
+                    length, shf = length + 1, shf + (op == "SHF")
+            runs.sort(key=lambda r: -r["instructions"])
+            return {"instructions": sum(ops.values()),
+                    **{op: ops[op] for op in ("SHF", "LOP3", "IADD3", "PRMT", "LDS", "STS", "LDG",
+                                              "STG", "LDL", "STL", "BAR")},
+                    "longest_load_free_runs": runs[:3]}
+    raise AssertionError(f"no kernel {kernel} in the built library's SASS")
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -368,18 +405,32 @@ def main() -> int:
     k = 128
     n2 = 2 * k
 
+    # K4 from the leaves (the data root's 4k axis roots of 90 bytes, one tree
+    # and a batch of 8) and over given leaf hashes, at every k
+    for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+        roots8 = upload(rng.integers(0, 256, (8, 4 * kk, 90), dtype=np.uint8))
+        compare("rfc6962_root", nmt.rfc6962_levels(roots8[0]), nmt.rfc6962_levels_plain(roots8[0]),
+                f"from {4 * kk} leaves")
+        compare("rfc6962_root", nmt.rfc6962_levels(roots8), nmt.rfc6962_levels_plain(roots8),
+                f"a batch of 8 trees of {4 * kk} leaves")
+        hashes8 = nmt.rfc6962_leaf_hashes_plain(roots8)
+        compare("rfc6962_root", nmt.rfc6962_tree_levels(hashes8),
+                nmt.rfc6962_tree_levels_plain(hashes8), f"over 8 x {4 * kk} given hashes")
+    del roots8, hashes8
     rand_roots = upload(rng.integers(0, 256, (4 * k, 90), dtype=np.uint8))
     leaf_hashes = nmt.rfc6962_leaf_hashes(rand_roots)
     compare("sha256_batch", leaf_hashes, nmt.rfc6962_leaf_hashes_plain(rand_roots),
             "RFC-6962 leaf hashes of 512 roots")
-    data_root = nmt.rfc6962_tree(leaf_hashes)
+    data_root = nmt.rfc6962_root_pow2(rand_roots)
     compare("rfc6962_root", data_root, nmt.rfc6962_tree_plain(leaf_hashes), "512 leaves")
     host_root = nmt.rfc6962_root_np(list(rand_roots.cpu().numpy()))
     check(data_root.cpu().numpy().tobytes() == host_root.tobytes(),
           "rfc6962_root != rfc6962_root_np (hashlib)")
-    root_tree = nmt.rfc6962_tree_levels(leaf_hashes)
+    root_tree = nmt.rfc6962_levels(rand_roots)
     compare("rfc6962_root", root_tree, nmt.rfc6962_tree_levels_plain(leaf_hashes),
             "levels output, 512 leaves")
+    compare("rfc6962_root", nmt.rfc6962_tree_levels(leaf_hashes), root_tree,
+            "over the 512 given hashes")
     for got, want in zip(nmt.rfc6962_level_stack(rand_roots),
                          nmt.rfc6962_level_stack_plain(rand_roots)):
         compare("rfc6962_root", got, want, f"rfc6962_level_stack level of {want.shape[0]}")
@@ -429,10 +480,13 @@ def main() -> int:
         return np.stack([np.sort(rng.permutation(2 * kk)[:kk]) for _ in range(n)]).astype(np.uint8)
 
     for codec in gf256.CODECS:
-        for kk in (4, 32, 128):
-            known = upload(known_sets(kk, 2 * kk))
-            compare("rs_decode_matrices", rs.decode_matrices_cuda(known, kk, codec),
-                    rs._decode_matrices_dev(known, kk, codec), f"k={kk} codec={codec}")
+        for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+            # 2k axes (one a block), and 300 (several a block at small k)
+            for n_ax in (2 * kk, 300):
+                known = upload(known_sets(kk, n_ax))
+                compare("rs_decode_matrices", rs.decode_matrices_cuda(known, kk, codec),
+                        rs._decode_matrices_dev(known, kk, codec),
+                        f"k={kk}, {n_ax} axes, codec={codec}")
         for kk in (1, 2, 4, 8, 16, 32, 64, 128):
             n_ax = min(2 * kk, kk + 3)
             known_np = known_sets(kk, n_ax)
@@ -509,8 +563,8 @@ def main() -> int:
     print("kernels: byte-equal to their plain versions "
           f"(K5 and K8b at k=1..128 x {len(gf256.CODECS)} codecs, the row pass, K9a and K3's "
           "column subtrees and finish at k/R = 8/8, 32/4, 128/8 x both codecs, K2 and every K3 "
-          "level at k=1..128, K4 at n=512, K8a at k=4/32/128, K8c/K5b and batched K2/K3 at "
-          "k=32)")
+          "level at k=1..128, K4 from the leaves at n=4k for k=1..128 (one tree, a batch of 8, "
+          "given hashes), K8a at k=1..128 x both codecs, K8c/K5b and batched K2/K3 at k=32)")
 
     # times at the main path's k = 128 shapes (per block)
     codec = gf256.active_codec()
@@ -635,12 +689,15 @@ def main() -> int:
             bound(n2 * n2 * 90 + parents * 90,
                   parents * compressions(181) * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
         ),
+        # the main path's data root: the 4k axis roots (90 bytes) read once, every
+        # level written once; 4k leaf hashes and 4k - 1 inner nodes
         "rfc6962_root": (
-            lambda: nmt.rfc6962_tree_levels(leaf_hashes),
-            lambda: nmt.rfc6962_tree_levels_plain(leaf_hashes),
+            lambda: nmt.rfc6962_levels(rand_roots),
+            lambda: nmt.rfc6962_levels_plain(rand_roots),
             None,
-            bound(4 * k * 32 + (8 * k - 1) * 32,
-                  (4 * k - 1) * compressions(65) * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
+            bound(4 * k * 90 + (8 * k - 1) * 32,
+                  (4 * k * compressions(91) + (4 * k - 1) * compressions(65))
+                  * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S),
         ),
         "rs_extend": (
             lambda: rs.extend_cuda(sq, codec),
@@ -719,47 +776,88 @@ def main() -> int:
               f"bound {b_ms:.4f} ms ({b_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
     # the launch sequences' bounds, the sums of their kernels' at these
-    # shapes: K6/K7a's extension of one k = 128 square (K5, K2, K3, K1 on the
-    # 4k roots, K4), and K9's over R = 8 shards (the row passes -- Q0 read,
-    # Q0 | Q1 written --, K9a, K9b, K2 and K3 over the shards, K1 + K4)
+    # shapes: K6/K7a's extension of one k = 128 square (K5, K2, K3, K4 from
+    # the 4k roots), and K9's over R = 8 shards (the row passes -- Q0 read,
+    # Q0 | Q1 written --, K9a, K9b, K2 and K3 over the shards, K4)
     row_pass_ms, _ = bound(k * k * 512 + k * n2 * 512, 0, INT32_OPS_PER_S)
     seq_bounds = {
         "K6/K7a extend_and_header k=128": sum(perf[n]["bound_ms"] for n in (
-            "rs_extend", "nmt_leaf_digests", "nmt_combine_level", "sha256_batch", "rfc6962_root")),
+            "rs_extend", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root")),
         f"K9 extend_and_header_sharded k=128 R={R9}": row_pass_ms + sum(perf[n]["bound_ms"] for n in (
             "rs_col_parity_partial", "xor_reduce_slabs", "nmt_leaf_digests", "nmt_combine_level",
-            "sha256_batch", "rfc6962_root")),
+            "rfc6962_root")),
     }
     results["sequence_bounds_ms"] = seq_bounds
     for name, b_ms in seq_bounds.items():
         print(f"{name}: bound {b_ms:.4f} ms (the sum of its kernels' bounds) | {smi}")
-    # the tree kernels' dependency floor: their levels run one after another,
-    # each a chain of compressions (K3: log2(2k) levels of one 181-byte node,
-    # 3 compressions; K4: log2(4k) levels of one 65-byte node, 2), at one
-    # compression's latency: K1 on one message of CHAIN_BLOCKS blocks less K1
+    # K4's per-level latency in the kernel: the slope of its GPU time at batch
+    # 1 over n = 2..1024 leaves (log2 n + 1 levels of 2 compressions, words in
+    # registers), a least-squares line through the 10 points, and over the
+    # levels warp 0 runs alone (n = 2..32).  Half the latter is one
+    # compression's latency in the kernel, the yardstick of the tree kernels'
+    # dependency floors below (an upper estimate: a level also syncs the warp
+    # and stores its nodes).
+    tree_ms = {}
+    for lg in range(1, 11):
+        leaves = upload(rng.integers(0, 256, (1 << lg, 90), dtype=np.uint8))
+        tree_ms[lg] = statistics.median(
+            time_ms(lambda: nmt.rfc6962_levels(leaves), reps=16, queued=True) for _ in range(3))
+    slope_all = float(np.polyfit(list(tree_ms), list(tree_ms.values()), 1)[0])
+    slope_warp = float(np.polyfit(range(1, 6), [tree_ms[lg] for lg in range(1, 6)], 1)[0])
+    compression_ms = slope_warp / 2
+    # K1's time per block on one message of CHAIN_BLOCKS blocks less its time
     # on one of 1 block, over the blocks between them (the launch and the
-    # message's first load and digest store cancel), queued behind a sleep
-    # so the card runs them back to back.  A block's message words come from
-    # L2, not shared memory, so this is an upper estimate.
+    # message's first load and digest store cancel), queued behind a sleep so
+    # the card runs them back to back: a compression whose block's words come
+    # from L2.  K1's own floor on the main path's 512 independent 2-block
+    # messages: one launch (K1 on one 1-block message) and one more block.
     chain = {}
     for blocks in (1, CHAIN_BLOCKS):
         msg = upload(rng.integers(0, 256, (1, 64 * blocks - 9), dtype=np.uint8))
         chain[blocks] = statistics.median(
             time_ms(lambda: sha256_cuda(msg), reps=16, queued=True) for _ in range(5))
-    compression_ms = (chain[CHAIN_BLOCKS] - chain[1]) / (CHAIN_BLOCKS - 1)
-    results["dependency_floor"] = {"k1_one_block_ms": chain[1],
+    k1_compression_ms = (chain[CHAIN_BLOCKS] - chain[1]) / (CHAIN_BLOCKS - 1)
+    k1_floor_ms = chain[1] + k1_compression_ms
+    results["rfc6962_root_level_latency"] = {
+        "gpu_ms_by_leaves": {1 << lg: v for lg, v in tree_ms.items()},
+        "ms_per_level": slope_all, "ms_per_level_warp_levels": slope_warp,
+        "compression_ms": compression_ms, "per_compression_all_levels_ms": slope_all / 2,
+        "k1_compression_ms": k1_compression_ms}
+    print("rfc6962_root GPU time at batch 1 by leaves: "
+          + ", ".join(f"{1 << lg} {v:.4f}" for lg, v in tree_ms.items())
+          + f" ms; slope {slope_warp * 1e3:.4f} us a level over n = 2..32 (warp 0 alone: "
+          f"{compression_ms * 1e3:.4f} us a compression), {slope_all * 1e3:.4f} us a level over "
+          f"n = 2..1024 ({slope_all * 5e2:.4f} us a compression); K1 on one message of "
+          f"{CHAIN_BLOCKS} blocks {chain[CHAIN_BLOCKS]:.4f} ms less one of 1 block "
+          f"{chain[1]:.4f} ms, over {CHAIN_BLOCKS - 1} blocks: {k1_compression_ms * 1e3:.4f} us "
+          f"a compression from L2 | {smi}")
+    results["dependency_floor"] = {"compression_ms": compression_ms,
+                                   "k1_compression_ms": k1_compression_ms,
+                                   "k1_one_block_ms": chain[1],
                                    f"k1_{CHAIN_BLOCKS}_blocks_ms": chain[CHAIN_BLOCKS],
-                                   "compression_ms": compression_ms}
+                                   "sha256_batch": k1_floor_ms}
+    print(f"sha256_batch: dependency floor {k1_floor_ms:.4f} ms (one launch, K1 on a 1-block "
+          f"message {chain[1]:.4f} ms, + one block at K1's {k1_compression_ms * 1e3:.4f} us); "
+          f"GPU time {perf['sha256_batch']['gpu_ms']:.4f} ms, bound "
+          f"{perf['sha256_batch']['bound_ms']:.6f} ms ({perf['sha256_batch']['bound_by']}) | {smi}")
+    # the tree kernels' dependency floor: their levels run one after another,
+    # each a chain of compressions (K3: log2(2k) levels of one 181-byte node,
+    # 3 compressions; K4: the leaf level and log2(4k) inner levels, 2 each),
+    # at the in-kernel compression latency; the same chain at K1's L2-fed
+    # latency printed beside it
     for name, levels_, per_level in (("nmt_combine_level", n2.bit_length() - 1, compressions(181)),
-                                     ("rfc6962_root", (4 * k).bit_length() - 1, compressions(65))):
+                                     ("rfc6962_root", (4 * k).bit_length(), compressions(65))):
         floor_ms = levels_ * per_level * compression_ms
         results["dependency_floor"][name] = floor_ms
         print(f"{name}: dependency floor {floor_ms:.4f} ms ({levels_} levels x {per_level} "
-              f"compressions at {compression_ms * 1e3:.4f} us each: K1 on one message of "
-              f"{CHAIN_BLOCKS} blocks {chain[CHAIN_BLOCKS]:.4f} ms less one of 1 block "
-              f"{chain[1]:.4f} ms, over {CHAIN_BLOCKS - 1} blocks, queued); GPU time "
-              f"{perf[name]['gpu_ms']:.4f} ms, as issued {perf[name]['ms']:.4f} ms, bound "
+              f"compressions at {compression_ms * 1e3:.4f} us each, in K4); GPU time "
+              f"{perf[name]['gpu_ms']:.4f} ms = {perf[name]['gpu_ms'] / floor_ms:.2f}x it, as "
+              f"issued {perf[name]['ms']:.4f} ms; at K1's L2-fed latency the chain takes "
+              f"{levels_ * per_level * k1_compression_ms:.4f} ms; bound "
               f"{perf[name]['bound_ms']:.6f} ms ({perf[name]['bound_by']}) | {smi}")
+    sass = kernel_sass_mix("rfc6962_tree_kernel")
+    results["rfc6962_root_sass"] = sass
+    print(f"rfc6962_root SASS (cuobjdump -sass of the built library): {sass}")
     # the bit-GEMM kernels against the tensor-core floor of their form: K5 the
     # three quadrants' 8k x 8k GEMMs over k axes of 512 bytes, K5b 8 squares of
     # it, K8b the 25 % mask's 2k rows (8k unknown bit rows, 8k deep each), K9a

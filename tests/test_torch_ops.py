@@ -230,7 +230,7 @@ def test_eds_nmt_roots_batched_matches_jax_vmap(k):
 
 @pytest.mark.parametrize("codec_pair", gf256.CODECS, indirect=True)
 def test_catch_up_data_roots_match_jax(codec_pair):
-    """dah.data_roots_batched (K5b, batched K2/K3, K1 + K4 per block)
+    """dah.data_roots_batched (K5b, batched K2/K3, one K4 launch for the batch)
     against the JAX DAH of each block."""
     from celestia_tpu.da import dah as jdah
     from celestia_tpu_torch.da import dah

@@ -59,8 +59,8 @@ def twin(tmp_path_factory):
     t.twin_sha256_batch.argtypes = [_P, _P, LL, I, I]
     t.twin_nmt_leaf_digests.argtypes = [_P, _P, I]
     t.twin_nmt_combine_level.argtypes = [_P, _P, LL, I, LL, LL, LL, LL, LL]
-    t.twin_rfc6962_root.argtypes = [_P, _P, I, I]
-    t.twin_rfc6962_levels.argtypes = [_P, _P, I, I]
+    t.twin_rfc6962_root.argtypes = [_P, _P, I, I, I, I]
+    t.twin_rfc6962_levels.argtypes = [_P, _P, I, I, I, I]
     t.twin_rs_extend.argtypes = [_P, _P, _P, _P, _P, I]
     t.twin_das_proof_gather.argtypes = [_P, I, _P, I, _P]
     t.twin_nmt_leaf_digests_batched.argtypes = [_P, _P, I, I]
@@ -68,6 +68,7 @@ def twin(tmp_path_factory):
     t.twin_nmt_reduce_levels.argtypes = [_P, _P, LL, I, I, LL, LL, LL, LL, LL, LL, LL]
     t.twin_rs_extend_batched.argtypes = [_P, _P, _P, _P, _P, I, I]
     t.twin_rs_decode_matrices.argtypes = [_P, _P, _P, _P, I, I, I]
+    t.twin_rs_decode_matrices_grouped.argtypes = [_P, _P, _P, _P, I, I, I, I]
     t.twin_rs_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
     t.twin_rs_decode_axes_grouped.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I, I]
     t.twin_rs_repair_verdicts.argtypes = [_P, _P, _P, _P, _P, _P, I]
@@ -140,39 +141,83 @@ def test_twin_nmt_leaf_and_levels(twin, k):
     )
 
 
+def _aligned(a: np.ndarray, align: int = 16) -> np.ndarray:
+    """A copy of ``a`` whose data starts on an ``align``-byte boundary."""
+    buf = np.zeros(a.nbytes + align, dtype=np.uint8)
+    off = (-buf.ctypes.data) % align
+    out = buf[off : off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
 @pytest.mark.parametrize("n", [1, 2, 4, 8, 512, 1024])
 def test_twin_rfc6962_root(twin, n):
+    """K4's blocks, leaves to root in one launch (the leaf pass, 1,024
+    leaves in two staging passes), and over given leaf hashes: the host
+    tree's root."""
     rng = np.random.default_rng(n)
     roots = rng.integers(0, 256, (n, 90), dtype=np.uint8)
-    hashes = np.zeros((n, 32), dtype=np.uint8)
-    twin.twin_sha256_batch(_ptr(roots), _ptr(hashes), n, 90, 0)
+    want = nmt.rfc6962_root_np(list(roots)).tobytes()
     out = np.zeros((1, 32), dtype=np.uint8)
-    twin.twin_rfc6962_root(_ptr(hashes), _ptr(out), 1, n)
-    assert out[0].tobytes() == nmt.rfc6962_root_np(list(roots)).tobytes()
-    assert out[0].tobytes() == nmt.rfc6962_tree(torch.from_numpy(hashes)).numpy().tobytes()
-
-
-@pytest.mark.parametrize("n", [4, 64, 512])
-def test_twin_rfc6962_levels_match_plain_and_jax(twin, n):
-    rng = np.random.default_rng(600 + n)
-    roots = rng.integers(0, 256, (n, 90), dtype=np.uint8)
+    assert twin.twin_rfc6962_root(_ptr(roots), _ptr(out), 1, n, 90, 1) == 0
+    assert out[0].tobytes() == want
     hashes = np.zeros((n, 32), dtype=np.uint8)
     twin.twin_sha256_batch(_ptr(roots), _ptr(hashes), n, 90, 0)
-    levels = np.zeros((2 * n - 1, 32), dtype=np.uint8)
-    twin.twin_rfc6962_levels(_ptr(hashes), _ptr(levels), 1, n)
-    plain = nmt.rfc6962_level_stack_plain(torch.from_numpy(roots))
-    np.testing.assert_array_equal(levels, torch.cat(plain).numpy())
-    np.testing.assert_array_equal(levels, nmt.rfc6962_tree_levels(torch.from_numpy(hashes)).numpy())
-    assert levels[-1].tobytes() == nmt.rfc6962_root_np(list(roots)).tobytes()
+    out[:] = 0
+    assert twin.twin_rfc6962_root(_ptr(hashes), _ptr(out), 1, n, 32, 0) == 0
+    assert out[0].tobytes() == want
+    assert out[0].tobytes() == nmt.rfc6962_tree(torch.from_numpy(hashes)).numpy().tobytes()
+    # what the C entry refuses: an odd start, no trees, an empty leaf, given
+    # hashes of another width, a tree that is not a power of two or above
+    # 1,024 leaves, an output off a 16-byte boundary
+    levels = _aligned(np.zeros((1, 2 * n - 1, 32), dtype=np.uint8))
+    for args in [(_ptr(roots) + 1, _ptr(levels), 1, n, 90, 1), (_ptr(roots), _ptr(levels), 0, n, 90, 1),
+                 (_ptr(roots), _ptr(levels), 1, n, 0, 1), (_ptr(roots), _ptr(levels), 1, n, 90, 0),
+                 (_ptr(roots), _ptr(levels), 1, 3 * n, 90, 1), (_ptr(roots), _ptr(levels), 1, 2048, 90, 1),
+                 (_ptr(roots), _ptr(levels) + 8, 1, n, 90, 1)]:
+        assert twin.twin_rfc6962_levels(*args) == 1, args
+
+
+# (n, L, batch): the data root's n = 4k axis roots of 90 bytes, other leaf
+# lengths, and batches of trees; the first three keep their old ids
+_K4_CASES = [(4, 90, 1), (64, 90, 1), (512, 90, 1), (1, 90, 1), (2, 90, 1), (8, 90, 1),
+             (8, 32, 3), (64, 200, 3), (512, 32, 1), (2, 200, 1), (1, 32, 3)]
+
+
+@pytest.mark.parametrize(
+    "n,L,batch", _K4_CASES,
+    ids=[str(n) if (L, b) == (90, 1) else f"{n}-L{L}-b{b}" for n, L, b in _K4_CASES])
+def test_twin_rfc6962_levels_match_plain_and_jax(twin, n, L, batch):
+    """K4's blocks from the leaves (leaf pass) and over given hashes (the
+    same kernel without it): every level, packed, byte-equal to JAX's
+    ``rfc6962_level_stack`` and to the plain twins; the leaves also start 2
+    bytes past a 16-byte boundary (the staging's aligned cover)."""
+    rng = np.random.default_rng(600 + n + L + batch)
+    roots = rng.integers(0, 256, (batch, n, L), dtype=np.uint8)
     # the JAX reference, compiled at LLVM optimisation level 0 (same bytes)
     run = jax.jit(jnmt.rfc6962_level_stack).lower(roots).compile(
         compiler_options={"xla_backend_optimization_level": 0}
     )
     want = [np.asarray(lv) for lv in run(roots)]
+    plain = torch.cat(nmt.rfc6962_level_stack_plain(torch.from_numpy(roots)), dim=-2).numpy()
+    np.testing.assert_array_equal(plain, np.concatenate(want, axis=-2))
+    for skew in (0, 2):
+        buf = _aligned(np.zeros(roots.nbytes + skew, dtype=np.uint8))
+        buf[skew:] = roots.reshape(-1)
+        levels = _aligned(np.full((batch, 2 * n - 1, 32), 0xA5, dtype=np.uint8))
+        assert twin.twin_rfc6962_levels(buf.ctypes.data + skew, _ptr(levels), batch, n, L, 1) == 0
+        np.testing.assert_array_equal(levels, plain, err_msg=f"leaf pass, skew {skew}")
     got = nmt.split_tree_levels(torch.from_numpy(levels))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
+    # over the given leaf hashes: the same levels
+    hashes = _aligned(want[0])
+    tree = _aligned(np.zeros((batch, 2 * n - 1, 32), dtype=np.uint8))
+    assert twin.twin_rfc6962_levels(_ptr(hashes), _ptr(tree), batch, n, 32, 0) == 0
+    np.testing.assert_array_equal(tree, plain)
+    np.testing.assert_array_equal(tree, nmt.rfc6962_tree_levels(torch.from_numpy(hashes)).numpy())
+    assert levels[0, -1].tobytes() == nmt.rfc6962_root_np(list(roots[0])).tobytes()
 
 
 def _random_entry(rng, k: int) -> device_plane.DevicePlaneEntry:
@@ -293,20 +338,35 @@ def test_twin_nmt_batched_levels_match_plain(twin):
 
 
 @pytest.mark.parametrize("codec", gf256.CODECS)
-@pytest.mark.parametrize("k", [2, 8, 128])
+@pytest.mark.parametrize("k", [2, 8, 128, 1, 4, 16, 32, 64])
 def test_twin_rs_decode_matrices_matches_plain(twin, codec, k):
+    """K8a's blocks (tables and points staged, the sums by groups of 4
+    lanes, D by runs of min(16, k) bytes) against the plain twin and JAX's
+    ``_decode_matrices_dev``: every known position is also a destination,
+    so every axis has one-hot rows; one axis has a repeated point (the raw
+    log[0] rule of the denominators); one block of one axis each, as the C
+    entry picks at these n, and blocks of 2 and of 128 / k axes."""
     rng = np.random.default_rng(810 + k)
     n = 5
     known = np.stack([rng.permutation(2 * k)[:k] for _ in range(n)]).astype(np.uint8)
     known[0] = np.arange(k)  # the first k positions, as fraud detection asks
+    if k > 1:
+        known[1, 1] = known[1, 0]  # two points coincide
     gexp, glog = _tables(codec)
-    D = np.zeros((n, 2 * k, k), dtype=np.uint8)
     xor_const = k if codec == gf256.CODEC_LEOPARD else 0
+    want = rs._decode_matrices_dev(torch.from_numpy(known), k, codec).numpy()
+    np.testing.assert_array_equal(
+        want, np.asarray(jrs._decode_matrices_dev(jrs.jnp.asarray(known), k, codec)))
+    D = _aligned(np.zeros((n, 2 * k, k), dtype=np.uint8))
     twin.twin_rs_decode_matrices(_ptr(known), _ptr(D), _ptr(gexp), _ptr(glog), n, k, xor_const)
-    np.testing.assert_array_equal(D, rs._decode_matrices_dev(torch.from_numpy(known), k, codec).numpy())
-    if k <= 8:
-        want = np.asarray(jrs._decode_matrices_dev(jrs.jnp.asarray(known), k, codec))
-        np.testing.assert_array_equal(D, want)
+    np.testing.assert_array_equal(D, want)
+    for apb in sorted({2, 128 // k} - {1}):
+        D[:] = 0
+        rc = twin.twin_rs_decode_matrices_grouped(_ptr(known), _ptr(D), _ptr(gexp), _ptr(glog),
+                                                  n, k, xor_const, apb)
+        assert rc == (0 if apb * k <= 128 else 1)
+        if rc == 0:
+            np.testing.assert_array_equal(D, want, err_msg=f"{apb} axes a block")
 
 
 @pytest.mark.parametrize("codec", gf256.CODECS)
@@ -542,7 +602,8 @@ def test_twin_col_parity_partial_matches_jax(twin, codec, k, R):
 _TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
             "ctt_rfc6962_root": "twin_rfc6962_levels"}
 # twins that return the C entry's verdict on its arguments (0: launched)
-_CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_reduce_levels")
+_CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_reduce_levels", "twin_rfc6962_levels",
+                  "twin_rs_decode_matrices")
 
 
 def _route_launches_to_twin(monkeypatch, twin) -> dict:
@@ -611,12 +672,13 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     # one launch per shard of the row pass, K9a and K9b, two K2 windows per
     # shard, K3: one launch for every row-tree level and one for every
     # column-subtree level per shard (none at k/R = 1), then one for the
-    # log2(2R) finishing levels on the one device; K1 + K4
+    # log2(2R) finishing levels on the one device; one K4 launch from the
+    # axis roots (no K1)
     assert launched == {
         "rs_extend": R, "rs_col_parity_partial": R, "xor_reduce_slabs": R,
         "nmt_leaf_digests": 2 * R,
         "nmt_combine_level": R * (1 + (k // R > 1)) + 1,
-        "sha256_batch": 1, "rfc6962_root": 1,
+        "rfc6962_root": 1,
     }
 
 
@@ -802,11 +864,12 @@ def test_twin_k3_refuses_what_it_cannot_take(twin):
 
 @pytest.mark.parametrize("k", [1, 2, 8])
 def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
-    """The wrappers' CUDA branches on the twin: K7a's levels (one K2 and
-    one K3 launch, the levels views of one packed buffer, the plane
-    entry's bytes exact), the catch-up roots of a batch, a proof's row
-    level stack and the one-level functions, against JAX and the plain
-    path."""
+    """The wrappers' CUDA branches on the twin: K7a's levels (one K2, one
+    K3 and one K4 launch, the levels views of one packed buffer, the plane
+    entry's bytes exact), the data root's wrappers (one K4 launch each,
+    from the leaves or over given hashes, a batch of trees), the catch-up
+    roots of a batch, a proof's row level stack and the one-level
+    functions, against JAX and the plain path."""
     rng = np.random.default_rng(1800 + k)
     eds = _random_eds(rng, k)
     n2 = 2 * k
@@ -815,7 +878,7 @@ def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
     launched = _route_launches_to_twin(monkeypatch, twin)
     sq = torch.from_numpy(eds[:k, :k].copy())
     _, grid, levels, tree = device_plane._extend_levels(sq)
-    assert launched["nmt_leaf_digests"] == 1 and launched["nmt_combine_level"] == 1
+    assert launched == {"nmt_leaf_digests": 1, "nmt_combine_level": 1, "rfc6962_root": 1}
     np.testing.assert_array_equal(grid.numpy(), want[0][0])
     base = levels[0].untyped_storage().data_ptr()
     for j, (lv, w, p) in enumerate(zip(levels, want[1:], plain[2]), 1):
@@ -826,6 +889,21 @@ def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
     entry = device_plane.DevicePlaneEntry(k, bytes(32), torch.from_numpy(eds), grid, levels, tree)
     assert entry.nbytes == eds.nbytes + grid.numel() + levels[0].untyped_storage().nbytes() \
         + tree.numel()
+    # the data root's wrappers: one K4 launch each, no K1
+    launched.clear()
+    roots = torch.from_numpy(rng.integers(0, 256, (3, 4 * k, _D), dtype=np.uint8))
+    plain_tree = nmt.rfc6962_levels_plain(roots)
+    np.testing.assert_array_equal(nmt.rfc6962_levels(roots).numpy(), plain_tree.numpy())
+    np.testing.assert_array_equal(nmt.rfc6962_root_pow2(roots).numpy(), plain_tree[:, -1].numpy())
+    for g, w in zip(nmt.rfc6962_level_stack(roots), nmt.rfc6962_level_stack_plain(roots)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    hashes = nmt.rfc6962_leaf_hashes_plain(roots)
+    np.testing.assert_array_equal(nmt.rfc6962_tree_levels(hashes).numpy(), plain_tree.numpy())
+    assert launched == {"rfc6962_root": 4}
+    flat = torch.zeros(4 * k * _D + 1, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="odd address"):
+        nmt.rfc6962_levels(flat[1:].view(4 * k, _D))
+    assert launched == {"rfc6962_root": 4}
     # catch-up: a batch of 2 EDSs, one K2 and one K3 launch
     launched.clear()
     batch = np.stack([eds, _random_eds(rng, k)])
