@@ -262,16 +262,58 @@ int twin_rfc6962_root(const uint8_t* in, uint8_t* out, int batch, int n, int L, 
   return 0;
 }
 
-// srcs: n_srcs x 4 int64 (base pointer, row stride, item stride, width), as
-// ctt_das_proof_gather takes them; one "lane" per item.
-void twin_das_proof_gather(const long long* srcs, int n_srcs, const int32_t* items, int n_items,
-                           uint8_t* out) {
+std::vector<ctt::GatherSrc> twin_sources(const long long* srcs, int n_srcs) {
   std::vector<ctt::GatherSrc> table(static_cast<size_t>(n_srcs));
   for (int i = 0; i < n_srcs; ++i)
     table[i] = ctt::GatherSrc{reinterpret_cast<const uint8_t*>(uintptr_t(srcs[4 * i])),
                               uint64_t(srcs[4 * i + 1]), uint32_t(srcs[4 * i + 2]),
                               uint32_t(srcs[4 * i + 3])};
-  for (int i = 0; i < n_items; ++i) ctt::das_gather_body(table.data(), items, out, i, 0, 1);
+  return table;
+}
+
+// srcs: n_srcs x 4 int64 (base pointer, row stride, item stride, width), as
+// ctt_das_proof_gather takes them; the 32 lanes of each item's warp.
+int twin_das_proof_gather(const long long* srcs, int n_srcs, const int32_t* items, int n_items,
+                          uint8_t* out) {
+  if (n_srcs < 1 || n_srcs > int(ctt::kMaxGatherSrcs) || n_items < 1 ||
+      (reinterpret_cast<uintptr_t>(out) & 15u))
+    return 1;
+  const std::vector<ctt::GatherSrc> table = twin_sources(srcs, n_srcs);
+  for (int i = 0; i < n_items; ++i)
+    for (uint32_t lane = 0; lane < 32; ++lane)
+      ctt::das_gather_body(table.data(), items, out, uint32_t(i), lane, 32);
+  return 0;
+}
+
+// The cell mode, as ctt_das_cell_gather launches it: the threads of each
+// cell (ctt::cell_lanes).  Returns 0, or 1 where the C entry refuses.
+int twin_das_cell_gather(const long long* srcs, int n_srcs, int n_sib, int sib0, int n_aunt,
+                         int aunt0, int share, const int32_t* cells, int n_cells, uint8_t* out) {
+  if (n_srcs < 1 || n_srcs > int(ctt::kMaxGatherSrcs) || n_cells < 1 || n_sib < 1 || n_sib > 16 ||
+      n_aunt < 1 || n_aunt > 17 || sib0 < 0 || sib0 + n_sib > n_srcs || aunt0 < 0 ||
+      aunt0 + n_aunt > n_srcs || share < 0 || share >= n_srcs ||
+      (reinterpret_cast<uintptr_t>(out) & 15u))
+    return 1;
+  const std::vector<ctt::GatherSrc> table = twin_sources(srcs, n_srcs);
+  const ctt::CellArgs a = ctt::cell_args(n_sib, sib0, n_aunt, aunt0, share);
+  const uint32_t lanes = ctt::cell_lanes(a);
+  for (int c = 0; c < n_cells; ++c) {
+    const int32_t* t = cells + 3 * c;
+    for (uint32_t lane = 0; lane < lanes; ++lane)
+      ctt::das_cell_word(a, table.data(), uint32_t(t[0]), uint32_t(t[1]), uint32_t(t[2]),
+                         out + size_t(c) * 16 * a.words, lane);
+  }
+  return 0;
+}
+
+// The (level, node) of each of column c's n_sib siblings as the cell mode
+// derives them: int32[n_sib, 2].
+void twin_das_cell_siblings(int c, int n_sib, int32_t* out) {
+  for (int j = 0; j < n_sib; ++j) {
+    const uint32_t l = ctt::cell_sibling_level(uint32_t(c), uint32_t(n_sib), uint32_t(j));
+    out[2 * j] = int32_t(l);
+    out[2 * j + 1] = int32_t((uint32_t(c) >> l) ^ 1u);
+  }
 }
 
 // squares uint8[n, k, k, 512] -> eds uint8[n, 2k, 2k, 512] in the order of
@@ -316,10 +358,41 @@ void twin_rs_col_parity_partial(const uint8_t* top, uint8_t* partial, const uint
               uint32_t(n), n_in * row, k * row);
 }
 
-// K9b: every thread of ctt_xor_reduce_slabs.
-void twin_xor_reduce_slabs(const uint8_t* staged, uint8_t* out, int R, long long nbytes) {
-  const uint64_t n_words = uint64_t(nbytes) / 16;
-  for (uint64_t w = 0; w < n_words; ++w) ctt::xor_reduce_body(staged, out, uint32_t(R), n_words, w);
+// K9b: every thread of ctt_xor_reduce_scatter's grid (destination, batch,
+// word).  Returns 0, or 1 where the C entry refuses.
+int twin_xor_reduce_scatter(const long long* peers, int R, const long long* dsts,
+                            const long long* offs, int n_dst, long long slab_bytes, int nb,
+                            long long bstride) {
+  using namespace ctt;
+  if (R < 1 || R > int(kXorMaxShards) || (R & (R - 1)) || n_dst < 1 ||
+      n_dst > int(kXorMaxShards) || nb < 1 || nb > 65535 || slab_bytes < 0 || bstride < 0 ||
+      ((slab_bytes | bstride) & 15))
+    return 1;
+  XorSlabs a = {};
+  uint64_t bad = 0;
+  for (int j = 0; j < R; ++j) {
+    a.peer[j] = reinterpret_cast<const uint8_t*>(uintptr_t(peers[j]));
+    bad |= uint64_t(peers[j]);
+  }
+  for (int i = 0; i < n_dst; ++i) {
+    a.dst[i] = reinterpret_cast<uint8_t*>(uintptr_t(dsts[i]));
+    a.off[i] = uint64_t(offs[i]);
+    bad |= uint64_t(dsts[i]) | a.off[i];
+  }
+  if (bad & 15u) return 1;
+  a.bstride = uint64_t(bstride);
+  const uint64_t words = uint64_t(slab_bytes) / 16;
+  for (uint32_t i = 0; i < uint32_t(n_dst); ++i)
+    for (uint64_t b = 0; b < uint64_t(nb); ++b)
+      for (uint64_t w = 0; w < words; ++w) {
+        switch (R) {
+          case 1: xor_reduce_word<1>(a, i, b, words, w); break;
+          case 2: xor_reduce_word<2>(a, i, b, words, w); break;
+          case 4: xor_reduce_word<4>(a, i, b, words, w); break;
+          default: xor_reduce_word<8>(a, i, b, words, w); break;
+        }
+      }
+  return 0;
 }
 
 // K8a as ctt_rs_decode_matrices launches it: the blocks of `apb` axes one

@@ -100,6 +100,15 @@ CTT_HD void st32(uint8_t* p, uint32_t v) {
 #endif
 }
 
+// 16 bytes, as one vector load or store on the card (K7b, K9b).
+#ifdef __CUDACC__
+using Word16 = uint4;
+#else
+struct alignas(16) Word16 {
+  uint32_t x, y, z, w;
+};
+#endif
+
 CTT_HD void st16(uint8_t* p, uint32_t v) {
 #ifdef __CUDA_ARCH__
   *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(v);

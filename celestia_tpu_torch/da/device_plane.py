@@ -13,10 +13,11 @@ over the 4k axis roots:
 Only the 4k axis roots and the 32-byte data root cross to the host (one
 copy), to build the DAH.  The tensors ride a :class:`DevicePlaneEntry`
 parked in da/eds_cache.py under the data root, so DAS serving finds the
-block warm: :func:`sample_proofs_batch` works out every proof-path index
-on the host, and one launch of K7b ``das_proof_gather`` copies the
-siblings, root aunts and shares into one buffer that the host fetches
-with one copy -- never a re-hash.  Proofs are byte-identical to the host
+block warm: :func:`sample_proofs_batch` sends each cell's (row, tree_row,
+col) to the card, and one launch of K7b ``das_proof_gather`` (its cell
+mode) derives every proof-path item there and copies the shares, root
+aunts and siblings into one buffer that the host fetches with one copy --
+never a re-hash.  Proofs are byte-identical to the host
 prover (da/das.py ``_sample_proof_uncached``).
 
 The port runs the plane on every device (``device="cpu"`` runs the plain
@@ -250,40 +251,71 @@ def _node_table(n: int, n_levels: int) -> np.ndarray:
     return np.array([_cell_node_indices(n, c, n_levels) for c in range(n)], dtype=np.int64)
 
 
-def _cell_layout(k: int) -> Tuple[int, int, int]:
-    """(siblings, aunts, bytes) of one cell's proof path in the gather output:
-    the siblings' digests, then the aunts' hashes, then the share."""
+def _cell_layout(k: int) -> gather.CellLayout:
+    """Where a cell's items lie among sources laid out as
+    :meth:`DevicePlaneEntry.gather_sources` (the log2(2k) + 1 NMT levels,
+    the log2(4k) + 1 root-tree levels, the EDS), and its record in the
+    gather output: the share, the aunts' hashes, the siblings' digests,
+    zeros up to a multiple of 16 bytes."""
     siblings = (2 * k).bit_length() - 1
     aunts = (4 * k).bit_length() - 1
-    return siblings, aunts, siblings * DIGEST + aunts * HASH + SHARE
+    return gather.CellLayout(siblings, 0, aunts, siblings + 1, siblings + aunts + 2)
 
 
 def proof_items(k: int, coords: Sequence[Tuple[int, int]], tree_rows=None) -> np.ndarray:
-    """K7b's index table for ``coords``: int32[n * (siblings + aunts + 1),
-    4] of (source, row, idx, output offset), cell i's items at offsets
-    i * cell_bytes onwards, over sources laid out as
-    :meth:`DevicePlaneEntry.gather_sources` (the NMT levels, the root-tree
-    levels, the EDS).  ``tree_rows[i]`` is the row of cell i's tree in the
-    NMT sources (default: its EDS row).  Host integer arithmetic only."""
+    """The host derivation of the cell mode's items, for its plain version
+    and the tests: int32[n * (1 + aunts + siblings), 4] of (source, row,
+    idx, output offset), cell i's record at i * cell_bytes onwards
+    (:func:`_cell_layout`), over sources laid out as
+    :meth:`DevicePlaneEntry.gather_sources`.  ``tree_rows[i]`` is the row of
+    cell i's tree in the NMT sources (default: its EDS row).  The siblings
+    come from the range-proof walk (:func:`_cell_node_indices`), not the
+    kernel's bit rule.  Host integer arithmetic only."""
     n2 = 2 * k
-    L = n2.bit_length()  # NMT levels, leaves to root
-    siblings, aunts, cell = _cell_layout(k)
+    lay = _cell_layout(k)
     rows = np.fromiter((r for r, _ in coords), dtype=np.int64, count=len(coords))
     cols = np.fromiter((c for _, c in coords), dtype=np.int64, count=len(coords))
     trees = rows if tree_rows is None else np.asarray(tree_rows, dtype=np.int64)
-    base = np.arange(len(coords), dtype=np.int64)[:, None] * cell
-    nodes = _node_table(n2, L)[cols]  # (n, siblings, 2)
-    j = np.arange(aunts, dtype=np.int64)[None, :]
+    base = np.arange(len(coords), dtype=np.int64)[:, None] * lay.cell_bytes
+    nodes = _node_table(n2, lay.n_sib + 1)[cols]  # (n, siblings, 2)
+    j = np.arange(lay.n_aunt, dtype=np.int64)[None, :]
     shape = (len(coords), 1)
     items = np.concatenate([
-        np.stack([nodes[..., 0], np.broadcast_to(trees[:, None], nodes.shape[:2]), nodes[..., 1],
-                  base + DIGEST * np.arange(siblings)], axis=-1),
-        np.stack(np.broadcast_arrays(L + j, 0 * j, (rows[:, None] >> j) ^ 1,
-                                     base + siblings * DIGEST + HASH * j), axis=-1),
-        np.stack([np.full(shape, L + aunts + 1), rows[:, None], cols[:, None],
-                  base + siblings * DIGEST + aunts * HASH], axis=-1),
+        np.stack([np.full(shape, lay.share), rows[:, None], cols[:, None], base], axis=-1),
+        np.stack(np.broadcast_arrays(lay.aunt0 + j, 0 * j, (rows[:, None] >> j) ^ 1,
+                                     base + lay.aunts_at + HASH * j), axis=-1),
+        np.stack([lay.sib0 + nodes[..., 0], np.broadcast_to(trees[:, None], nodes.shape[:2]),
+                  nodes[..., 1], base + lay.siblings_at + DIGEST * np.arange(lay.n_sib)], axis=-1),
     ], axis=1)
     return np.ascontiguousarray(items.reshape(-1, 4), dtype=np.int32)
+
+
+def cell_table(coords: Sequence[Tuple[int, int]], tree_rows=None) -> np.ndarray:
+    """The cell mode's int32[n, 3] of (row, tree_row, col); ``tree_rows``
+    as :func:`proof_items` takes it."""
+    cells = np.array([(r, r, c) for r, c in coords], dtype=np.int64).reshape(-1, 3)
+    if tree_rows is not None:
+        cells[:, 1] = np.asarray(tree_rows, dtype=np.int64)
+    if len(cells) and (cells.min() < -(1 << 31) or cells.max() >= 1 << 31):
+        raise ValueError("a cell coordinate outside int32")
+    return cells.astype(np.int32)
+
+
+def gather_cells(k: int, sources, coords: Sequence[Tuple[int, int]],
+                 tree_rows=None) -> torch.Tensor:
+    """The proof paths of ``coords`` (records of :func:`_cell_layout`) on
+    the sources' device: on the card only the (row, tree_row, col)
+    triples go up and K7b's cell mode derives every item
+    (``gather.das_cell_gather_cuda``); on the CPU the plain version gathers
+    :func:`proof_items`.  Raises on a cell outside the EDS or the NMT
+    sources."""
+    lay = _cell_layout(k)
+    cells = cell_table(coords, tree_rows)
+    if not gather._is_cpu(sources[0].tensor):
+        return gather.das_cell_gather_cuda(sources, lay, cells)
+    gather.check_cells(sources, lay, cells)
+    return gather.das_proof_gather_plain(sources, proof_items(k, coords, tree_rows),
+                                         len(coords) * lay.cell_bytes)
 
 
 def assemble_proofs(k: int, dah, coords, gathered: np.ndarray) -> list:
@@ -291,9 +323,8 @@ def assemble_proofs(k: int, dah, coords, gathered: np.ndarray) -> list:
     from celestia_tpu_torch.da.das import SampleProof
     from celestia_tpu_torch.da.proof import MerkleProof, NmtRangeProof
 
-    siblings, aunts, cell = _cell_layout(k)
-    a0 = siblings * DIGEST
-    s0 = a0 + aunts * HASH
+    lay = _cell_layout(k)
+    a0, s0, cell = lay.aunts_at, lay.siblings_at, lay.cell_bytes
     raw = gathered.tobytes()
     out = []
     for i, (row, col) in enumerate(coords):
@@ -303,15 +334,16 @@ def assemble_proofs(k: int, dah, coords, gathered: np.ndarray) -> list:
                 row=row,
                 col=col,
                 square_size=k,
-                share=b[s0:],
+                share=b[:SHARE],
                 nmt_proof=NmtRangeProof(
-                    col, col + 1, tuple(b[j * DIGEST : (j + 1) * DIGEST] for j in range(siblings))
+                    col, col + 1,
+                    tuple(b[s0 + j * DIGEST : s0 + (j + 1) * DIGEST] for j in range(lay.n_sib)),
                 ),
                 row_root=dah.row_roots[row],
                 root_proof=MerkleProof(
                     index=row,
                     total=4 * k,
-                    aunts=tuple(b[a0 + j * HASH : a0 + (j + 1) * HASH] for j in range(aunts)),
+                    aunts=tuple(b[a0 + j * HASH : a0 + (j + 1) * HASH] for j in range(lay.n_aunt)),
                 ),
             )
         )
@@ -319,17 +351,16 @@ def assemble_proofs(k: int, dah, coords, gathered: np.ndarray) -> list:
 
 
 def _serve(k: int, dah, coords, sources, tree_rows=None) -> list:
-    items = proof_items(k, coords, tree_rows)
-    out = gather.das_proof_gather(sources, items, len(coords) * _cell_layout(k)[2])
+    out = gather_cells(k, sources, coords, tree_rows)
     return assemble_proofs(k, dah, coords, out.cpu().numpy())
 
 
 def sample_proofs_batch(entry: DevicePlaneEntry, dah, coords: Sequence[Tuple[int, int]]) -> list:
-    """Serve n DAS proofs from a cached entry: the proof-path indices are
-    host arithmetic (:func:`proof_items`), one K7b launch gathers every
-    sibling, aunt and share on the entry's device, and one copy fetches
-    them.  Byte-identical to the host prover.  Raises on a malformed entry
-    or a failed launch; nothing falls back."""
+    """Serve n DAS proofs from a cached entry: on the card the cells'
+    (row, tree_row, col) triples go up, one K7b launch derives and gathers
+    every share, aunt and sibling on the entry's device, and one copy
+    fetches them.  Byte-identical to the host prover.  Raises on a
+    malformed entry or a failed launch; nothing falls back."""
     return _serve(entry.k, dah, coords, entry.gather_sources())
 
 

@@ -187,8 +187,21 @@ def row_range_proofs(
     levels = nmt_ops.nmt_level_stack(nmt_ops.row_leaves(block, row_ids))
     L = len(levels)
     sources = device_plane.nmt_sources(levels) + [device_plane.eds_source(block)]
+    aunts = (2 * n2).bit_length() - 1 if dah is not None else 0  # log2(4k)
+    if aunts:
+        sources += device_plane.root_sources(device_plane.root_tree(dah, block.device))
+    # the shares, then the aunts, then the digests: the shares and the
+    # hashes start on 16-byte boundaries, which K7b copies as 16-byte words
     items: List[Tuple[int, int, int, int]] = []
     off = 0
+    for i, (c0, c1) in enumerate(share_ranges):
+        for c in range(c0, c1):
+            items.append((L, i, c, off))
+            off += SHARE_SIZE
+    for row in rows if aunts else ():
+        for j in range(aunts):
+            items.append((L + 1 + j, 0, (row >> j) ^ 1, off))
+            off += 32
     node_counts = []
     for i, (start, end) in enumerate(ranges):
         nodes = range_node_indices(n2, start, end, L)
@@ -196,26 +209,9 @@ def row_range_proofs(
         for level, idx in nodes:
             items.append((level, i, idx, off))
             off += nmt_ops.NMT_DIGEST_SIZE
-    for i, (c0, c1) in enumerate(share_ranges):
-        for c in range(c0, c1):
-            items.append((L, i, c, off))
-            off += SHARE_SIZE
-    aunts = (2 * n2).bit_length() - 1 if dah is not None else 0  # log2(4k)
-    if aunts:
-        sources += device_plane.root_sources(device_plane.root_tree(dah, block.device))
-        for row in rows:
-            for j in range(aunts):
-                items.append((L + 1 + j, 0, (row >> j) ^ 1, off))
-                off += 32
     table = np.array(items, dtype=np.int32).reshape(-1, 4)
     raw = gather.das_proof_gather(sources, table, off).cpu().numpy().tobytes()
     d, pos = nmt_ops.NMT_DIGEST_SIZE, 0
-    proofs = []
-    for (start, end), count in zip(ranges, node_counts):
-        proofs.append(NmtRangeProof(
-            start, end, tuple(raw[pos + j * d : pos + (j + 1) * d] for j in range(count))
-        ))
-        pos += count * d
     shares = []
     for c0, c1 in share_ranges:
         shares.append(tuple(
@@ -228,6 +224,12 @@ def row_range_proofs(
             row, 2 * n2, tuple(raw[pos + j * 32 : pos + (j + 1) * 32] for j in range(aunts))
         ))
         pos += aunts * 32
+    proofs = []
+    for (start, end), count in zip(ranges, node_counts):
+        proofs.append(NmtRangeProof(
+            start, end, tuple(raw[pos + j * d : pos + (j + 1) * d] for j in range(count))
+        ))
+        pos += count * d
     return proofs, shares, root_proofs
 
 

@@ -53,7 +53,9 @@ _SIGNATURES = {
     "ctt_rs_repair_verdicts": (_P, _P, _P, _P, _P, _P, _I, _P),
     "ctt_rs_extend_rows": (_P, _P, _P, _P, _P, _I, _I, _P),
     "ctt_rs_col_parity_partial": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "ctt_xor_reduce_slabs": (_P, _P, _I, _LL, _P),
+    "ctt_xor_reduce_scatter": (_P, _I, _P, _P, _I, _LL, _I, _LL, _P),
+    "ctt_das_cell_gather": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P),
+    "ctt_dependent_load_probe": (_P, _P, _I, _P),
 }
 
 # kernel name -> C entry; the names chip_smoke.py and PERF.md report
@@ -69,7 +71,7 @@ KERNELS = {
     "rs_decode_axes": "ctt_rs_decode_axes",
     "rs_repair_verdicts": "ctt_rs_repair_verdicts",
     "rs_col_parity_partial": "ctt_rs_col_parity_partial",
-    "xor_reduce_slabs": "ctt_xor_reduce_slabs",
+    "xor_reduce_slabs": "ctt_xor_reduce_scatter",
 }
 
 _lock = threading.Lock()
@@ -155,17 +157,24 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def call(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` followed by the current
+    stream of ``device``; raise on a CUDA error.  Counts nothing: use it
+    alone only for a measurement probe, never for a kernel of a path."""
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA entry {entry} failed to launch: cudaError {rc}")
+
+
 def launch(kernel: str, device: torch.device, *args, launches: int = 1,
            entry: Optional[str] = None) -> None:
     """Call ``kernel``'s C entry (or ``entry``, another entry launching the
     same kernel, e.g. K5's row pass ``ctt_rs_extend_rows``) with ``args``
     followed by the current stream of ``device``; count ``launches`` kernel
     launches of ``kernel``; raise on a CUDA error."""
-    fn = getattr(library(), entry or KERNELS[kernel])
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError {rc}")
+    call(entry or KERNELS[kernel], device, *args)
     with _lock:
         _launches[kernel] += launches
 

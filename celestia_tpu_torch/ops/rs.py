@@ -28,7 +28,8 @@ Both give the same bytes: G is E lifted bit by bit (gf256.py
 (parallel/sharded.py, K9) runs K5's row pass on a shard's rows
 (:func:`extend_rows`), its column-parity partial (K9a
 ``rs_col_parity_partial``, :func:`col_parity_partial`) and the XOR of the
-staged partials (K9b ``xor_reduce_slabs``, :func:`xor_reduce_slabs`).  The repair half (``rsmt2d.Repair``,
+partials' slabs, read where they lie (K9b ``xor_reduce_slabs``,
+:func:`xor_reduce_scatter`).  The repair half (``rsmt2d.Repair``,
 :func:`repair_square_device`) peels the availability mask on the host
 (:func:`_simulate_schedule`, bools only), then on the square's device
 builds every Lagrange decode matrix in one launch (K8a
@@ -42,9 +43,11 @@ lift (:func:`_bit_expand_dev`).
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 from functools import lru_cache
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -250,7 +253,7 @@ def extend_squares_batched(squares: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # The sharded extension's pieces (parallel/sharded.py, K9): K5's row pass
 # over a shard's rows, the shard's column-parity partial (K9a
-# ``rs_col_parity_partial``) and the XOR of the staged slabs (K9b
+# ``rs_col_parity_partial``) and the XOR of the partials' slabs (K9b
 # ``xor_reduce_slabs``).  The plain versions keep the JAX package's forms
 # (celestia_tpu/parallel/sharded.py:60-95).
 # ---------------------------------------------------------------------------
@@ -400,35 +403,87 @@ def xor_reduce_slabs_plain(staged: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def xor_reduce_slabs_cuda(staged: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
-    """Launch K9b ``xor_reduce_slabs``: the XOR of the R slabs of ``staged``
-    uint8[R, ...] on the card, into ``out`` (contiguous, 16-byte aligned)
-    when given."""
-    kernels.check_cuda_tensor(staged, "staged")
-    if staged.dim() < 2 or not staged.shape[0]:
-        raise ValueError(f"staged must be [R >= 1, ...], got {tuple(staged.shape)}")
-    shape = tuple(staged.shape[1:])
-    if out is None:
-        out = torch.empty(shape, dtype=torch.uint8, device=staged.device)
-    kernels.check_cuda_tensor(out, "out", shape)
-    if out.device != staged.device:
-        raise ValueError(f"out is on {out.device}, staged on {staged.device}")
-    nbytes = out.numel()
-    if nbytes % 16 or staged.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("K9b moves 16-byte words: slab size and both addresses must be multiples of 16")
-    if nbytes:
-        kernels.launch("xor_reduce_slabs", staged.device, staged.data_ptr(), out.data_ptr(),
-                       staged.shape[0], nbytes)
-    return out
+# K9b's shard counts (a template parameter of the kernel each) and its most
+# destinations a launch (csrc/rs_sharded.cuh kXorMaxShards)
+XOR_SHARDS = (1, 2, 4, 8)
+_XOR_MAX_DSTS = 8
 
 
-def xor_reduce_slabs(staged: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
-    """The XOR of the R slabs of ``staged`` uint8[R, ...] (into ``out`` when
-    given): K9b on a CUDA tensor, the plain version on a CPU tensor."""
-    if staged.device.type == "cpu":
-        red = xor_reduce_slabs_plain(staged)
-        return red if out is None else out.copy_(red)
-    return xor_reduce_slabs_cuda(staged, out)
+def _check_partials(partials: Sequence[torch.Tensor], axis: int):
+    """Raise unless the partials are R equal uint8 tensors on one device
+    whose ``axis`` splits into R slabs; return (slab shape, slab length)."""
+    R = len(partials)
+    if not R:
+        raise ValueError("a reduce-scatter needs at least one partial")
+    shape = tuple(partials[0].shape)
+    for p in partials:
+        if tuple(p.shape) != shape or p.dtype != torch.uint8 or p.device != partials[0].device:
+            raise ValueError(f"partials disagree: uint8{shape} on {partials[0].device} against "
+                             f"{p.dtype}{tuple(p.shape)} on {p.device}")
+    if not 0 <= axis < len(shape) or shape[axis] % R:
+        raise ValueError(f"axis {axis} of {shape} does not split over {R} shards")
+    m = shape[axis] // R
+    return shape[:axis] + (m,) + shape[axis + 1:], m
+
+
+def xor_reduce_scatter_plain(partials: Sequence[torch.Tensor], dests: Sequence[int],
+                             outs: Sequence[torch.Tensor], axis: int) -> None:
+    """Plain twin of K9b's reduce-scatter: ``outs[i]`` = the XOR of slab
+    ``dests[i]`` (along ``axis``) of every partial, by
+    :func:`xor_reduce_slabs_plain`."""
+    _, m = _check_partials(partials, axis)
+    for d, out in zip(dests, outs):
+        out.copy_(xor_reduce_slabs_plain(torch.stack([p.narrow(axis, d * m, m) for p in partials])))
+
+
+def xor_reduce_scatter_cuda(partials: Sequence[torch.Tensor], dests: Sequence[int],
+                            outs: Sequence[torch.Tensor], axis: int) -> None:
+    """Launch K9b once: ``outs[i]`` (contiguous) = the XOR of slab
+    ``dests[i]`` along ``axis`` of the R contiguous ``partials``, read in
+    place (their base pointers, the slabs' offsets and the batch stride by
+    value).  R in :data:`XOR_SHARDS`, at most 8 outputs, everything on one
+    card and 16-byte aligned; anything else raises."""
+    R, n_dst = len(partials), len(outs)
+    if R not in XOR_SHARDS:
+        raise ValueError(f"K9b reduces R in {XOR_SHARDS} shards, got {R}")
+    if not 1 <= n_dst <= _XOR_MAX_DSTS or len(dests) != n_dst:
+        raise ValueError(f"K9b takes 1..{_XOR_MAX_DSTS} destinations, each with its slab")
+    slab_shape, m = _check_partials(partials, axis)
+    for i, p in enumerate(partials):
+        kernels.check_cuda_tensor(p, f"partial {i}")
+    for i, out in enumerate(outs):
+        kernels.check_cuda_tensor(out, f"out {i}", slab_shape)
+        if out.device != partials[0].device:
+            raise ValueError(f"out {i} is on {out.device}, the partials on {partials[0].device}")
+    if not all(0 <= d < R for d in dests):
+        raise ValueError(f"destination slabs {list(dests)} outside 0..{R - 1}")
+    shape = partials[0].shape
+    nb = int(np.prod(shape[:axis], dtype=np.int64))
+    post = int(np.prod(shape[axis + 1:], dtype=np.int64))
+    slab_bytes, bstride = m * post, shape[axis] * post
+    peers = np.array([p.data_ptr() for p in partials], dtype=np.int64)
+    dsts = np.array([o.data_ptr() for o in outs], dtype=np.int64)
+    offs = np.array(dests, dtype=np.int64) * slab_bytes
+    if nb > 65535:
+        raise ValueError(f"K9b takes at most 65535 batches, got {nb}")
+    if slab_bytes % 16 or np.any(peers % 16) or np.any(dsts % 16):
+        raise ValueError("K9b moves 16-byte words: slabs and addresses must be multiples of "
+                         "16 bytes")
+    if slab_bytes and nb:
+        kernels.launch("xor_reduce_slabs", outs[0].device, peers.ctypes.data_as(ctypes.c_void_p),
+                       R, dsts.ctypes.data_as(ctypes.c_void_p),
+                       offs.ctypes.data_as(ctypes.c_void_p), n_dst, slab_bytes, nb, bstride)
+
+
+def xor_reduce_scatter(partials: Sequence[torch.Tensor], dests: Sequence[int],
+                       outs: Sequence[torch.Tensor], axis: int) -> None:
+    """``outs[i]`` = the XOR of slab ``dests[i]`` (along ``axis``) of every
+    partial: K9b (one launch for all the destinations, the partials read in
+    place) on CUDA tensors, the plain version on CPU tensors."""
+    if partials[0].device.type == "cpu":
+        xor_reduce_scatter_plain(partials, dests, outs, axis)
+    else:
+        xor_reduce_scatter_cuda(partials, dests, outs, axis)
 
 
 # ---------------------------------------------------------------------------

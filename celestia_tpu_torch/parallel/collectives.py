@@ -15,7 +15,9 @@ order) and returns the per-shard results.  A collective is a set of
   with no host round trip;
 * shards that share a device (a mesh with repeated devices, how one card
   runs an R-shard mesh) share its current stream, so their copies and
-  launches run in the order they were enqueued.
+  launches run in the order they were enqueued;
+* the reduce-scatter copies nothing between shards of one device: its
+  kernel reads their partials in place.
 
 Shards on one device get one result, shared between them: the values every
 shard would hold are the same, so they are gathered once per device.
@@ -23,11 +25,15 @@ shard would hold are the same, so they are gathered once per device.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence
 
 import torch
 
 from celestia_tpu_torch.ops import rs
+
+_lock = threading.Lock()
+_staged = [0]  # bytes reduce_scatter_xor copied between devices
 
 
 def _check_parts(parts: Sequence[torch.Tensor]) -> None:
@@ -76,28 +82,58 @@ def all_gather(parts: Sequence[torch.Tensor], axis: int = 0,
     return [by_device[p.device] for p in parts]
 
 
+def staged_bytes() -> int:
+    """Bytes :func:`reduce_scatter_xor` has copied between devices since the
+    last :func:`reset_staged_bytes` (0 on a mesh of one device)."""
+    with _lock:
+        return _staged[0]
+
+
+def reset_staged_bytes() -> None:
+    with _lock:
+        _staged[0] = 0
+
+
 def reduce_scatter_xor(partials: Sequence[torch.Tensor], axis: int = 0,
                        outs: Sequence[torch.Tensor] = None) -> List[torch.Tensor]:
     """``psum_scatter(...) & 1`` of packed bit planes: shard d gets slab d
-    (along ``axis``) of the XOR of every shard's partial.
+    (along ``axis``) of the XOR of every shard's partial, into ``outs[d]``
+    when given.
 
-    Shard d stages slab d of every peer's partial, one after another, in
-    a uint8[R, ...] buffer on its own device (peer-to-peer copies where the
-    devices differ), then K9b ``xor_reduce_slabs`` XORs them, into
-    ``outs[d]`` when given.  The packed partials move 1/8 of the bytes of
-    JAX's 0/1 bit planes and 1/32 of an int32 sum of them."""
+    One K9b launch per device (``rs.xor_reduce_scatter``) serves every
+    destination shard on it, reading each peer's partial in place when the
+    peer lies on that device.  A peer on another device first has its slabs
+    for this device's shards copied over (peer to peer, into a buffer laid
+    out as the partial; counted by :func:`staged_bytes`): the transport
+    between cards.  On a mesh that repeats one device nothing is copied.
+    The packed partials move 1/8 of the bytes of JAX's 0/1 bit planes and
+    1/32 of an int32 sum of them."""
     _check_parts(partials)
     R = len(partials)
     size = partials[0].shape[axis]
     if size % R:
         raise ValueError(f"axis {axis} of length {size} does not split over {R} shards")
     m = size // R
-    results = []
+    slab_shape = list(partials[0].shape)
+    slab_shape[axis] = m
+    results: List[torch.Tensor] = [None] * R
+    by_device = {}
     for d, mine in enumerate(partials):
-        slab_shape = list(mine.shape)
-        slab_shape[axis] = m
-        staged = torch.empty([R] + slab_shape, dtype=mine.dtype, device=mine.device)
-        for j, peer in enumerate(partials):
-            staged[j].copy_(peer.narrow(axis, d * m, m), non_blocking=True)
-        results.append(rs.xor_reduce_slabs(staged, None if outs is None else outs[d]))
+        by_device.setdefault(mine.device, []).append(d)
+    for device, dests in by_device.items():
+        peers = []
+        for peer in partials:
+            if peer.device != device:
+                staged = torch.empty(peer.shape, dtype=peer.dtype, device=device)
+                for d in dests:
+                    staged.narrow(axis, d * m, m).copy_(peer.narrow(axis, d * m, m),
+                                                        non_blocking=True)
+                with _lock:
+                    _staged[0] += len(dests) * peer.numel() // R * peer.element_size()
+                peer = staged
+            peers.append(peer)
+        for d in dests:
+            results[d] = (torch.empty(slab_shape, dtype=partials[d].dtype, device=device)
+                          if outs is None else outs[d])
+        rs.xor_reduce_scatter(peers, dests, [results[d] for d in dests], axis)
     return results

@@ -20,8 +20,9 @@ squares of data group g, and computes, in order:
 2. its column-parity partial (K9a ``rs_col_parity_partial``;
    sharded.py:78-87);
 3. the reduce-scatter of the partials into its parity rows: slab d of every
-   shard's partial staged on it, XORed by K9b ``xor_reduce_slabs``
-   (``collectives.reduce_scatter_xor``; sharded.py:89-97);
+   shard's partial, XORed by K9b ``xor_reduce_slabs`` where it lies (one
+   launch per group and device; only a peer on another card has its slab
+   copied over; ``collectives.reduce_scatter_xor``; sharded.py:89-97);
 4. the leaf digests of its 2 x k/R x 2k cells, each hashed once (K2 over
    its top rows from EDS row d k/R and its bottom rows from k + d k/R;
    sharded.py:99-114), its k/R x 2 row trees and, per column, the two

@@ -10,9 +10,12 @@ Phases (any failure raises and the script exits non-zero):
 2. every CUDA kernel against its plain PyTorch twin on the card, at the
    main path's shapes, byte for byte (K4 from the leaves at n = 4k for k =
    1..128, at batch 8 and over given hashes; K8a at k = 1..128 for both
-   codecs and the 25 % mask's 256 axes; K7b ``das_proof_gather`` on 1,024 cells of a k = 128 block, K9a
-   and K9b on every shard of a k = 128 square over 8 shards, K2 on their
-   row windows); K2 and every level of K3 (one launch) at every k =
+   codecs and the 25 % mask's 256 axes; K7b ``das_proof_gather`` in its
+   cell mode and its table mode on 1,024 cells at every k = 1..128 (the
+   corners, each cell's tree its own row and another row), K9a and K9b
+   (in place, one launch) on every shard of a k = 128 square over 8
+   shards, K2 on their row windows, K9b in place at k = 64, 128 x R = 1,
+   2, 4, 8 over batches of 2); K2 and every level of K3 (one launch) at every k =
    1..128, on the 8-EDS catch-up batch and a 5-row level stack, and K3's
    column subtrees and finishing levels of K9 at k/R = 8/8, 32/4, 128/8;
    the tensor-core bit-GEMM kernels K5 and K8b at every k = 1..128 and K5's
@@ -24,7 +27,9 @@ Phases (any failure raises and the script exits non-zero):
    alone: half of it is one compression's latency in the kernel), and K3's
    and K4's dependency floor (their levels' chain of compressions at that
    latency), beside the same chain at K1's time per block on one long
-   message (a compression fed from L2); the SASS opcode mix of K4;
+   message (a compression fed from L2); the SASS opcode mix of K4; K7b's
+   table mode beside its cell mode, and its latency floor (the GPU time of
+   a launch with one load its store waits on, and of an empty launch);
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
    points on the card;
 4. the extension path: seeded BlobTx streams, proposer ``square.build`` ->
@@ -35,7 +40,8 @@ Phases (any failure raises and the script exits non-zero):
    exactly 5 a block (K5 2, K2, K3, K4 one each);
 4b. the serving path on the same 8 blocks, each extended through the plane
    on the card: 64 seeded light clients x 16 samples as one
-   ``das.sample_proofs_batch`` of 1,024 cells served by the K7b gather,
+   ``das.sample_proofs_batch`` of 1,024 cells served by the K7b gather
+   (cell mode: only the cells' (row, tree_row, col) go to the card),
    every proof verified against the data root; namespace data for every
    blob namespace and a share proof for every blob, equal to the plain
    path's; the same cells after the card's entry is dropped, served from
@@ -44,7 +50,9 @@ Phases (any failure raises and the script exits non-zero):
    plain path's EDS, all with equal bytes.  Serving a block on the card
    must make no host-prover call and no whole-EDS fetch.  Each path's
    launch counts are reset just before it and read just after; each kernel
-   of the path must be > 0;
+   of the path must be > 0.  The warm k = 128 calls again, phase by phase
+   (index build, upload, gather, fetch, assembly), in the cell mode and in
+   the table mode over the same cells;
 4c. repair (``rs.repair_square_device``, BASELINE config 4) of the same
    blocks' EDSs on the card at k = 64 and 128, with the DAH's roots and
    ``return_device=True``, under three masks: 25 % of cells withheld at
@@ -69,8 +77,9 @@ Phases (any failure raises and the script exits non-zero):
    k = 64 and 128, the 8 seeded blocks at R = 4 and the catch-up batch of 8
    on a 2 x 4 mesh: every EDS and DAH equal to ``extend_and_header``'s on
    the card and to the golden hash; each call's launches exactly those of
-   its shards (counts set to 0 just before it and read just after, the
-   single-device references computed outside);
+   its shards (K9b once a group; counts set to 0 just before it and read
+   just after, the single-device references computed outside) and no byte
+   staged by its reduce-scatter;
    with two cards or more, a mesh over distinct cards too.  Medians of 5
    warm calls per (k, R), wall and phases (row pass, K9a, reduce-scatter,
    hashing, gathers, finish);
@@ -218,16 +227,18 @@ def deep_peel_mask(k: int) -> np.ndarray:
 def sharded_launches_per_call(k: int, R: int, groups: int = 1) -> dict:
     """The launches of one sharded extension on a mesh that repeats one card,
     ``groups`` data groups of R row shards (parallel/sharded.py): per shard
-    K5's row pass, K9a, K9b and two K2 windows, and one K3 launch for all
-    the row-tree levels and one for all the column-subtree levels (none at
-    k/R = 1, a subtree of one leaf); per group one K3 launch for the
-    log2(2R) finishing levels (once: the group's shards share the device),
-    and one K4 launch from the axis roots (no K1)."""
+    K5's row pass, K9a and two K2 windows, and one K3 launch for all the
+    row-tree levels and one for all the column-subtree levels (none at k/R
+    = 1, a subtree of one leaf); per group one K9b launch for all its
+    shards' reduce-scatter (the group's shards share the device, whose
+    kernel reads their partials in place), one K3 launch for the log2(2R)
+    finishing levels (once, for the same reason), and one K4 launch from
+    the axis roots (no K1)."""
     from celestia_tpu_torch import kernels
 
     shards = groups * R
     counts = {name: 0 for name in kernels.KERNELS}
-    counts.update(rs_extend=shards, rs_col_parity_partial=shards, xor_reduce_slabs=shards,
+    counts.update(rs_extend=shards, rs_col_parity_partial=shards, xor_reduce_slabs=groups,
                   nmt_leaf_digests=2 * shards,
                   nmt_combine_level=shards * (1 + (k // R > 1)) + groups,
                   rfc6962_root=groups)
@@ -437,19 +448,48 @@ def main() -> int:
     check(root_tree[-1].cpu().numpy().tobytes() == host_root.tobytes(),
           "rfc6962_root levels output: root != rfc6962_root_np (hashlib)")
 
-    # K7b on a k = 128 block's plane entry, 1,024 cells (edges included)
+    # K7b in both modes against the plain gather over the host's item table
+    # (device_plane.proof_items), at every k: 1,024 cells with the four
+    # corners, each cell's tree its own row, then another row of the block
+    def das_cells(kk: int):
+        nk = 2 * kk
+        return [(0, 0), (0, nk - 1), (nk - 1, 0), (nk - 1, nk - 1)] + [
+            (int(r), int(c)) for r, c in rng.integers(0, nk, (CLIENTS * SAMPLES - 4, 2))]
+
+    for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+        sq_k = upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8))
+        entry_k = device_plane.DevicePlaneEntry(kk, bytes(32), *device_plane._extend_levels(sq_k))
+        cells_k = das_cells(kk)
+        srcs_k = entry_k.gather_sources()
+        nbytes_k = len(cells_k) * device_plane._cell_layout(kk).cell_bytes
+        for trees in (None, rng.integers(0, 2 * kk, len(cells_k)).tolist()):
+            items_k = device_plane.proof_items(kk, cells_k, trees)
+            want = gather.das_proof_gather_plain(srcs_k, items_k, nbytes_k)
+            what = f"1,024 cells at k={kk}, {'other' if trees else 'own'} tree rows"
+            compare("das_proof_gather", device_plane.gather_cells(kk, srcs_k, cells_k, trees),
+                    want, f"cell mode, {what}")
+            compare("das_proof_gather", gather.das_proof_gather(srcs_k, items_k, nbytes_k), want,
+                    f"table mode, {what}")
+    del sq_k, entry_k, srcs_k, want
+    print("K7b das_proof_gather: the cell mode and the table mode byte-equal to the plain "
+          "gather at k=1..128 (1,024 cells, corners, own and other tree rows)")
+    # the main path's shapes: a k = 128 block's plane entry, 1,024 cells
     eds_k, grid_k, levels_k, tree_k = device_plane._extend_levels(sq)
     entry = device_plane.DevicePlaneEntry(k, bytes(32), eds_k, grid_k, levels_k, tree_k)
-    cells = [(0, 0), (0, n2 - 1), (n2 - 1, 0), (n2 - 1, n2 - 1)] + [
-        (int(r), int(c)) for r, c in rng.integers(0, n2, (CLIENTS * SAMPLES - 4, 2))
-    ]
+    cells = das_cells(k)
     g_sources = entry.gather_sources()
+    g_layout = device_plane._cell_layout(k)
+    g_cells = device_plane.cell_table(cells)
     g_items = device_plane.proof_items(k, cells)
-    g_bytes = len(cells) * device_plane._cell_layout(k)[2]
-    compare("das_proof_gather", gather.das_proof_gather(g_sources, g_items, g_bytes),
-            gather.das_proof_gather_plain(g_sources, g_items, g_bytes), "1,024 cells at k=128")
+    g_bytes = len(cells) * g_layout.cell_bytes
+    g_cells_dev = torch.from_numpy(g_cells).to(dev)
     g_items_dev = torch.from_numpy(g_items).to(dev)
     g_out = torch.empty(g_bytes, dtype=torch.uint8, device=dev)
+    g_want = gather.das_proof_gather_plain(g_sources, g_items, g_bytes)
+    gather.launch_cells(g_sources, g_layout, g_cells_dev, g_out)
+    compare("das_proof_gather", g_out, g_want, "cell mode, 1,024 cells at k=128 (timed call)")
+    gather.launch_gather(g_sources, g_items_dev, g_out)
+    compare("das_proof_gather", g_out, g_want, "table mode, 1,024 cells at k=128 (timed call)")
     # library yardstick: one torch.index_select per source, each gathering its
     # items as rows of a 2D view of the source
     lib_select = []
@@ -465,8 +505,9 @@ def main() -> int:
     def library_gather():
         return [torch.index_select(rows, 0, idx) for rows, idx in lib_select]
 
+    g_payload = int(sum(g_sources[i].width for i in g_items[:, 0]))  # bytes of the 18,432 items
     lib_out = torch.cat([t.reshape(-1) for t in library_gather()])
-    check(lib_out.numel() == g_bytes, "index_select yardstick gathers another byte count")
+    check(lib_out.numel() == g_payload, "index_select yardstick gathers another byte count")
 
     for codec in gf256.CODECS:
         for kk in (1, 2, 4, 8, 16, 32, 64, 128):
@@ -627,7 +668,7 @@ def main() -> int:
     bits8 = torch.cat([bits] * 8, dim=1)
     # K9 at k = 128 over R = 8 shards, every shard, on the k = 128 EDS's rows:
     # K5's row pass on each shard's rows, K9a's partials (which XOR to the
-    # parity rows), K9b over each shard's staged slabs, K2 over its windows
+    # parity rows), K9b over the partials' slabs in place, K2 over its windows
     R9, rows9 = SHARDS, k // SHARDS
     tops, coeffs9, g_cols9, partials9 = [], [], [], []
     for d in range(R9):
@@ -645,11 +686,14 @@ def main() -> int:
                 rs.col_parity_partial_plain(top, g_cols9[d]), f"shard {d} of {R9} at k=128")
     compare("rs_col_parity_partial", rs.xor_reduce_slabs_plain(torch.stack(partials9))[0],
             eds[k:], "the 8 partials' XOR against the EDS's parity rows")
-    staged9 = [torch.stack([p[:, d * rows9 : (d + 1) * rows9] for p in partials9])
-               for d in range(R9)]  # (R, 1, k/R, 2k, 512) on shard d
+    # K9b: slab d of every partial, read in place, into shard d's parity rows,
+    # every shard in one launch
+    slabs9 = [[p.narrow(1, d * rows9, rows9) for p in partials9] for d in range(R9)]
+    outs9 = [torch.empty((1, rows9, n2, 512), dtype=torch.uint8, device=dev) for _ in range(R9)]
+    rs.xor_reduce_scatter_cuda(partials9, range(R9), outs9, 1)
     for d in range(R9):
-        got = rs.xor_reduce_slabs_cuda(staged9[d])
-        compare("xor_reduce_slabs", got, rs.xor_reduce_slabs_plain(staged9[d]),
+        got = outs9[d]
+        compare("xor_reduce_slabs", got, rs.xor_reduce_slabs_plain(torch.stack(slabs9[d])),
                 f"shard {d} of {R9} at k=128")
         compare("xor_reduce_slabs", got[0], eds[k + d * rows9 : k + (d + 1) * rows9],
                 f"shard {d}'s parity rows")
@@ -664,8 +708,26 @@ def main() -> int:
     # slice, G[:, 8 j0 : 8 (j0 + k/R)] against its rows' bit planes by column
     bits9 = [rs.unpack_bits(t[0].transpose(0, 1)).permute(1, 0, 2).reshape(8 * rows9, n2 * 512)
              .contiguous() for t in tops]
-    print(f"K9 at k=128, R={R9}: row passes, K9a partials (XOR = parity rows), K9b per shard and "
-          "K2 row windows byte-equal to their plain versions and the single-device EDS")
+    # in-place K9b at k = 64 and 128 over R = 1, 2, 4, 8 shards, a batch of 2
+    # squares a partial (each slab two runs), every shard in one launch
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for kk in (64, 128):
+        for R in (1, 2, 4, 8):
+            m = kk // R
+            parts = [torch.randint(0, 256, (2, kk, 2 * kk, 512), dtype=torch.uint8, device=dev,
+                                   generator=gen) for _ in range(R)]
+            slabs = [[p.narrow(1, d * m, m) for p in parts] for d in range(R)]
+            outs = [torch.empty((2, m, 2 * kk, 512), dtype=torch.uint8, device=dev)
+                    for _ in range(R)]
+            rs.xor_reduce_scatter_cuda(parts, range(R), outs, 1)
+            for d in range(R):
+                compare("xor_reduce_slabs", outs[d],
+                        rs.xor_reduce_slabs_plain(torch.stack(slabs[d])),
+                        f"in place, shard {d} of {R} at k={kk}, batch of 2")
+    del parts, slabs, outs
+    print(f"K9 at k=128, R={R9}: row passes, K9a partials (XOR = parity rows), K9b in place and "
+          "K2 row windows byte-equal to their plain versions and the single-device EDS; K9b in "
+          "place at k=64, 128 x R=1, 2, 4, 8 (batch of 2) byte-equal to its plain version")
     timings = {
         "sha256_batch": (
             lambda: nmt.rfc6962_leaf_hashes(rand_roots),
@@ -706,12 +768,13 @@ def main() -> int:
             lambda: torch._int_mm(G, bits),
             bound(k * k * 512 + n2 * n2 * 512, leopard_extend_ops(k), INT32_OPS_PER_S),
         ),
+        # the main path's cell mode
         "das_proof_gather": (
-            lambda: gather.launch_gather(g_sources, g_items_dev, g_out),
+            lambda: gather.launch_cells(g_sources, g_layout, g_cells_dev, g_out),
             lambda: gather.das_proof_gather_plain(g_sources, g_items, g_bytes),
             library_gather,
-            # each gathered byte read once and written once, and the index table
-            bound(2 * g_bytes + g_items.nbytes, 0, INT32_OPS_PER_S),
+            # each item read once, each record written once, and the triples
+            bound(g_payload + g_bytes + g_cells.nbytes, 0, INT32_OPS_PER_S),
         ),
         "rs_extend_batched": (
             lambda: rs.extend_batched_cuda(sq8, codec),
@@ -752,10 +815,10 @@ def main() -> int:
                   INT32_OPS_PER_S),
         ),
         "xor_reduce_slabs": (
-            lambda: [rs.xor_reduce_slabs_cuda(st) for st in staged9],
-            lambda: [rs.xor_reduce_slabs_plain(st) for st in staged9],
-            # a torch.bitwise_xor fold over each shard's R slabs
-            lambda: [functools.reduce(torch.bitwise_xor, st.unbind(0)) for st in staged9],
+            lambda: rs.xor_reduce_scatter_cuda(partials9, range(R9), outs9, 1),
+            lambda: [rs.xor_reduce_slabs_plain(torch.stack(s)) for s in slabs9],
+            # a torch.bitwise_xor fold over each shard's R slabs, read in place
+            lambda: [functools.reduce(torch.bitwise_xor, s) for s in slabs9],
             # R slabs read and one written per shard; R - 1 XORs per 4 bytes
             bound(R9 * (R9 + 1) * rows9 * n2 * 512, R9 * (R9 - 1) * rows9 * n2 * 512 // 4,
                   INT32_OPS_PER_S),
@@ -775,6 +838,28 @@ def main() -> int:
               f"{perf[name]['gpu_ms']:.4f} ms, queued), plain {perf[name]['plain_ms']:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
+    # K7b's table mode on the same 1,024 cells (the range proofs' mode), and
+    # its latency floor: an empty launch and a launch with one load that the
+    # store waits on (gather.dependent_load_probe), timed as gpu_ms is
+    compare("das_proof_gather", g_out, g_want, "cell mode, 1,024 cells at k=128 (after timing)")
+    table_mode = {"ms": time_ms(lambda: gather.launch_gather(g_sources, g_items_dev, g_out)),
+                  "gpu_ms": time_ms(lambda: gather.launch_gather(g_sources, g_items_dev, g_out),
+                                    queued=True),
+                  "items": int(g_items.shape[0]), "table_bytes": int(g_items.nbytes)}
+    compare("das_proof_gather", g_out, g_want, "table mode, 1,024 cells at k=128 (after timing)")
+    probe_src = torch.zeros(512, dtype=torch.uint8, device=dev)
+    probe_dst = torch.empty(512, dtype=torch.uint8, device=dev)
+    probe = {loads: statistics.median(
+        time_ms(lambda: gather.dependent_load_probe(probe_src, probe_dst, loads), reps=16,
+                queued=True) for _ in range(5)) for loads in (0, 1)}
+    results["das_proof_gather_table_mode"] = table_mode
+    results["dependency_floor"] = {"das_proof_gather": probe[1], "empty_launch_ms": probe[0]}
+    print(f"das_proof_gather table mode (18 items a cell, a {g_items.nbytes:,}-byte table): "
+          f"{table_mode['ms']:.4f} ms as issued (GPU time {table_mode['gpu_ms']:.4f} ms); cell mode "
+          f"GPU time {perf['das_proof_gather']['gpu_ms']:.4f} ms against its latency floor "
+          f"{probe[1]:.4f} ms (one launch with one dependent load, queued; an empty launch "
+          f"{probe[0]:.4f} ms) and its byte bound {perf['das_proof_gather']['bound_ms']:.4f} ms "
+          f"| {smi}")
     # the launch sequences' bounds, the sums of their kernels' at these
     # shapes: K6/K7a's extension of one k = 128 square (K5, K2, K3, K4 from
     # the 4k roots), and K9's over R = 8 shards (the row passes -- Q0 read,
@@ -831,11 +916,11 @@ def main() -> int:
           f"{CHAIN_BLOCKS} blocks {chain[CHAIN_BLOCKS]:.4f} ms less one of 1 block "
           f"{chain[1]:.4f} ms, over {CHAIN_BLOCKS - 1} blocks: {k1_compression_ms * 1e3:.4f} us "
           f"a compression from L2 | {smi}")
-    results["dependency_floor"] = {"compression_ms": compression_ms,
+    results["dependency_floor"].update({"compression_ms": compression_ms,
                                    "k1_compression_ms": k1_compression_ms,
                                    "k1_one_block_ms": chain[1],
                                    f"k1_{CHAIN_BLOCKS}_blocks_ms": chain[CHAIN_BLOCKS],
-                                   "sha256_batch": k1_floor_ms}
+                                   "sha256_batch": k1_floor_ms})
     print(f"sha256_batch: dependency floor {k1_floor_ms:.4f} ms (one launch, K1 on a 1-block "
           f"message {chain[1]:.4f} ms, + one block at K1's {k1_compression_ms * 1e3:.4f} us); "
           f"GPU time {perf['sha256_batch']['gpu_ms']:.4f} ms, bound "
@@ -938,7 +1023,7 @@ def main() -> int:
                                         "bound_by": vmap_by}
     del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out, row_leaves
     del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
-    del tops, coeffs9, g_cols9, partials9, staged9, bits9
+    del tops, coeffs9, g_cols9, partials9, slabs9, outs9, bits9
 
     # --- 3. Go-pinned goldens through the port's entry points on the card ---
     check(dah.min_data_availability_header().hash == golden.MIN_DAH_HASH, "MIN_DAH_HASH")
@@ -1130,27 +1215,39 @@ def main() -> int:
     for name in SERVE_KERNELS:
         check(serve_launches[name] > 0, f"kernel {name} was not launched on the serving path")
     # the warm k = 128 calls again, phase by phase (outside the counted run)
-    split_ms = []
+    # the warm k = 128 calls again, phase by phase (outside the counted run):
+    # the cell mode as the path runs it, then the table mode over the same
+    # cells (the host-built item table of PR 2-7's path) beside it
+    split_ms = {"cell": [], "table": []}
     for entry, dah_g, coords, warm in split_inputs:
-        ph = [time.perf_counter()]
-        sources = entry.gather_sources()
-        items = device_plane.proof_items(entry.k, coords)
-        nbytes = len(coords) * device_plane._cell_layout(entry.k)[2]
-        gather.check_items(sources, items, nbytes)
-        ph.append(time.perf_counter())
-        items_dev = torch.from_numpy(items).to(dev)
-        out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        torch.cuda.synchronize()
-        ph.append(time.perf_counter())
-        gather.launch_gather(sources, items_dev, out)
-        torch.cuda.synchronize()
-        ph.append(time.perf_counter())
-        host = out.cpu().numpy()
-        ph.append(time.perf_counter())
-        again = device_plane.assemble_proofs(entry.k, dah_g, coords, host)
-        ph.append(time.perf_counter())
-        check(again == warm, "phase-by-phase gather differs")
-        split_ms.append([(ph[i + 1] - ph[i]) * 1e3 for i in range(5)])
+        lay = device_plane._cell_layout(entry.k)
+        nbytes = len(coords) * lay.cell_bytes
+        for mode in ("cell", "table"):
+            ph = [time.perf_counter()]
+            sources = entry.gather_sources()
+            if mode == "cell":
+                index = device_plane.cell_table(coords)
+                gather.check_cells(sources, lay, index)
+            else:
+                index = device_plane.proof_items(entry.k, coords)
+                gather.check_items(sources, index, nbytes)
+            ph.append(time.perf_counter())
+            index_dev = torch.from_numpy(index).to(dev)
+            out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            torch.cuda.synchronize()
+            ph.append(time.perf_counter())
+            if mode == "cell":
+                gather.launch_cells(sources, lay, index_dev, out)
+            else:
+                gather.launch_gather(sources, index_dev, out)
+            torch.cuda.synchronize()
+            ph.append(time.perf_counter())
+            host = out.cpu().numpy()
+            ph.append(time.perf_counter())
+            again = device_plane.assemble_proofs(entry.k, dah_g, coords, host)
+            ph.append(time.perf_counter())
+            check(again == warm, f"phase-by-phase gather ({mode} mode) differs")
+            split_ms[mode].append([(ph[i + 1] - ph[i]) * 1e3 for i in range(5)])
     del split_inputs
     serve_medians = {
         kk: {"gather_ms": statistics.median(w for w, _, _ in v),
@@ -1158,15 +1255,18 @@ def main() -> int:
              "host_prover_ms": statistics.median(h for _, _, h in v)}
         for kk, v in serve_ms.items()
     }
-    split = dict(zip(("index_build_ms", "upload_ms", "gather_ms", "fetch_ms", "assembly_ms"),
-                     (statistics.median(s[i] for s in split_ms) for i in range(5))))
+    split = {mode: dict(zip(("index_build_ms", "upload_ms", "gather_ms", "fetch_ms",
+                             "assembly_ms"),
+                            (statistics.median(s[i] for s in runs) for i in range(5))))
+             for mode, runs in split_ms.items()}
     for kk, m in serve_medians.items():
         print(f"sample_proofs_batch k={kk}, {CLIENTS * SAMPLES} cells: median "
               f"{m['gather_ms']:.3f} ms warm (gather), {m['card_miss_ms']:.3f} ms from the EDS on "
               f"the card (no entry), {m['host_prover_ms']:.3f} ms host prover "
               f"| {smi}")
-    print(f"sample_proofs_batch k=128 phases (median of {len(split_ms)}): "
-          + ", ".join(f"{n} {v:.3f}" for n, v in split.items()) + f" | {smi}")
+    for mode, ph in split.items():
+        print(f"sample_proofs_batch k=128 phases, {mode} mode (median of {len(split_ms[mode])}): "
+              + ", ".join(f"{n} {v:.3f}" for n, v in ph.items()) + f" | {smi}")
     results["sample_proofs_batch_ms"] = serve_medians
     results["sample_proofs_batch_phases_ms"] = split
 
@@ -1383,8 +1483,8 @@ def main() -> int:
     # --- 4f. the sharded extension (K9) ------------------------------------------
     # R shards on one card: a mesh that repeats the card, every kernel and
     # every collective of the R-shard program on it
+    from celestia_tpu_torch.parallel import collectives, sharded
     from celestia_tpu_torch.parallel import mesh as provider
-    from celestia_tpu_torch.parallel import sharded
 
     def provided_mesh(spec: str, n: int, kk: int, batch: int = 0):
         """The mesh provider's mesh for a k-square (or a batch of them) under
@@ -1413,12 +1513,16 @@ def main() -> int:
 
     def counted(fn, arr, mesh_, kk):
         """One sharded call with the counts set to 0 just before it and read
-        just after: exactly the launches of sharded_launches_per_call."""
+        just after: exactly the launches of sharded_launches_per_call, and
+        no byte staged between shards (one card: every slab read in place)."""
         kernels.reset_launch_counts()
+        collectives.reset_staged_bytes()
         out = fn(arr, mesh_)
         got = kernels.launch_counts()
+        staged = collectives.staged_bytes()
         want = sharded_launches_per_call(kk, mesh_.shape["row"], mesh_.shape["data"])
         check(got == want, f"sharded launches at k={kk}, mesh {mesh_.shape}: {got} != {want}")
+        check(staged == 0, f"the reduce-scatter staged {staged} bytes on one card")
         for name, n in got.items():
             sharded_launches[name] += n
         return out
@@ -1448,8 +1552,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"sharded path: R=1,2,4,8 at k=64 and 128 (golden DAH_128_HASH), the 8 seeded blocks "
           f"at R=4, 8 squares on a 2x4 mesh: every EDS and DAH equal to extend_and_header's, in "
-          f"{time.perf_counter() - t_sh:.2f} s; launches of every call exactly as counted, in all "
-          f"{sharded_launches}")
+          f"{time.perf_counter() - t_sh:.2f} s; launches of every call exactly as counted (K9b "
+          f"once a group), 0 bytes staged by the reduce-scatter, in all {sharded_launches}")
     for name in SHARDED_KERNELS:
         check(sharded_launches[name] > 0, f"kernel {name} was not launched on the sharded path")
     check(provider.stats()["sharded_extends"] - extends0 == 2 * len(meshes) + len(main_out) + 8,

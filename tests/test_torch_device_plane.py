@@ -17,7 +17,8 @@ from celestia_tpu.da import dah as jdah
 from celestia_tpu.da import das as jdas
 from celestia_tpu.da import device_plane as jdp
 from _torch_common import sha_scan_unrolled_once
-from _torch_common import codec_pair, torch_one_thread  # noqa: F401 (fixtures)
+from _torch_common import route_launches_to_twin
+from _torch_common import codec_pair, torch_one_thread, twin  # noqa: F401 (fixtures)
 from celestia_tpu_torch.da import dah, das, device_plane, eds_cache
 from celestia_tpu_torch.ops import gf256
 
@@ -114,6 +115,35 @@ def test_every_cell_proof_matches_jax(codec_pair):
         want = jdas._sample_proof_uncached(eds_host_j, hdr_j, r, c).to_dict()
         assert p.to_dict() == pj.to_dict() == want, (r, c)
         assert p.verify(hdr.hash)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_served_proofs_match_jax_sample_proofs_batch(twin, monkeypatch, k):
+    """Every cell's proof as the port serves it -- on the plain path, and
+    on the card path with each launch sent to the g++ twin (K7b's cell
+    mode from the entry; from the EDS with no entry, K1 + K3 over the
+    touched rows and K4 for the root tree first) -- against JAX's
+    ``sample_proofs_batch`` on JAX's own plane, in the assembled form."""
+    codec = gf256.active_codec()
+    eds_j, levels_j, roots_j = _jax_plane(k, codec)
+    hdr_j = _jax_dah(levels_j, roots_j)
+    entry_j = jdp.DevicePlaneEntry(
+        k, hdr_j.hash, jnp.asarray(eds_j), [jnp.asarray(lv) for lv in levels_j],
+        [jnp.asarray(r) for r in roots_j],
+    )
+    coords = _all_cells(k)
+    with jdp.forced("on"):
+        want = [p.to_dict() for p in jdp.sample_proofs_batch(entry_j, hdr_j, coords)]
+    eds, hdr = device_plane.extend_and_header(_square(k, k), device="cpu")
+    entry = eds_cache.get_device_entry(hdr.hash, "cpu")
+    assert [p.to_dict() for p in device_plane.sample_proofs_batch(entry, hdr, coords)] == want
+    launched = route_launches_to_twin(monkeypatch, twin)
+    assert [p.to_dict() for p in device_plane.sample_proofs_batch(entry, hdr, coords)] == want
+    assert launched == {"das_proof_gather": 1}
+    assert eds_cache.drop_device_entry(hdr.hash)
+    got = device_plane.sample_proofs_from_eds(eds.tensor, hdr, coords[::3])
+    assert [p.to_dict() for p in got] == want[::3]
+    assert launched["das_proof_gather"] == 2 and launched["rfc6962_root"] == 1
 
 
 def test_entry_from_jax_arrays_serves_the_same_proofs():

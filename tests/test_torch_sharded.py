@@ -116,11 +116,8 @@ def test_col_parity_partial_matches_the_jax_bit_lift(codec_pair, R):
 def test_xor_reduce_slabs_plain_matches_numpy(R):
     rng = np.random.default_rng(R)
     staged = rng.integers(0, 256, (R, 2, 16, 512), dtype=np.uint8)
-    got = rs.xor_reduce_slabs(torch.from_numpy(staged))
+    got = rs.xor_reduce_slabs_plain(torch.from_numpy(staged))
     np.testing.assert_array_equal(got.numpy(), np.bitwise_xor.reduce(staged, axis=0))
-    out = torch.empty((2, 16, 512), dtype=torch.uint8)
-    assert rs.xor_reduce_slabs(torch.from_numpy(staged), out=out) is out
-    np.testing.assert_array_equal(out.numpy(), got.numpy())
 
 
 def test_collectives_on_repeated_cpu_devices():
@@ -143,6 +140,24 @@ def test_collectives_on_repeated_cpu_devices():
         collectives.reduce_scatter_xor([torch.from_numpy(p[:, :-1]) for p in partials], axis=1)
     with pytest.raises(ValueError, match="disagree"):
         collectives.all_gather([tparts[0], tparts[1][:1]])
+
+
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_reduce_scatter_stages_nothing_on_one_device(R):
+    """On a mesh that repeats one device the reduce-scatter reads every
+    peer's slab where it lies: no byte is staged.  Three batches along the
+    leading axis make each slab non-contiguous."""
+    rng = np.random.default_rng(30 + R)
+    partials = [rng.integers(0, 256, (3, 2 * R, 32), dtype=np.uint8) for _ in range(R)]
+    full = np.bitwise_xor.reduce(np.stack(partials), axis=0)
+    outs = [torch.zeros((3, 2, 32), dtype=torch.uint8) for _ in range(R)]
+    collectives.reset_staged_bytes()
+    got = collectives.reduce_scatter_xor([torch.from_numpy(p) for p in partials], axis=1,
+                                         outs=outs)
+    assert collectives.staged_bytes() == 0
+    for d, g in enumerate(got):
+        assert g is outs[d]
+        np.testing.assert_array_equal(g.numpy(), full[:, 2 * d : 2 * (d + 1)])
 
 
 @pytest.mark.parametrize("codec_pair", gf256.CODECS, indirect=True)

@@ -7,8 +7,10 @@ against the plain versions there); this file checks the arithmetic they
 share with the twin: SHA-256 with its in-kernel padding and unaligned
 big-endian loads, the NMT leaf/node message layouts and the parity rule,
 the RFC-6962 level loop and its levels output, the proof-path gather
-(K7b) over a device-plane entry's sources, the repair kernels' decode
-matrices (K8a) and verdicts (K8c), the XOR of staged slabs (K9b), K2 over
+(K7b: the cell mode, which derives each cell's items from its
+coordinates, and the table mode) over a device-plane entry's sources, the
+repair kernels' decode matrices (K8a) and verdicts (K8c), the in-place
+XOR reduce-scatter of the partials' slabs (K9b), K2 over
 a window of EDS rows and K3's every level in one launch -- both
 block-cooperative, run block by block, each step over every thread between
 the barriers, with the kernels' own staging, index maps and packed
@@ -19,11 +21,6 @@ and padded K through a host emulation of mma.sync in the PTX fragment
 layouts (rs_extend.cuh), held against the JAX package at small k.
 """
 
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -33,50 +30,11 @@ import jax
 from celestia_tpu.ops import gf256 as jgf256
 from celestia_tpu.ops import nmt as jnmt
 from celestia_tpu.ops import rs as jrs
-from _torch_common import pinned_codec, torch_one_thread  # noqa: F401 (fixture)
+from _torch_common import route_launches_to_twin
+from _torch_common import pinned_codec, torch_one_thread, twin  # noqa: F401 (fixtures)
 from celestia_tpu_torch.da import device_plane, proof
 from celestia_tpu_torch.ops import gather, gf256, nmt, rs
 from celestia_tpu_torch.ops.sha256 import sha256_batch_host, sha256_plain
-
-CSRC = Path(__file__).resolve().parents[1] / "celestia_tpu_torch" / "csrc"
-
-_P = ctypes.c_void_p
-
-
-@pytest.fixture(scope="module")
-def twin(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the CPU twin")
-    lib = tmp_path_factory.mktemp("twin") / "libtwin.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         str(CSRC / "cpu_twin.cpp"), "-o", str(lib)],
-        check=True, capture_output=True,
-    )
-    t = ctypes.CDLL(str(lib))
-    LL, I = ctypes.c_longlong, ctypes.c_int
-    t.twin_sha256_batch.argtypes = [_P, _P, LL, I, I]
-    t.twin_nmt_leaf_digests.argtypes = [_P, _P, I]
-    t.twin_nmt_combine_level.argtypes = [_P, _P, LL, I, LL, LL, LL, LL, LL]
-    t.twin_rfc6962_root.argtypes = [_P, _P, I, I, I, I]
-    t.twin_rfc6962_levels.argtypes = [_P, _P, I, I, I, I]
-    t.twin_rs_extend.argtypes = [_P, _P, _P, _P, _P, I]
-    t.twin_das_proof_gather.argtypes = [_P, I, _P, I, _P]
-    t.twin_nmt_leaf_digests_batched.argtypes = [_P, _P, I, I]
-    t.twin_nmt_combine_level_batched.argtypes = [_P, _P, LL, I, LL, LL, LL, LL, LL, LL, LL]
-    t.twin_nmt_reduce_levels.argtypes = [_P, _P, LL, I, I, LL, LL, LL, LL, LL, LL, LL]
-    t.twin_rs_extend_batched.argtypes = [_P, _P, _P, _P, _P, I, I]
-    t.twin_rs_decode_matrices.argtypes = [_P, _P, _P, _P, I, I, I]
-    t.twin_rs_decode_matrices_grouped.argtypes = [_P, _P, _P, _P, I, I, I, I]
-    t.twin_rs_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
-    t.twin_rs_decode_axes_grouped.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I, I]
-    t.twin_rs_repair_verdicts.argtypes = [_P, _P, _P, _P, _P, _P, I]
-    t.twin_nmt_leaf_digests_window.argtypes = [_P, _P, I, I, I, I]
-    t.twin_rs_extend_rows.argtypes = [_P, _P, _P, _P, _P, I, I]
-    t.twin_rs_col_parity_partial.argtypes = [_P, _P, _P, _P, _P, I, I, I]
-    t.twin_xor_reduce_slabs.argtypes = [_P, _P, I, LL]
-    return t
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -236,42 +194,108 @@ def _random_entry(rng, k: int) -> device_plane.DevicePlaneEntry:
     )
 
 
-@pytest.mark.parametrize("k", [1, 2, 8, 128])
-def test_twin_das_proof_gather_matches_plain(twin, k):
+def _source_table(sources) -> np.ndarray:
+    return np.array(
+        [(s.tensor.data_ptr() + s.offset, s.row_stride, s.item_stride, s.width) for s in sources],
+        dtype=np.int64,
+    )
+
+
+def _twin_cells(twin, sources, k: int, coords, tree_rows=None) -> np.ndarray:
+    """K7b's cell mode through the twin: the records of ``coords``."""
+    lay = device_plane._cell_layout(k)
+    cells = device_plane.cell_table(coords, tree_rows)
+    gather.check_cells(sources, lay, cells)
+    out = _aligned(np.zeros(len(coords) * lay.cell_bytes, dtype=np.uint8))
+    assert twin.twin_das_cell_gather(_ptr(_source_table(sources)), len(sources), *lay, _ptr(cells),
+                                     len(cells), _ptr(out)) == 0
+    return out
+
+
+@pytest.mark.parametrize("mode", ["table", "cell"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 128])
+def test_twin_das_proof_gather_matches_plain(twin, mode, k):
+    """K7b in either mode against its plain version over the host's item
+    table (``proof_items``), the four corners among the cells, each cell's
+    tree its own row and then another row of the NMT sources; and the
+    records are the proofs read straight off the entry's levels."""
     rng = np.random.default_rng(700 + k)
     entry = _random_entry(rng, k)
     n2 = 2 * k
     edges = [(0, 0), (0, n2 - 1), (n2 - 1, 0), (n2 - 1, n2 - 1)]
     coords = edges + [tuple(int(x) for x in rng.integers(0, n2, 2)) for _ in range(60)]
     sources = entry.gather_sources()
-    items = device_plane.proof_items(k, coords)
-    nbytes = len(coords) * device_plane._cell_layout(k)[2]
-    table = np.array(
-        [(s.tensor.data_ptr() + s.offset, s.row_stride, s.item_stride, s.width) for s in sources],
-        dtype=np.int64,
-    )
-    out = np.zeros(nbytes, dtype=np.uint8)
-    twin.twin_das_proof_gather(_ptr(table), len(sources), _ptr(items), len(items), _ptr(out))
-    np.testing.assert_array_equal(out, gather.das_proof_gather_plain(sources, items, nbytes).numpy())
+    nbytes = len(coords) * device_plane._cell_layout(k).cell_bytes
+    for tree_rows in (None, [(r + 1 + i) % n2 for i, (r, _) in enumerate(coords)]):
+        items = device_plane.proof_items(k, coords, tree_rows)
+        if mode == "cell":
+            out = _twin_cells(twin, sources, k, coords, tree_rows)
+        else:
+            out = _aligned(np.zeros(nbytes, dtype=np.uint8))
+            assert twin.twin_das_proof_gather(_ptr(_source_table(sources)), len(sources),
+                                              _ptr(items), len(items), _ptr(out)) == 0
+        np.testing.assert_array_equal(
+            out, gather.das_proof_gather_plain(sources, items, nbytes).numpy())
+        if tree_rows is None:
+            got = out
     # the gathered paths are the proofs read straight off the entry's levels
     dah_roots = [bytes(90)] * n2
     hdr = type("Hdr", (), {"row_roots": dah_roots})()
     levels = [entry.level(j).numpy() for j in range(entry.n_levels)]
     root_levels = [lv.numpy() for lv in entry.root_levels()]
     shares = entry.eds.numpy()
-    for (r, c), p in zip(coords, device_plane.assemble_proofs(k, hdr, coords, out)):
+    for (r, c), p in zip(coords, device_plane.assemble_proofs(k, hdr, coords, got)):
         row_levels = [lv[0, r] for lv in levels]
         assert p.nmt_proof == proof.nmt_range_proof_from_levels(row_levels, c, c + 1)
         assert p.root_proof == proof.merkle_proof_from_levels(root_levels, r)
         assert p.share == shares[r, c].tobytes()
 
 
-def test_gather_rejects_items_out_of_bounds():
+@pytest.mark.parametrize("dst_skew", [0, 1, 7])
+def test_twin_das_proof_gather_any_alignment(twin, dst_skew):
+    """The table mode's 16-byte copy at every source and output alignment:
+    items of 1..70 bytes from odd offsets of a source, packed at odd output
+    offsets with gaps, against the plain version (the gaps stay zero)."""
+    rng = np.random.default_rng(710 + dst_skew)
+    base = torch.from_numpy(rng.integers(0, 256, 40_000, dtype=np.uint8))
+    sources = [gather.GatherSource(base, 3, 1001, 37, width)
+               for width in (1, 15, 16, 17, 45, 70)]
+    items, off = [], dst_skew
+    for _ in range(120):
+        s = int(rng.integers(0, len(sources)))
+        items.append((s, int(rng.integers(0, 30)), int(rng.integers(0, 25)), off))
+        off += sources[s].width + int(rng.integers(0, 3))
+    items = np.array(items, dtype=np.int32)
+    out = _aligned(np.zeros(off, dtype=np.uint8))
+    assert twin.twin_das_proof_gather(_ptr(_source_table(sources)), len(sources), _ptr(items),
+                                      len(items), _ptr(out)) == 0
+    np.testing.assert_array_equal(out, gather.das_proof_gather_plain(sources, items, off).numpy())
+
+
+def test_twin_cell_sibling_order_matches_range_proofs(twin):
+    """The cell mode's rule for sibling j of column c (its level from the
+    bits of c, its node (c >> level) ^ 1) against the range-proof walk
+    (``_cell_node_indices``) for every column at every k = 1..128."""
+    for k in (1, 2, 4, 8, 16, 32, 64, 128):
+        n2 = 2 * k
+        n_sib = n2.bit_length() - 1
+        got = np.zeros((n_sib, 2), dtype=np.int32)
+        for c in range(n2):
+            twin.twin_das_cell_siblings(c, n_sib, _ptr(got))
+            assert [tuple(x) for x in got.tolist()] == list(
+                device_plane._cell_node_indices(n2, c, n_sib + 1)), (k, c)
+
+
+def test_gather_rejects_items_out_of_bounds(twin):
+    """The table mode's host checks, and the cell mode's: a row, column or
+    tree row outside the sources, or sources too small for k, raise before
+    anything is gathered (``gather_cells`` checks before it picks a path);
+    the C entries refuse a layout past their sources."""
     rng = np.random.default_rng(9)
     entry = _random_entry(rng, 2)
     sources = entry.gather_sources()
     items = device_plane.proof_items(2, [(3, 3)])
-    nbytes = device_plane._cell_layout(2)[2]
+    nbytes = device_plane._cell_layout(2).cell_bytes
     for col, value in [(1, 4), (2, 9), (0, len(sources)), (3, nbytes)]:
         bad = items.copy()
         bad[-1, col] = value
@@ -279,6 +303,24 @@ def test_gather_rejects_items_out_of_bounds():
             gather.das_proof_gather(sources, bad, nbytes)
     with pytest.raises(ValueError):
         gather.das_proof_gather(sources, items.astype(np.int64), nbytes)
+    for coords, trees in [([(4, 0)], None), ([(0, 4)], None), ([(-1, 0)], None),
+                          ([(0, -1)], None), ([(1, 1)], [4]), ([(1, 1)], [-1])]:
+        with pytest.raises(ValueError):
+            device_plane.gather_cells(2, sources, coords, trees)
+    with pytest.raises(ValueError, match="does not fit"):
+        device_plane.gather_cells(4, sources, [(0, 0)])  # an entry of k = 2 read as k = 4
+    small = sources[:-1] + [device_plane.eds_source(entry.eds[:2, :2].contiguous())]
+    with pytest.raises(ValueError, match="fewer than"):
+        device_plane.gather_cells(2, small, [(0, 0)])
+    lay = device_plane._cell_layout(2)
+    cells = device_plane.cell_table([(0, 0)])
+    out = _aligned(np.zeros(lay.cell_bytes, dtype=np.uint8))
+    table = _source_table(sources)
+    for bad in (lay._replace(share=len(sources)), lay._replace(aunt0=len(sources) - 1),
+                lay._replace(n_sib=0)):
+        assert twin.twin_das_cell_gather(_ptr(table), len(sources), *bad, _ptr(cells), 1,
+                                         _ptr(out)) == 1
+    assert twin.twin_das_proof_gather(_ptr(table), 0, _ptr(items), len(items), _ptr(out)) == 1
 
 
 @pytest.mark.parametrize("codec", gf256.CODECS)
@@ -492,14 +534,46 @@ def test_twin_col_parity_partial_matches_plain(twin, codec, k, R):
             out, rs.col_parity_partial(torch.from_numpy(top), coeffs).numpy())
 
 
-@pytest.mark.parametrize("R", [1, 2, 8])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
 def test_twin_xor_reduce_slabs_matches_plain(twin, R):
+    """K9b in one launch over every destination shard, reading slab d of
+    each peer's partial in place: batches of nb = 3 make each slab three
+    runs, one partial row apart.  Against the plain version over the same
+    slabs and numpy."""
     rng = np.random.default_rng(903 + R)
-    staged = rng.integers(0, 256, (R, 4, 1024), dtype=np.uint8)
-    out = np.zeros((4, 1024), dtype=np.uint8)
-    twin.twin_xor_reduce_slabs(_ptr(staged), _ptr(out), R, out.nbytes)
-    np.testing.assert_array_equal(
-        out, rs.xor_reduce_slabs_plain(torch.from_numpy(staged)).numpy())
+    nb, m, W = 3, 2, 1024
+    partials = [_aligned(rng.integers(0, 256, (nb, R * m, W), dtype=np.uint8)) for _ in range(R)]
+    outs = _aligned(np.zeros((R, nb, m, W), dtype=np.uint8))
+    peers = np.array([p.ctypes.data for p in partials], dtype=np.int64)
+    dsts = np.array([outs[d].ctypes.data for d in range(R)], dtype=np.int64)
+    offs = np.arange(R, dtype=np.int64) * m * W
+    assert twin.twin_xor_reduce_scatter(_ptr(peers), R, _ptr(dsts), _ptr(offs), R, m * W, nb,
+                                        R * m * W) == 0
+    full = np.bitwise_xor.reduce(np.stack(partials), axis=0)
+    for d in range(R):
+        slabs = torch.stack([torch.from_numpy(p[:, d * m : (d + 1) * m]) for p in partials])
+        np.testing.assert_array_equal(outs[d], rs.xor_reduce_slabs_plain(slabs).numpy())
+        np.testing.assert_array_equal(outs[d], full[:, d * m : (d + 1) * m])
+
+
+def test_xor_reduce_scatter_refuses_unsupported_shards(twin):
+    """K9b takes R in {1, 2, 4, 8} (a template instance each): any other R
+    raises in the wrapper and is refused by the C entry, as are slabs off
+    a 16-byte boundary."""
+    parts = [torch.zeros((3, 64), dtype=torch.uint8) for _ in range(3)]
+    with pytest.raises(ValueError, match="R in"):
+        rs.xor_reduce_scatter_cuda(parts, [0], [torch.zeros((1, 64), dtype=torch.uint8)], 0)
+    with pytest.raises(ValueError, match="does not split"):
+        rs.xor_reduce_scatter_plain(parts[:2], [0], [torch.zeros((1, 64), dtype=torch.uint8)], 0)
+    a = _aligned(np.zeros(1024, dtype=np.uint8))
+    peers = np.full(16, a.ctypes.data, dtype=np.int64)
+    dsts = np.array([a.ctypes.data], dtype=np.int64)
+    offs = np.zeros(1, dtype=np.int64)
+    for R in (3, 5, 16, 0):
+        assert twin.twin_xor_reduce_scatter(_ptr(peers), R, _ptr(dsts), _ptr(offs), 1, 64, 1, 0) == 1
+    peers[1] += 8  # a partial off a 16-byte boundary
+    assert twin.twin_xor_reduce_scatter(_ptr(peers), 2, _ptr(dsts), _ptr(offs), 1, 64, 1, 0) == 1
+    assert twin.twin_xor_reduce_scatter(_ptr(peers), 1, _ptr(dsts), _ptr(offs), 1, 64, 1, 0) == 0
 
 
 def _decode_case(rng, k: int, codec: str, n: int):
@@ -598,43 +672,6 @@ def test_twin_col_parity_partial_matches_jax(twin, codec, k, R):
         np.testing.assert_array_equal(out[0], want)
 
 
-# C entry -> its twin where the names differ (same arguments, no stream)
-_TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
-            "ctt_rfc6962_root": "twin_rfc6962_levels"}
-# twins that return the C entry's verdict on its arguments (0: launched)
-_CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_reduce_levels", "twin_rfc6962_levels",
-                  "twin_rs_decode_matrices")
-
-
-def _route_launches_to_twin(monkeypatch, twin) -> dict:
-    """Run the wrappers' CUDA branches on CPU tensors: ops/nmt.py takes
-    them as the card's, and every ``kernels.launch`` goes to the g++ twin
-    of its C entry (raising where the entry would refuse).  Returns the
-    launch counts, kept as ``kernels.launch`` keeps them."""
-    from celestia_tpu_torch import kernels
-
-    launched = {}
-
-    def launch(kernel, device, *args, launches=1, entry=None):
-        c_entry = entry or kernels.KERNELS[kernel]
-        name = _TWIN_OF.get(c_entry, c_entry.replace("ctt_", "twin_"))
-        fn = getattr(twin, name)
-        fn.argtypes = list(kernels._SIGNATURES[c_entry][:-1])  # no stream
-        rc = fn(*args)
-        if name in _CHECKED_TWINS and rc != 0:
-            raise RuntimeError(f"{c_entry} refused its arguments")
-        launched[kernel] = launched.get(kernel, 0) + launches
-
-    def check_tensor(t, name, shape=None):
-        assert t.dtype == torch.uint8 and t.is_contiguous(), name
-        assert shape is None or tuple(t.shape) == tuple(shape), (name, tuple(t.shape), shape)
-
-    monkeypatch.setattr(kernels, "launch", launch)
-    monkeypatch.setattr(kernels, "check_cuda_tensor", check_tensor)
-    monkeypatch.setattr(nmt, "_is_cpu", lambda t: False)
-    return launched
-
-
 @pytest.mark.parametrize("R", [2, 8])
 def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     """The sharded extension's card path (parallel/sharded.py with every
@@ -642,12 +679,12 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     arguments) on CPU tensors, each launch going to the g++ twin of its C
     entry: the same EDS and DAH as the plain single-device path."""
     from celestia_tpu_torch.da import dah
-    from celestia_tpu_torch.parallel import sharded
+    from celestia_tpu_torch.parallel import collectives, sharded
 
     codec, k = gf256.CODEC_LEOPARD, 8
     sq = _random_eds(np.random.default_rng(904 + R), k)[:k, :k].copy()
     eds_1, hdr_1 = dah.extend_and_header(sq, device="cpu")
-    launched = _route_launches_to_twin(monkeypatch, twin)
+    launched = route_launches_to_twin(monkeypatch, twin)
 
     def coefficients(k, j0, n_in, codec, device):
         E = gf256.encode_matrix(k, codec)[:, j0 : j0 + n_in]
@@ -657,25 +694,28 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     monkeypatch.setattr(rs, "extend_rows", rs.extend_rows_cuda)
     monkeypatch.setattr(rs, "partial_coefficients", coefficients)
     monkeypatch.setattr(rs, "col_parity_partial", lambda top, c: rs.col_parity_partial_cuda(top, *c))
-    monkeypatch.setattr(rs, "xor_reduce_slabs", rs.xor_reduce_slabs_cuda)
+    monkeypatch.setattr(rs, "xor_reduce_scatter", rs.xor_reduce_scatter_cuda)
     # sharded.py caches each mesh's K9a coefficients: neither the plain
     # path's form, cached by an earlier test in this process, nor this
     # test's card form may cross the test's edges
     sharded._FN_CACHE.clear()
     try:
         with pinned_codec(codec):
+            collectives.reset_staged_bytes()
             eds, hdr = sharded.extend_and_header_sharded(sq, sharded.make_mesh(["cpu"] * R))
     finally:
         sharded._FN_CACHE.clear()
     np.testing.assert_array_equal(eds.shares, eds_1.shares)
     assert hdr == hdr_1
-    # one launch per shard of the row pass, K9a and K9b, two K2 windows per
-    # shard, K3: one launch for every row-tree level and one for every
-    # column-subtree level per shard (none at k/R = 1), then one for the
-    # log2(2R) finishing levels on the one device; one K4 launch from the
-    # axis roots (no K1)
+    # one launch per shard of the row pass and K9a, one K9b launch for the
+    # device (every shard's slabs read in place: nothing staged), two K2
+    # windows per shard, K3: one launch for every row-tree level and one for
+    # every column-subtree level per shard (none at k/R = 1), then one for
+    # the log2(2R) finishing levels on the one device; one K4 launch from
+    # the axis roots (no K1)
+    assert collectives.staged_bytes() == 0
     assert launched == {
-        "rs_extend": R, "rs_col_parity_partial": R, "xor_reduce_slabs": R,
+        "rs_extend": R, "rs_col_parity_partial": R, "xor_reduce_slabs": 1,
         "nmt_leaf_digests": 2 * R,
         "nmt_combine_level": R * (1 + (k // R > 1)) + 1,
         "rfc6962_root": 1,
@@ -875,7 +915,7 @@ def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
     n2 = 2 * k
     want = jax_eds_levels(eds)
     plain = device_plane._extend_levels(torch.from_numpy(eds[:k, :k].copy()))
-    launched = _route_launches_to_twin(monkeypatch, twin)
+    launched = route_launches_to_twin(monkeypatch, twin)
     sq = torch.from_numpy(eds[:k, :k].copy())
     _, grid, levels, tree = device_plane._extend_levels(sq)
     assert launched == {"nmt_leaf_digests": 1, "nmt_combine_level": 1, "rfc6962_root": 1}
@@ -939,7 +979,7 @@ def test_twin_k3_trees_taller_than_a_block(twin, monkeypatch):
     nodes = rng.integers(0, 256, (2, 512, _D), dtype=np.uint8)
     nodes[:, 1::3, :29] = 0xFF  # parity right children for IgnoreMaxNamespace
     want = nmt.reduce_levels_plain(torch.from_numpy(nodes))
-    launched = _route_launches_to_twin(monkeypatch, twin)
+    launched = route_launches_to_twin(monkeypatch, twin)
     got = nmt.reduce_levels(torch.from_numpy(nodes))
     assert launched == {"nmt_combine_level": 1}
     assert len(got) == len(want) == 9
