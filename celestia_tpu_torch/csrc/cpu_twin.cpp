@@ -165,6 +165,30 @@ int twin_nmt_leaf_digests_window(const uint8_t* eds, uint8_t* out, int n2, int b
   return 0;
 }
 
+// K2's row-set mode as ctt_nmt_leaf_digests_rows launches it: the blocks of
+// 64 cells one after another, each step of nmt_leaf_rows_kernel run for
+// every thread before the next.  Returns 0, or 1 where the C entry refuses.
+int twin_nmt_leaf_digests_rows(const uint8_t* src, uint8_t* out, int n2, int n_trees,
+                               const uint16_t* ids, int in_place) {
+  using namespace ctt;
+  NmtRowSet a{};
+  if (n2 < 1 || n_trees < 1 ||
+      !nmt_rows_setup(&a, src, out, uint32_t(n2), uint32_t(n_trees), ids, uint32_t(in_place)))
+    return 1;
+  std::vector<uint8_t> rows(kLeafSmemBytes);
+  std::vector<LeafHash> h(kLeafCells);
+  for (uint32_t cell0 = 0; cell0 < a.cells; cell0 += kLeafCells) {
+    const uint32_t n = std::min(kLeafCells, a.cells - cell0);
+    for (uint32_t t = 0; t < kLeafCells; ++t) nmt_rows_stage(a, cell0, n, rows.data(), t, kLeafCells);
+    for (uint32_t t = 0; t < n; ++t)
+      nmt_leaf_hash(rows.data() + t * kLeafRow, nmt_rows_q0(a, cell0 + t), &h[t]);
+    for (uint32_t t = 0; t < n; ++t) nmt_leaf_digest(h[t], rows.data() + t * kDigest);
+    for (uint32_t t = 0; t < kLeafCells; ++t)
+      nmt_leaf_store(a.out, cell0, n, rows.data(), t, kLeafCells);
+  }
+  return 0;
+}
+
 int twin_nmt_leaf_digests_batched(const uint8_t* eds, uint8_t* out, int n2, int batch) {
   return twin_nmt_leaf_digests_window(eds, out, n2, batch, 0, n2);
 }

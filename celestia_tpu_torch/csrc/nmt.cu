@@ -20,7 +20,15 @@
 // thread reads its message words there (one PRMT of two staged words each,
 // the share starting 2 bytes into a word), and the block writes its 5,760
 // bytes of digests as one run of 16-byte stores.  It takes a window of EDS
-// rows (a K9 shard's slab, parallel/sharded.py) and a batch of EDSs.
+// rows (a K9 shard's slab, parallel/sharded.py) and a batch of EDSs.  Its
+// row-set mode (ctt_nmt_leaf_digests_rows) hashes the row trees of a proof,
+// a namespace query, a BEFP or a DAS miss straight from the EDS rows, read
+// in place or from a gathered block: the same steps, each block's shares
+// staged from its trees' source rows, the Q0 rule read at the row ids,
+// which travel by value in the launch's parameters (no upload per call).
+// It replaces, on those paths, K1 over a 541-byte prefixed-leaf tensor built
+// for the purpose (celestia_tpu/ops/nmt.py:326 `nmt_level_stack` over the
+// rows' prefixed leaves).
 //
 // K3 design: one launch runs every level of a set of trees.  A block stages
 // up to 512 level-0 nodes -- one tree of 512 leaves, two rows or two
@@ -58,6 +66,24 @@ __global__ void __launch_bounds__(ctt::kLeafCells)
   ctt::nmt_leaf_store(out, cell0, n, rows, t, blockDim.x);
 }
 
+// K2's row-set mode: the same steps, the shares staged from each tree's
+// source row and the Q0 rule read at its EDS row id.
+__global__ void __launch_bounds__(ctt::kLeafCells)
+    nmt_leaf_rows_kernel(const ctt::NmtRowSet a) {
+  __shared__ __align__(16) uint8_t rows[ctt::kLeafSmemBytes];
+  const uint32_t cell0 = blockIdx.x * ctt::kLeafCells;
+  const uint32_t n = a.cells - cell0 < ctt::kLeafCells ? a.cells - cell0 : ctt::kLeafCells;
+  const uint32_t t = threadIdx.x;
+  ctt::nmt_rows_stage(a, cell0, n, rows, t, blockDim.x);
+  __syncthreads();
+  ctt::LeafHash h;
+  if (t < n) ctt::nmt_leaf_hash(rows + t * ctt::kLeafRow, ctt::nmt_rows_q0(a, cell0 + t), &h);
+  __syncthreads();  // every share read: the digests may overwrite them
+  if (t < n) ctt::nmt_leaf_digest(h, rows + t * ctt::kDigest);
+  __syncthreads();
+  ctt::nmt_leaf_store(a.out, cell0, n, rows, t, blockDim.x);
+}
+
 __global__ void __launch_bounds__(ctt::kNmtThreads)
     nmt_reduce_kernel(const ctt::NmtReduceArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -93,6 +119,24 @@ extern "C" int ctt_nmt_leaf_digests(const void* eds, void* out, int n2, int batc
   nmt_leaf_kernel<<<blocks, ctt::kLeafCells, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(eds), static_cast<uint8_t*>(out), lg_n2,
       static_cast<uint32_t>(row0), static_cast<uint32_t>(n_rows), static_cast<uint32_t>(cells));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's row-set mode: the leaf digests of the n_trees row trees whose EDS
+// row ids are ids[0 .. n_trees) (a host array, copied into the launch's
+// parameters) into out uint8[n_trees, n2, 90].  Tree i's shares are row
+// row_i of src uint8[rows, n2, 512] (16-byte aligned), row_i = ids[i] when
+// in_place (the EDS itself), else i (the rows gathered into a block).
+extern "C" int ctt_nmt_leaf_digests_rows(const void* src, void* out, int n2, int n_trees,
+                                         const void* ids, int in_place, void* stream) {
+  ctt::NmtRowSet a{};
+  if (n2 < 1 || n_trees < 1 ||
+      !ctt::nmt_rows_setup(&a, static_cast<const uint8_t*>(src), static_cast<uint8_t*>(out),
+                           static_cast<uint32_t>(n2), static_cast<uint32_t>(n_trees),
+                           static_cast<const uint16_t*>(ids), static_cast<uint32_t>(in_place)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = (a.cells + ctt::kLeafCells - 1) / ctt::kLeafCells;
+  nmt_leaf_rows_kernel<<<blocks, ctt::kLeafCells, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -366,6 +366,67 @@ CTT_HD bool nmt_leaf_q0(uint32_t cell, uint32_t lg_n2, uint32_t row0, uint32_t n
   return r < k && c < k;
 }
 
+// K2's row-set mode: the leaf digests of n_trees row trees of one EDS, tree
+// i the EDS row ids[i], into out uint8[n_trees, n2, 90].  Tree i's shares
+// are source row row_i of src uint8[rows, n2, 512], row_i = ids[i] for an
+// EDS read in place or i for rows already gathered into a block.  The ids
+// travel by value in the launch's parameters: an EDS has at most 256 rows
+// (k <= 128).
+constexpr uint32_t kRowSetLgMax = 8;
+constexpr uint32_t kRowSetMax = 1u << kRowSetLgMax;
+
+struct NmtRowSet {
+  const uint8_t* src;
+  uint8_t* out;
+  uint32_t lg_n2;    // log2 of the EDS width 2k
+  uint32_t cells;    // n_trees * n2
+  uint32_t in_place; // 1: tree i reads source row ids[i]; 0: row i
+  uint16_t ids[kRowSetMax];
+};
+
+// Fill `a` for one launch; false for what the kernel does not take: 2k not
+// a power of two in 2..256, no tree or more than 2k, an id at or past 2k,
+// a source off a 16-byte boundary (the shares are loaded 16 bytes at a
+// time), or an odd output address.
+CTT_HD bool nmt_rows_setup(NmtRowSet* a, const uint8_t* src, uint8_t* out, uint32_t n2,
+                           uint32_t n_trees, const uint16_t* ids, uint32_t in_place) {
+  const uint32_t lg_n2 = log2_exact(n2);
+  if (lg_n2 < 1 || lg_n2 > kRowSetLgMax || n_trees < 1 || n_trees > n2 ||
+      (reinterpret_cast<uintptr_t>(src) & 15u) || (reinterpret_cast<uintptr_t>(out) & 1u))
+    return false;
+  for (uint32_t i = 0; i < n_trees; ++i) {
+    if (ids[i] >= n2) return false;
+    a->ids[i] = ids[i];
+  }
+  a->src = src;
+  a->out = out;
+  a->lg_n2 = lg_n2;
+  a->cells = n_trees << lg_n2;
+  a->in_place = in_place ? 1u : 0u;
+  return true;
+}
+
+// Thread tid stages cells cell0 .. cell0 + n - 1 of the row set (cell = tree
+// * n2 + column) as nmt_leaf_stage does: a block's 64 cells are one run of
+// one source row at k >= 32, and 64 / 2k whole rows below.
+CTT_HD void nmt_rows_stage(const NmtRowSet& a, uint32_t cell0, uint32_t n, uint8_t* rows,
+                           uint32_t tid, uint32_t nthreads) {
+  const uint32_t n2 = 1u << a.lg_n2;
+  for (uint32_t s = 0; s < n;) {
+    const uint32_t tree = (cell0 + s) >> a.lg_n2, c = (cell0 + s) & (n2 - 1u);
+    const uint32_t len = n - s < n2 - c ? n - s : n2 - c;
+    const uint64_t row = a.in_place ? a.ids[tree] : tree;
+    nmt_leaf_stage(a.src + (row << a.lg_n2) * kShare, c, len, rows + s * kLeafRow, tid, nthreads);
+    s += len;
+  }
+}
+
+// The Q0 rule at the cell's EDS coordinates: row ids[tree], its column.
+CTT_HD bool nmt_rows_q0(const NmtRowSet& a, uint32_t cell) {
+  const uint32_t k = 1u << (a.lg_n2 - 1u);
+  return a.ids[cell >> a.lg_n2] < k && (cell & ((k << 1) - 1u)) < k;
+}
+
 // A thread's hash: its state, the share's first 8 little-endian words (the
 // digest's namespace) and the Q0 rule, kept across the barrier before the
 // digests overwrite the staged shares.

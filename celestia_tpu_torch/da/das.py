@@ -31,10 +31,10 @@ light clients through):
       every block extended there, until evicted) is served by one K7b
       gather.  A miss for an EDS on the card -- not a fault path -- is
       served there too (device_plane.sample_proofs_from_eds: the touched
-      rows' level stacks by K1 + K3, the root tree by one K4, one K7b
-      gather).  A miss for an EDS on the CPU goes to the host prover:
-      coordinates are grouped by row, each touched row's NMT level stack
-      is built ONCE through the host batch hasher
+      rows' level stacks by K2's row-set mode + K3, the root tree by one
+      K4, one K7b gather).  A miss for an EDS on the CPU goes to the host
+      prover: coordinates are grouped by row, each touched row's NMT level
+      stack is built ONCE through the host batch hasher
       (ops/sha256.sha256_batch_host), and one RFC-6962 level tree over
       the DAH's 4k axis roots serves every cell's root proof.  Emitted
       proofs are byte-identical to the per-cell prover.
@@ -378,10 +378,10 @@ def sample_proofs_batch(
     # stacks are still on the EDS's device (any block extended there, until
     # evicted), a proof is an index computation plus ONE K7b gather and
     # ONE fetch of the proof paths — no row rebuild, no re-hash.  A miss
-    # on the card rebuilds the touched rows there (K1 + K3, the root tree
-    # one K4) and gathers the same way; only an EDS on the CPU goes to
-    # the host prover below.  Byte-identical throughout; a failing gather
-    # raises.
+    # on the card rebuilds the touched rows there (K2's row-set mode + K3,
+    # the root tree one K4) and gathers the same way; only an EDS on the
+    # CPU goes to the host prover below.  Byte-identical throughout; a
+    # failing gather raises.
     from celestia_tpu_torch.da import device_plane, eds_cache
 
     device = eds.tensor.device

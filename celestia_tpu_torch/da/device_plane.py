@@ -381,14 +381,15 @@ def root_tree(dah, device) -> torch.Tensor:
 
 def sample_proofs_from_eds(eds: torch.Tensor, dah, coords: Sequence[Tuple[int, int]]) -> list:
     """Serve n DAS proofs of a block with no cached entry, on the EDS's
-    device: the touched rows' level stacks (K1 leaf digests, then one K3
-    launch for every level, over those rows only), the root tree (:func:`root_tree`), and
-    one K7b gather of every sibling, aunt and share.  Byte-identical to
+    device: the touched rows' level stacks (one K2 launch in its row-set
+    mode, reading those rows of the EDS in place, then one K3 launch for
+    every level, over those rows only), the root tree (:func:`root_tree`),
+    and one K7b gather of every sibling, aunt and share.  Byte-identical to
     :func:`sample_proofs_batch` and the host prover."""
     k = eds.shape[0] // 2
     rows = sorted({r for r, _ in coords})
     tree_of = {r: i for i, r in enumerate(rows)}
-    stack = nmt_ops.nmt_level_stack(nmt_ops.eds_row_leaves(eds, rows))
     eds = eds.contiguous()
+    stack = nmt_ops.eds_row_level_stack(eds, rows)
     sources = nmt_sources(stack) + root_sources(root_tree(dah, eds.device)) + [eds_source(eds)]
     return _serve(k, dah, coords, sources, [tree_of[r] for r, _ in coords])

@@ -20,8 +20,9 @@ on the host, as there.  :func:`detect_bad_encoding` and :func:`build_befp`
 run on the EDS's device: detection decodes every axis of both orientations
 from its first k cells (K8a once, K8b per orientation into a scratch copy)
 and flags the cells that differ from the committed ones (K8c); the proof's
-orthogonal trees are built and read there (``proof.row_range_proofs``: K1
-+ K3 over the k trees, one K7b gather).  On the CPU the plain versions run.
+orthogonal trees are built and read there (``proof.row_range_proofs``:
+K2's row-set mode + K3 over the k trees, one K7b gather).  On the CPU the
+plain versions run.
 """
 
 from __future__ import annotations

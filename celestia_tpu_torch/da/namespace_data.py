@@ -14,9 +14,9 @@ transferred.
 Re-homed from ``celestia_tpu/da/namespace_data.py``: the imports and the
 data access differ.  Only the namespaces of the rows whose roots cover the
 namespace are copied from the EDS's device; their level stacks are
-computed on that device (K1 + K3 over the rows, for any number of rows),
-and one gather copies out only the proof digests and the returned shares
-(K7b, da/proof.py ``row_range_proofs``).
+computed on that device (K2's row-set mode + K3 over the rows, for any
+number of rows), and one gather copies out only the proof digests and the
+returned shares (K7b, da/proof.py ``row_range_proofs``).
 """
 
 from __future__ import annotations

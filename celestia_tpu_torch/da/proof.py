@@ -8,17 +8,17 @@ range proof of those shares against the row root, plus an RFC-6962 merkle
 proof of each row root against the data root (over the 4k row+col roots).
 
 Proof generation reads the device-computed NMT level stack (ops/nmt.py
-nmt_level_stack); verification is host-side hashlib (proofs are verified by
+row_level_stack); verification is host-side hashlib (proofs are verified by
 light clients, not validators).
 
 Re-homed from ``celestia_tpu/da/proof.py``; only the imports and the
 device leg of :func:`new_share_inclusion_proof` differ.  There the touched
 rows are sliced from the EDS on its device, their level stacks computed
-there (K1 + K3 over the rows, :func:`row_range_proofs`), the root aunts
-read from the block's root tree on that device (the cached entry's, else
-one K4 launch over the DAH's roots), and one K7b ``das_proof_gather`` launch
-copies out only the sibling digests, shares and aunts that go into the
-proof, fetched with one copy.
+there (K2's row-set mode + K3 over the rows, :func:`row_range_proofs`),
+the root aunts read from the block's root tree on that device (the cached
+entry's, else one K4 launch over the DAH's roots), and one K7b
+``das_proof_gather`` launch copies out only the sibling digests, shares
+and aunts that go into the proof, fetched with one copy.
 """
 
 from __future__ import annotations
@@ -173,18 +173,19 @@ def row_range_proofs(
     dah: Optional[DataAvailabilityHeader] = None,
 ) -> Tuple[List[NmtRangeProof], List[Tuple[bytes, ...]], List["MerkleProof"]]:
     """Range proofs of ``ranges[i]`` within row tree ``rows[i]``, computed
-    on the EDS's device: the rows' prefixed leaves are built there from the
-    rows alone, their level stacks with one K1 and one K3 launch per level
-    over all rows (:func:`nmt_ops.nmt_level_stack`), and one K7b launch
+    on the EDS's device: the rows are gathered into a block there, their
+    level stacks hashed from it with one K2 launch in its row-set mode and
+    one K3 launch for every level over all rows
+    (:func:`nmt_ops.row_level_stack`), and one K7b launch
     gathers the proofs' sibling digests, for each ``share_ranges[i]``
     given the shares of that column range of row ``rows[i]``, and, when
     ``dah`` is given, each row root's aunts in the block's root tree
     (``device_plane.root_tree``: the cached entry's, else one K4 launch over
     the DAH's roots).  One copy brings them to the host.  Returns (proofs,
     shares per row, root proofs -- empty without ``dah``)."""
-    block, row_ids = nmt_ops.eds_rows(eds.tensor, rows)  # only these rows are copied
+    block, _ = nmt_ops.eds_rows(eds.tensor, rows)  # only these rows are copied
     n2 = eds.width
-    levels = nmt_ops.nmt_level_stack(nmt_ops.row_leaves(block, row_ids))
+    levels = nmt_ops.row_level_stack(block, rows)
     L = len(levels)
     sources = device_plane.nmt_sources(levels) + [device_plane.eds_source(block)]
     aunts = (2 * n2).bit_length() - 1 if dah is not None else 0  # log2(4k)

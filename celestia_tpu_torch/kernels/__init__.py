@@ -43,6 +43,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ctt_sha256_batch": (_P, _P, _LL, _I, _I, _P),
     "ctt_nmt_leaf_digests": (_P, _P, _I, _I, _I, _I, _P),
+    "ctt_nmt_leaf_digests_rows": (_P, _P, _I, _I, _P, _I, _P),
     "ctt_nmt_reduce_levels": (_P, _P, _LL, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "ctt_rfc6962_root": (_P, _P, _I, _I, _I, _I, _P),
     "ctt_rs_extend": (_P, _P, _P, _P, _P, _I, _P),

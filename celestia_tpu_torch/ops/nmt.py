@@ -33,12 +33,15 @@ column subtrees and their finish, parallel/sharded.py).  The one-level
 functions (:func:`combine_level`, :func:`combine_grid`,
 :func:`combine_columns`) are the same kernel with one level.
 
-The level stacks that proofs are served from: :func:`nmt_level_stack` (K1
-leaf digests, then one K3 launch for every level, over any leading batch
-dimension) and :func:`rfc6962_level_stack` (one K4 launch that hashes the
-leaves and writes every level into one packed buffer,
+The level stacks that proofs are served from: :func:`row_level_stack` /
+:func:`eds_row_level_stack` (a set of EDS row trees hashed straight from
+the rows by K2's row-set mode, :func:`row_leaf_digests`, then one K3 launch
+for every level) and :func:`rfc6962_level_stack` (one K4 launch that hashes
+the leaves and writes every level into one packed buffer,
 :func:`rfc6962_levels`; :func:`rfc6962_tree_levels` is the same kernel
-over given leaf hashes).
+over given leaf hashes).  :func:`nmt_level_stack` takes any prefixed
+leaves (K1 leaf digests, then one K3 launch, over any leading batch
+dimension); no serving path builds such leaves.
 """
 
 from __future__ import annotations
@@ -210,10 +213,11 @@ def nmt_level_stack(leaves: torch.Tensor) -> list:
     """All levels of the NMT: uint8[..., n, L] namespaced leaves ->
     ``[leaf digests (..., n, 90), (..., n/2, 90), ..., root (..., 1, 90)]``.
 
-    Counterpart of ``celestia_tpu/ops/nmt.py:326``: what proof generation
-    reads (the sibling at every aligned span).  On the card: one K1 launch
-    for the leaf digests, then one K3 launch for every level of every tree
-    of the leading dimensions."""
+    Counterpart of ``celestia_tpu/ops/nmt.py:326`` for any prefixed leaves
+    (the sibling at every aligned span).  On the card: one K1 launch for the
+    leaf digests, then one K3 launch for every level of every tree of the
+    leading dimensions.  The EDS's row trees, which proofs read, go through
+    :func:`row_level_stack` instead: no prefixed leaf is built there."""
     if _is_cpu(leaves):
         return nmt_level_stack_plain(leaves)
     kernels.check_cuda_tensor(leaves, "leaves")
@@ -271,6 +275,88 @@ def eds_row_leaves(eds: torch.Tensor, rows) -> torch.Tensor:
     """The namespace-prefixed leaves of the row trees ``rows`` of an EDS,
     built on its device from those rows alone: uint8[R, 2k, 29+512]."""
     return row_leaves(*eds_rows(eds, rows))
+
+
+def _row_set(src: torch.Tensor, rows, in_place: bool) -> Tuple[np.ndarray, int]:
+    """The EDS row ids ``rows`` as uint16, and 2k, of a row set read from
+    ``src``: the EDS itself uint8[2k, 2k, 512] (``in_place``) or the rows
+    gathered into a block uint8[R, 2k, 512]."""
+    n2 = src.shape[-2] if src.dim() == 3 else 0
+    if src.dim() != 3 or src.shape[-1] != SHARE_SIZE or n2 % 2 or (in_place and src.shape[0] != n2):
+        want = "an EDS [2k, 2k" if in_place else "rows [R, 2k"
+        raise ValueError(f"src must be {want}, {SHARE_SIZE}], got {tuple(src.shape)}")
+    _check_pow2(n2 // 2, "square size")
+    ids = np.asarray([int(r) for r in rows], dtype=np.int64)
+    if not 0 < len(ids) <= n2 or ids.min() < 0 or ids.max() >= n2:
+        raise ValueError(f"rows must be 1 to {n2} EDS row ids in 0..{n2 - 1}, got {ids.tolist()}")
+    if not in_place and len(ids) != src.shape[0]:
+        raise ValueError(f"{src.shape[0]} gathered rows, {len(ids)} row ids")
+    return ids.astype(np.uint16), n2
+
+
+def row_leaf_digests_plain(src: torch.Tensor, rows, in_place: bool = False) -> torch.Tensor:
+    """Plain twin of :func:`row_leaf_digests` on any device."""
+    ids, n2 = _row_set(src, rows, in_place)
+    idx = torch.from_numpy(ids.astype(np.int64)).to(src.device)
+    block = src.index_select(0, idx) if in_place else src
+    return _leaf_digests_with(rfc6962_leaf_hashes_plain, _prefix_leaves(block, idx, n2 // 2))
+
+
+def row_leaf_digests(src: torch.Tensor, rows, in_place: bool = False) -> torch.Tensor:
+    """K2's row-set mode: the leaf digests uint8[R, 2k, 90] of the row trees
+    of the EDS rows ``rows`` (R <= 2k ids, any order), the Q0 prefix rule
+    read at those ids, the bytes of ``leaf_digests(eds_row_leaves(eds,
+    rows))``.  ``src`` holds the rows gathered into a block uint8[R, 2k, 512]
+    (tree i is ``src[i]``: :func:`eds_rows`'s block, e.g. of a transposed
+    view), or, with ``in_place``, is the EDS itself (tree i is
+    ``src[rows[i]]``, read where it lies); either contiguous.  On the card one launch; the
+    ids travel in its parameters."""
+    ids, n2 = _row_set(src, rows, in_place)
+    if _is_cpu(src):
+        return row_leaf_digests_plain(src, rows, in_place)
+    kernels.check_cuda_tensor(src, "src")
+    if src.data_ptr() % 16:
+        raise ValueError("K2 loads shares 16 bytes at a time: src must start on a 16-byte "
+                         "boundary")
+    out = torch.empty((len(ids), n2, NMT_DIGEST_SIZE), dtype=torch.uint8, device=src.device)
+    kernels.launch("nmt_leaf_digests", src.device, src.data_ptr(), out.data_ptr(), n2, len(ids),
+                   ids.ctypes.data, int(in_place), entry="ctt_nmt_leaf_digests_rows")
+    return out
+
+
+def row_level_stack_plain(src: torch.Tensor, rows, in_place: bool = False) -> list:
+    """Plain twin of :func:`row_level_stack` on any device."""
+    digests = row_leaf_digests_plain(src, rows, in_place)
+    return [digests] + reduce_levels_plain(digests)
+
+
+def row_level_stack(src: torch.Tensor, rows, in_place: bool = False) -> list:
+    """All levels of the row trees of the EDS rows ``rows``, read from
+    ``src`` as :func:`row_leaf_digests` reads it: ``[leaf digests (R, 2k,
+    90), (R, k, 90), ..., roots (R, 1, 90)]``, the levels of
+    ``nmt_level_stack(eds_row_leaves(eds, rows))``.  On the card one K2 launch
+    in its row-set mode, then one K3 launch for every level of the R trees;
+    no prefixed leaf is built."""
+    digests = row_leaf_digests(src, rows, in_place)
+    return [digests] + reduce_levels(digests)
+
+
+def eds_row_level_stack_plain(eds: torch.Tensor, rows) -> list:
+    """Plain twin of :func:`eds_row_level_stack` on any device."""
+    return nmt_level_stack_plain(eds_row_leaves(eds, rows))
+
+
+def eds_row_level_stack(eds: torch.Tensor, rows) -> list:
+    """The level stacks of the row trees ``rows`` of an EDS uint8[2k, 2k,
+    512] (any strides): :func:`row_level_stack` over the EDS read in place
+    when it is contiguous (a plane entry's EDS, a DAS miss's), else over
+    those rows gathered by :func:`eds_rows` (e.g. a transposed view)."""
+    _check_eds(eds)
+    if _is_cpu(eds):
+        return eds_row_level_stack_plain(eds, rows)
+    if eds.is_contiguous() and eds.data_ptr() % 16 == 0:
+        return row_level_stack(eds, rows, in_place=True)
+    return row_level_stack(eds_rows(eds, rows)[0], rows)
 
 
 def eds_prefixed_leaves(eds: torch.Tensor) -> torch.Tensor:

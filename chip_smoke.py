@@ -15,11 +15,16 @@ Phases (any failure raises and the script exits non-zero):
    corners, each cell's tree its own row and another row), K9a and K9b
    (in place, one launch) on every shard of a k = 128 square over 8
    shards, K2 on their row windows, K9b in place at k = 64, 128 x R = 1,
-   2, 4, 8 over batches of 2); K2 and every level of K3 (one launch) at every k =
-   1..128, on the 8-EDS catch-up batch and a 5-row level stack, and K3's
-   column subtrees and finishing levels of K9 at k/R = 8/8, 32/4, 128/8;
-   the tensor-core bit-GEMM kernels K5 and K8b at every k = 1..128 and K5's
-   row pass and K9a (n_in = k/R down to 1) for both codecs; each kernel's
+   2, 4, 8 over batches of 2); K2 and every level of K3 (one launch) at
+   every k = 1..128 and on the 8-EDS catch-up batch; K2's row-set mode and
+   K3 at every k on a scattered set of rows read in place and gathered
+   from the transposed view; the row level stacks at R = 1, 5 and 256 rows
+   of a k = 128 EDS against the K1 path they replace, timed beside it step
+   by step (gather, prefix build, K1, digest cat, K3) with their
+   dependency floor; K3's column subtrees and finishing levels of K9 at
+   k/R = 8/8, 32/4, 128/8; the tensor-core bit-GEMM kernels K5 and K8b at
+   every k = 1..128 and K5's row pass and K9a (n_in = k/R down to 1) for
+   both codecs; each kernel's
    time as the host issues it and its GPU time (queued behind a sleep)
    beside its bound, plain and library times, the bit-GEMM kernels' share
    of their tensor-core floor; K4's per-level latency, the slope of its GPU
@@ -45,9 +50,10 @@ Phases (any failure raises and the script exits non-zero):
    every proof verified against the data root; namespace data for every
    blob namespace and a share proof for every blob, equal to the plain
    path's; the same cells after the card's entry is dropped, served from
-   the EDS on the card (K1 + K3 over the touched rows, K4 for the root
-   tree, one K7b gather: each launched), and by the host prover from the
-   plain path's EDS, all with equal bytes.  Serving a block on the card
+   the EDS on the card (K2's row-set mode + K3 over the touched rows, K4
+   for the root tree, one K7b gather: each launched), and by the host
+   prover from the plain path's EDS, all with equal bytes.  K1 is launched
+   on no serving, miss or fraud path.  Serving a block on the card
    must make no host-prover call and no whole-EDS fetch.  Each path's
    launch counts are reset just before it and read just after; each kernel
    of the path must be > 0.  The warm k = 128 calls again, phase by phase
@@ -151,13 +157,15 @@ SOURCES = {
 EXTEND_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "rs_extend")
 SERVE_KERNELS = ("das_proof_gather",)
 # a block on the card with no cached entry (da/device_plane.py sample_proofs_from_eds)
-MISS_KERNELS = ("sha256_batch", "nmt_combine_level", "rfc6962_root", "das_proof_gather")
+MISS_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "das_proof_gather")
 # repair: decode, re-extension, verdicts, axis roots
 REPAIR_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_extend", "rs_repair_verdicts",
                   "nmt_leaf_digests", "nmt_combine_level")
 # fraud: detection (decode + verdicts), then the BEFP's orthogonal trees and gather
-FRAUD_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_repair_verdicts", "sha256_batch",
-                 "nmt_combine_level", "das_proof_gather")
+FRAUD_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_repair_verdicts",
+                 "nmt_leaf_digests", "nmt_combine_level", "das_proof_gather")
+# the row level stacks of serving, a miss and fraud are K2's row-set mode + K3
+OFF_PATH_KERNELS = ("sha256_batch",)
 CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root")
 # the sharded extension: K5's row pass, K9a, K9b, K2 windows, K3, K4
 SHARDED_KERNELS = ("rs_extend", "rs_col_parity_partial", "xor_reduce_slabs", "nmt_leaf_digests",
@@ -410,6 +418,19 @@ def main() -> int:
             compare("nmt_combine_level", got, want, f"k={kk} level {j} of the 4k trees")
         compare("nmt_combine_level", levels[-1][:, 0].reshape(2, 2 * kk, 90),
                 nmt.eds_nmt_roots_plain(eds), f"k={kk} roots")
+        # K2's row-set mode (+ K3): a scattered, unsorted set of rows read in
+        # place from the EDS, and gathered from its transposed view (drawn
+        # from a generator of their own: the seeded blocks below stay as
+        # they were)
+        row_set = np.random.default_rng([args.seed, kk]).permutation(2 * kk)[
+            : max(1, 2 * kk // 3)].tolist()
+        for view, how in ((eds, "in place"), (eds.transpose(0, 1), "gathered, transposed")):
+            want = nmt.eds_row_level_stack_plain(view, row_set)
+            got = nmt.eds_row_level_stack(view, row_set)
+            compare("nmt_leaf_digests", got[0], want[0], f"k={kk} row set {how}")
+            for lv_got, lv_want in zip(got[1:], want[1:]):
+                compare("nmt_combine_level", lv_got, lv_want,
+                        f"k={kk} row set {how}, level of {lv_want.shape[-2]}")
     # the one-level functions (K3 with one level) against those levels
     compare("nmt_combine_level", nmt.combine_grid(grid), levels[0], "k=128 combine_grid")
     compare("nmt_combine_level", nmt.combine_level(levels[0]), levels[1], "k=128 combine_level")
@@ -962,26 +983,68 @@ def main() -> int:
               f"1,979 TOPS), achieved {100 * share:.1f} % of it in {perf[name]['ms']:.4f} ms "
               f"(bound {perf[name]['bound_ms']:.4f} ms, plain {perf[name]['plain_ms']:.3f} ms, "
               f"library {perf[name]['library_ms']:.4f} ms) | {smi}")
-    # K1 + K3 over the rows of a proof (da/proof.py row_range_proofs): a
-    # namespace or blob spanning 5 rows of a k = 128 block
-    row_leaves = nmt.eds_row_leaves(eds, range(5))
-    for got, want in zip(nmt.nmt_level_stack(row_leaves), nmt.nmt_level_stack_plain(row_leaves)):
-        compare("nmt_combine_level", got, want, f"5-row level stack, level of {want.shape[-2]}")
-    rows_ms = time_ms(lambda: nmt.nmt_level_stack(row_leaves))
-    rows_gpu_ms = time_ms(lambda: nmt.nmt_level_stack(row_leaves), queued=True)
-    rows_plain_ms = time_ms(lambda: nmt.nmt_level_stack_plain(row_leaves), reps=3)
-    rows_bound, rows_by = bound(
-        row_leaves.numel() + 5 * (2 * n2 - 1) * 90,
-        5 * (n2 * compressions(542) + (n2 - 1) * compressions(181)) * SHA_OPS_PER_COMPRESSION,
-        INT32_OPS_PER_S,
-    )
-    print(f"nmt_level_stack, 5 rows at k=128 (K1, then K3 for {n2.bit_length() - 1} levels in "
-          f"one launch): {rows_ms:.4f} ms as issued (GPU time {rows_gpu_ms:.4f} ms), "
-          f"plain {rows_plain_ms:.3f} ms, bound {rows_bound:.4f} ms ({rows_by}), library none "
-          f"| {smi}")
-    results["row_level_stack_5_rows"] = {"ms": rows_ms, "gpu_ms": rows_gpu_ms,
-                                         "plain_ms": rows_plain_ms, "bound_ms": rows_bound,
-                                         "bound_by": rows_by}
+    # the row level stacks behind proofs, namespace data, BEFPs and DAS misses
+    # (ops/nmt.py eds_row_level_stack: K2's row-set mode, then K3) at R = 1, 5
+    # and 2k rows of the k = 128 EDS, as issued and GPU time.  Beside them,
+    # step by step, the K1 path they replace (gather, prefix build, K1, digest
+    # cat, K3, and the whole), K2 over the same rows taken as one window, and
+    # the row-set mode alone, in place and from a gathered block (da/proof.py
+    # keeps the rows K7b reads).  The dependency floor of a row stack: a
+    # leaf's 9 compressions and log2(2k) levels of 3, one after another
+    row_floor_ms = (compressions(542) + (n2.bit_length() - 1) * compressions(181)) * compression_ms
+    results["row_stacks"] = {"dependency_floor_ms": row_floor_ms}
+    for R in (1, 5, n2):
+        ab_rows = list(range(R))
+        ab_block, ab_idx = nmt.eds_rows(eds, ab_rows)
+        ab_leaves = nmt.row_leaves(ab_block, ab_idx)
+        ab_hash = nmt.rfc6962_leaf_hashes(ab_leaves)
+        ab_digests = nmt.leaf_digests(ab_leaves)
+        k1_path = nmt.nmt_level_stack(ab_leaves)
+        for got, want in zip(nmt.eds_row_level_stack(eds, ab_rows), k1_path):
+            compare("nmt_combine_level" if got.shape[-2] < n2 else "nmt_leaf_digests", got, want,
+                    f"{R}-row stack against the K1 path, level of {want.shape[-2]}")
+        compare("nmt_leaf_digests", nmt.row_leaf_digests(ab_block, ab_rows), ab_digests,
+                f"{R} gathered rows against the K1 path's leaf digests")
+        compare("nmt_leaf_digests", nmt.leaf_digests_window(eds[:R], 0), ab_digests,
+                f"window of rows 0..{R - 1} against the K1 path's leaf digests")
+        steps = {
+            "eds_rows": lambda: nmt.eds_rows(eds, ab_rows),
+            "prefix_build": lambda: nmt.row_leaves(ab_block, ab_idx),
+            "k1": lambda: nmt.rfc6962_leaf_hashes(ab_leaves),
+            "digest_cat": lambda: nmt._leaf_digests_with(lambda _: ab_hash, ab_leaves),
+            "k3": lambda: nmt.reduce_levels(ab_digests),
+            "k1_path": lambda: nmt.nmt_level_stack(nmt.eds_row_leaves(eds, ab_rows)),
+            "k2_window": lambda: nmt.leaf_digests_window(eds[:R], 0),
+            "k2_rows": lambda: nmt.row_leaf_digests(eds, ab_rows, in_place=True),
+            "k2_rows_block": lambda: nmt.row_leaf_digests(ab_block, ab_rows),
+            "k2_k3_path": lambda: nmt.eds_row_level_stack(eds, ab_rows),
+        }
+        ab = {name: {"ms": time_ms(fn), "gpu_ms": time_ms(fn, queued=True)}
+              for name, fn in steps.items()}
+        results["row_stacks"][R] = ab
+        print(f"row level stack, {R} rows at k=128 (floor {row_floor_ms:.4f} ms), ms as issued "
+              "[GPU]: " + ", ".join(f"{n} {v['ms']:.4f} [{v['gpu_ms']:.4f}]" for n, v in ab.items())
+              + f" | {smi}")
+        if R == 5:  # a namespace or blob spanning 5 rows of a k = 128 block
+            for got, want in zip(k1_path, nmt.nmt_level_stack_plain(ab_leaves)):
+                compare("sha256_batch" if got.shape[-2] == n2 else "nmt_combine_level", got, want,
+                        f"5-row K1 path against its plain version, level of {want.shape[-2]}")
+            rows_plain_ms = time_ms(lambda: nmt.eds_row_level_stack_plain(eds, ab_rows), reps=3)
+            rows_bound, rows_by = bound(
+                R * n2 * 512 + R * (2 * n2 - 1) * 90,
+                R * (n2 * compressions(542) + (n2 - 1) * compressions(181))
+                * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S,
+            )
+            new = ab["k2_k3_path"]
+            results["row_level_stack_5_rows"] = {**new, "plain_ms": rows_plain_ms,
+                                                 "bound_ms": rows_bound, "bound_by": rows_by,
+                                                 "dependency_floor_ms": row_floor_ms}
+            print(f"eds_row_level_stack, 5 rows at k=128 (K2's row-set mode, then K3 for "
+                  f"{n2.bit_length() - 1} levels in one launch): {new['ms']:.4f} ms as issued (GPU "
+                  f"time {new['gpu_ms']:.4f} ms = {new['gpu_ms'] / row_floor_ms:.2f}x its "
+                  f"dependency floor {row_floor_ms:.4f} ms), plain {rows_plain_ms:.3f} ms, bound "
+                  f"{rows_bound:.4f} ms ({rows_by}), library none | {smi}")
+    del ab_block, ab_idx, ab_leaves, ab_hash, ab_digests, k1_path
     # the outputs of the timed calls at the main path's k = 128 shapes
     compare("rs_decode_axes", scratch, scratch_plain, "k=128 rows of the 25 % mask")
     check(torch.equal(scratch, eds), "K8b did not restore the k=128 codeword's unknown cells")
@@ -1021,7 +1084,7 @@ def main() -> int:
     results["eds_nmt_roots_batch_8"] = {"ms": vmap_ms, "gpu_ms": vmap_gpu_ms,
                                         "plain_ms": vmap_plain_ms, "bound_ms": vmap_bound,
                                         "bound_by": vmap_by}
-    del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out, row_leaves
+    del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out
     del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
     del tops, coeffs9, g_cols9, partials9, slabs9, outs9, bits9
 
@@ -1189,6 +1252,8 @@ def main() -> int:
         after = kernels.launch_counts()
         for name in MISS_KERNELS:
             check(after[name] > before[name], f"kernel {name} was not launched on a miss on the card")
+        for name in OFF_PATH_KERNELS:
+            check(after[name] == before[name], f"kernel {name} was launched on a miss on the card")
         check(das.host_prover_calls() == 0, "the host prover served a block on the card")
         check([p.to_dict() for p in cold] == [p.to_dict() for p in warm],
               "proofs of a miss on the card differ from the gather's")
@@ -1214,6 +1279,8 @@ def main() -> int:
           f"{n_ns} namespaces, {n_share_proofs} share proofs; launches {serve_launches}")
     for name in SERVE_KERNELS:
         check(serve_launches[name] > 0, f"kernel {name} was not launched on the serving path")
+    for name in OFF_PATH_KERNELS:
+        check(serve_launches[name] == 0, f"kernel {name} was launched on the serving path")
     # the warm k = 128 calls again, phase by phase (outside the counted run)
     # the warm k = 128 calls again, phase by phase (outside the counted run):
     # the cell mode as the path runs it, then the table mode over the same
@@ -1408,6 +1475,8 @@ def main() -> int:
     check(fraud.detect_bad_encoding(full) is None, "fraud detected in an honest block")
     for name in FRAUD_KERNELS:
         check(fraud_launches[name] > 0, f"kernel {name} was not launched on the fraud path")
+    for name in OFF_PATH_KERNELS:
+        check(fraud_launches[name] == 0, f"kernel {name} was launched on the fraud path")
     detect_ms, build_ms = [], []
     for _ in range(REPAIR_RUNS):
         t0 = time.perf_counter()

@@ -100,6 +100,7 @@ def twin(tmp_path_factory):
     t.twin_rs_decode_axes_grouped.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I, I]
     t.twin_rs_repair_verdicts.argtypes = [_P, _P, _P, _P, _P, _P, I]
     t.twin_nmt_leaf_digests_window.argtypes = [_P, _P, I, I, I, I]
+    t.twin_nmt_leaf_digests_rows.argtypes = [_P, _P, I, I, _P, I]
     t.twin_rs_extend_rows.argtypes = [_P, _P, _P, _P, _P, I, I]
     t.twin_rs_col_parity_partial.argtypes = [_P, _P, _P, _P, _P, I, I, I]
     t.twin_xor_reduce_scatter.argtypes = [_P, I, _P, _P, I, LL, I, LL]
@@ -110,9 +111,9 @@ def twin(tmp_path_factory):
 _TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
             "ctt_rfc6962_root": "twin_rfc6962_levels"}
 # twins that return the C entry's verdict on its arguments (0: launched)
-_CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_reduce_levels", "twin_rfc6962_levels",
-                  "twin_rs_decode_matrices", "twin_das_proof_gather", "twin_das_cell_gather",
-                  "twin_xor_reduce_scatter")
+_CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_leaf_digests_rows",
+                  "twin_nmt_reduce_levels", "twin_rfc6962_levels", "twin_rs_decode_matrices",
+                  "twin_das_proof_gather", "twin_das_cell_gather", "twin_xor_reduce_scatter")
 
 
 def route_launches_to_twin(monkeypatch, twin) -> dict:

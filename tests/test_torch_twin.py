@@ -908,8 +908,9 @@ def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
     K3 and one K4 launch, the levels views of one packed buffer, the plane
     entry's bytes exact), the data root's wrappers (one K4 launch each,
     from the leaves or over given hashes, a batch of trees), the catch-up
-    roots of a batch, a proof's row level stack and the one-level
-    functions, against JAX and the plain path."""
+    roots of a batch, a proof's row level stack (K2's row-set mode and K3;
+    K1 and K3 over given prefixed leaves) and the one-level functions,
+    against JAX and the plain path."""
     rng = np.random.default_rng(1800 + k)
     eds = _random_eds(rng, k)
     n2 = 2 * k
@@ -951,13 +952,18 @@ def test_twin_runs_the_card_nmt_paths(twin, monkeypatch, jax_eds_levels, k):
     assert launched == {"nmt_leaf_digests": 1, "nmt_combine_level": 1}
     for b in range(2):
         np.testing.assert_array_equal(roots[b], jnmt.eds_nmt_roots_host(batch[b]))
-    # a proof's rows: K1 leaf digests, one K3 launch
+    # a proof's rows: K2's row-set mode from the EDS rows, one K3 launch
     launched.clear()
-    leaves = nmt.eds_row_leaves(torch.from_numpy(eds), range(min(3, n2)))
-    stack = nmt.nmt_level_stack(leaves)
-    assert launched == {"sha256_batch": 1, "nmt_combine_level": 1}
+    stack = nmt.eds_row_level_stack(torch.from_numpy(eds), range(min(3, n2)))
+    assert launched == {"nmt_leaf_digests": 1, "nmt_combine_level": 1}
     for j, (g, w) in enumerate(zip(stack, want)):
         np.testing.assert_array_equal(g.numpy(), w[0, : min(3, n2)], err_msg=f"level {j}")
+    # any prefixed leaves: K1 leaf digests, one K3 launch
+    launched.clear()
+    leaves = nmt.eds_row_leaves(torch.from_numpy(eds), range(min(3, n2)))
+    for j, (g, w) in enumerate(zip(nmt.nmt_level_stack(leaves), want)):
+        np.testing.assert_array_equal(g.numpy(), w[0, : min(3, n2)], err_msg=f"level {j}")
+    assert launched == {"sha256_batch": 1, "nmt_combine_level": 1}
     # the one-level functions are K3 with one level
     launched.clear()
     nodes = want[0][0]
