@@ -4,6 +4,10 @@ Copy of ``celestia_tpu/da/eds_cache.py`` for the port: its switches take
 the ``CELESTIA_TPU_TORCH_`` prefix, and the device-handle cache holds the
 port's ``DevicePlaneEntry`` (da/device_plane.py), whose tensors lie on the
 card (or on the CPU when the plane ran there), in one cache per device.
+The content-addressed cache is scoped by device too
+(:func:`content_cache`): the key is the JAX package's, but an App on the
+CPU and an App on the card in one process each look up their own cache,
+so neither is handed an EDS that lies on the other's device.
 
 The north-star workload runs ExtendBlock TWICE per block per validator:
 the proposer extends its own square in PrepareProposal and then
@@ -141,28 +145,42 @@ class EdsCache:
         }
 
 
-# The process-global instance every App / dah helper shares (content-
-# addressed keys make sharing across App instances in one process safe:
-# two apps that hash to the same key would compute the same bytes).
-CACHE = EdsCache()
+# One instance per device ("cuda:0", "cpu"), shared by every App on that
+# device (content-addressed keys make sharing across App instances in one
+# process safe: two apps that hash to the same key would compute the same
+# bytes).  Apps on different devices never share one: an entry's EDS lies
+# on the device that computed it.
+_CONTENT_CACHES: Dict[str, EdsCache] = {}  # guarded by _content_lock
+_content_lock = threading.Lock()
 
 
-def get(key: bytes):
-    return CACHE.get(key)
+def content_cache(device) -> EdsCache:
+    """The content-addressed cache of ``device``, made on first use."""
+    key = str(torch.device(device))
+    with _content_lock:
+        cache = _CONTENT_CACHES.get(key)
+        if cache is None:
+            cache = _CONTENT_CACHES[key] = EdsCache()
+        return cache
 
 
-def put(key: bytes, eds, dah) -> None:
-    CACHE.put(key, eds, dah)
+def get(key: bytes, device):
+    return content_cache(device).get(key)
+
+
+def put(key: bytes, eds, dah, device) -> None:
+    content_cache(device).put(key, eds, dah)
 
 
 def clear() -> None:
-    CACHE.clear()
-    for cache in _device_caches():
+    with _content_lock:
+        caches = list(_CONTENT_CACHES.values())
+    for cache in caches + _device_caches():
         cache.clear()
 
 
-def stats() -> dict:
-    return CACHE.stats()
+def stats(device) -> dict:
+    return content_cache(device).stats()
 
 
 # ---------------------------------------------------------------------------

@@ -89,6 +89,18 @@ Phases (any failure raises and the script exits non-zero):
    with two cards or more, a mesh over distinct cards too.  Medians of 5
    warm calls per (k, R), wall and phases (row pass, K9a, reduce-scatter,
    hashing, gathers, finish);
+4g. the App on the card (``state/app.py``, ``app_phase``): a proposer App
+   and a validator App on ``cuda:0`` from one seeded genesis, 2 heights at
+   GovMaxSquareSize 64 and 2 at 128 from seeded PayForBlobs streams that
+   overfill the square; CheckTx, prepare, process on the proposer (an
+   EDS-cache hit) and on the validator (cold), finalize on both.  Every
+   honest block accepted, equal app hashes, every data root equal to the
+   plain path's, no panic reject, the launches exactly 5 a cold extension.
+   Then a third App replays the heights over a 1 x 4 mesh that repeats the
+   card: process_proposal through the sharded leg and
+   validate_blocks_batched through the batched leg, every verdict accept,
+   each leg's launches exactly its shards'.  Medians of the prepare wall
+   (filter, build, extend) and of the process_proposal wall per k;
 5. the kernels line (JSON: time, bound, plain time, library time, launches
    summed over every path) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -264,6 +276,198 @@ def block_launches(calls: int, batched: bool = False) -> dict:
     counts.update({"rs_extend_batched" if batched else "rs_extend": 2 * calls},
                   nmt_leaf_digests=calls, nmt_combine_level=calls, rfc6962_root=calls)
     return counts
+
+
+APP_KEYS = 40  # funded signers of phase 4g: each signs one PayForBlobs in the run
+APP_PFBS = 10  # PayForBlobs a height at most (signing is host work)
+APP_CHAIN = "chip-smoke-1"
+APP_GENESIS_NS = 1_700_000_000 * 10**9
+APP_BLOCK_NS = 15 * 10**9
+
+
+def sum_counts(counts) -> dict:
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def app_phase(dev, sizes, seed: int, *, counted: bool) -> dict:
+    """Phase 4g, the App on ``dev``: a proposer App and a validator App from
+    one seeded genesis run one height for each square size in ``sizes``
+    (GovMaxSquareSize set to it on both Apps, as a passed proposal would),
+    from seeded PayForBlobs streams that overfill the square.  Each height:
+    CheckTx and prepare on the proposer, process on the proposer (an
+    EDS-cache hit) and on the validator (a cold extension: the validator is
+    another node, so the device's EDS cache is emptied before it), finalize
+    on both.  Every honest block is accepted, the app hashes agree, every
+    data root equals the plain path's (``device="cpu"``) and no panic turns
+    into a reject.  Then a mesh that repeats ``dev`` 4 times (1 x 4) and a
+    third App replay the same heights: each block's process_proposal
+    through the sharded leg, then each run of same-size heights through
+    validate_blocks_batched's batched leg, both cold, then finalize.
+
+    ``counted``: the device is a card, and each leg's kernel launches are
+    returned (read just after it, the counts set to 0 just before it).
+    Returns the launches, walls and breakdowns."""
+    import torch
+
+    from celestia_tpu_torch import kernels
+    from celestia_tpu_torch.da import dah, eds_cache, inclusion
+    from celestia_tpu_torch.da.blob import Blob, BlobTx
+    from celestia_tpu_torch.da.namespace import Namespace
+    from celestia_tpu_torch.parallel import mesh as provider
+    from celestia_tpu_torch.state.app import App
+    from celestia_tpu_torch.state.modules.blob import estimate_gas
+    from celestia_tpu_torch.state.tx import Fee, MsgPayForBlobs, Tx
+    from celestia_tpu_torch.utils.secp256k1 import PrivateKey
+
+    rng = np.random.default_rng(seed)
+    keys = [PrivateKey.from_seed(b"chip-smoke-app-%d" % i) for i in range(APP_KEYS)]
+    val_addr = PrivateKey.from_seed(b"chip-smoke-app-validator").public_key().address()
+    genesis = {
+        "chain_id": APP_CHAIN,
+        "genesis_time_ns": APP_GENESIS_NS,
+        "codec": "leopard-ff8",
+        "accounts": [{"address": k.public_key().address().hex(), "balance": 10**13}
+                     for k in keys],
+        "validators": [{"address": val_addr.hex(), "self_delegation": 10**9}],
+        "params": {"blob": {"GovMaxSquareSize": sizes[0]}},
+    }
+
+    def new_app():
+        app = App(chain_id=APP_CHAIN, device=dev)
+        app.init_chain(genesis)
+        return app
+
+    def pfb_stream(k: int, signers) -> list:
+        """PayForBlobs of 1-3 blobs, ~1.25x the square's blob capacity over
+        at most APP_PFBS txs, each from its own signer at sequence 0."""
+        per_blob = int(1.25 * k * k * 478 / (2 * APP_PFBS))
+        txs = []
+        for key in signers[:APP_PFBS]:
+            blobs = tuple(Blob(Namespace.v0(b"\x01" + rng.bytes(9)),
+                               rng.bytes(int(rng.integers(per_blob // 2, 3 * per_blob // 2))))
+                          for _ in range(int(rng.integers(1, 4))))
+            addr = key.public_key().address()
+            msg = MsgPayForBlobs(addr, tuple(b.namespace.raw for b in blobs),
+                                 tuple(len(b.data) for b in blobs),
+                                 tuple(inclusion.create_commitment(b) for b in blobs),
+                                 tuple(b.share_version for b in blobs))
+            gas = estimate_gas([len(b.data) for b in blobs])
+            acct = proposer.accounts.get(addr).account_number
+            tx = Tx((msg,), Fee(-(-gas * 2 // 1000) + 1, gas), key.public_key().compressed(), 0,
+                    acct)
+            txs.append(BlobTx(tx.signed(key, APP_CHAIN).marshal(), blobs).marshal())
+        return txs
+
+    def set_max_k(apps, k: int) -> None:
+        for app in apps:
+            if app.blob.gov_max_square_size() != k:
+                app.params.set("blob", "GovMaxSquareSize", k)
+
+    provider.configure("off")  # the single-device leg, whatever cards are visible
+    proposer, validator = new_app(), new_app()
+    cache = eds_cache.content_cache(dev)
+    heights, out = [], {"prepare": {}, "process_hit_ms": {}, "process_cold_ms": {},
+                        "prepare_wall_ms": {}, "key_ms": {}}
+    kernels.reset_launch_counts()
+    for i, k in enumerate(sizes):
+        height = 2 + i
+        set_max_k((proposer, validator), k)
+        txs = pfb_stream(k, keys[i * APP_PFBS:(i + 1) * APP_PFBS])
+        check(all(proposer.check_tx(raw).code == 0 for raw in txs), "CheckTx refused a PFB")
+        t0 = time.perf_counter()
+        prepared = proposer.prepare_proposal(txs)
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        check(prepared.square_size == k, f"the square filled to {prepared.square_size}, not {k}")
+        check(len(prepared.block_txs) < len(txs), "the stream did not overfill the square")
+        check(prepared.eds.tensor.device == torch.device(dev), "the EDS left the App's device")
+        block = (prepared.block_txs, prepared.square_size, prepared.data_root)
+        t0 = time.perf_counter()
+        hit = proposer.process_proposal(*block)
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        cache.clear()
+        t0 = time.perf_counter()
+        cold = validator.process_proposal(*block)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        check(hit == cold == (True, ""), f"an honest block was rejected: {hit}, {cold}")
+        time_ns = APP_GENESIS_NS + height * APP_BLOCK_NS
+        finals = [a.finalize_block(list(block[0]), height, time_ns, block[2], proposer=val_addr)
+                  for a in (proposer, validator)]
+        check(finals[0][2] == finals[1][2], f"app hashes differ at height {height}")
+        check(all(r.code == 0 for r in finals[0][0]), "a PFB of the block failed to deliver")
+        heights.append((height, block, prepared.square, finals[0][2]))
+        t0 = time.perf_counter()  # the extend leg's cache key: sha256 over the block's bytes
+        eds_cache.make_key(block[0], k, proposer.app_version, proposer.codec)
+        key_ms = (time.perf_counter() - t0) * 1e3
+        for name, ms in (("prepare_wall_ms", prepare_ms), ("process_hit_ms", hit_ms),
+                         ("process_cold_ms", cold_ms), ("key_ms", key_ms)):
+            out[name].setdefault(k, []).append(ms)
+        out["prepare"].setdefault(k, []).append(dict(proposer.last_prepare_breakdown))
+    out["launches"] = kernels.launch_counts()
+    if counted:
+        want = block_launches(2 * len(sizes))
+        check(out["launches"] == want, f"App launches {out['launches']} != {want}")
+    for app in (proposer, validator):
+        check(app.telemetry.counters.get("process_proposal_panic_reject", 0) == 0,
+              "a process_proposal panic was turned into a reject")
+    check(proposer.telemetry.counters.get("eds_cache_hit_process", 0) == len(sizes),
+          f"proposer EDS-cache hits {proposer.telemetry.counters.get('eds_cache_hit_process')}")
+    check(validator.telemetry.counters.get("eds_cache_miss_process", 0) == len(sizes),
+          "the validator's extensions were not cold")
+    for _, block, square, _ in heights:
+        _, plain = dah.extend_block(square, device="cpu")
+        check(plain.hash == block[2], f"the App's data root at k={block[1]} != the plain path's")
+    out["app_hashes"] = [h[3].hex() for h in heights]
+    out["data_roots"] = [h[1][2].hex() for h in heights]
+
+    # the mesh leg: a third App replays the heights over a 1 x 4 mesh of dev
+    provider.configure("1x4", devices=[dev] * 4)
+    try:
+        replay = new_app()
+        routed, batched = [], []
+        windows = []
+        for h in heights:
+            if windows and windows[-1][0][1][1] == h[1][1]:
+                windows[-1].append(h)
+            else:
+                windows.append([h])
+        for window in windows:
+            k = window[0][1][1]
+            set_max_k((replay,), k)
+            cache.clear()
+            kernels.reset_launch_counts()
+            verdicts = [replay.process_proposal(*block) for _, block, _, _ in window]
+            routed.append(kernels.launch_counts())
+            check(all(v == (True, "") for v in verdicts), f"mesh process_proposal: {verdicts}")
+            if counted:
+                want = sum_counts([sharded_launches_per_call(k, 4)] * len(window))
+                check(routed[-1] == want, f"sharded process launches {routed[-1]} != {want}")
+            cache.clear()
+            kernels.reset_launch_counts()
+            verdicts = replay.validate_blocks_batched([block for _, block, _, _ in window])
+            batched.append(kernels.launch_counts())
+            check(verdicts == [(True, "")] * len(window), f"validate_blocks_batched: {verdicts}")
+            if counted:
+                want = sharded_launches_per_call(k, 4)
+                check(batched[-1] == want, f"batched launches {batched[-1]} != {want}")
+            for height, block, _, app_hash in window:
+                got = replay.finalize_block(list(block[0]), height,
+                                            APP_GENESIS_NS + height * APP_BLOCK_NS, block[2],
+                                            proposer=val_addr)[2]
+                check(got == app_hash, f"the mesh replay's app hash differs at height {height}")
+        counters = replay.telemetry.counters
+        check(counters.get("extend_sharded", 0) == len(sizes), f"extend_sharded {counters}")
+        check(counters.get("extend_batched_blocks", 0) == len(sizes),
+              f"extend_batched_blocks {counters}")
+        check(counters.get("process_proposal_panic_reject", 0) == 0,
+              "a mesh process_proposal panic was turned into a reject")
+    finally:
+        provider.configure(None)
+    out["mesh_launches"] = sum_counts(routed + batched)
+    return out
 
 
 def bit_gemm_ops(rows: int, depth: int, cols: int) -> int:
@@ -1681,8 +1885,40 @@ def main() -> int:
     results["extend_and_header_sharded_ms"] = sharded_ms
     del meshes, batched, eds_s, eds_1
 
+    # --- 4g. the App on the card ---------------------------------------------
+    t_app = time.perf_counter()
+    app_sizes = [DEFAULT_GOV_MAX_SQUARE_SIZE] * 2 + [128] * 2
+    app_out = app_phase(dev, app_sizes, args.seed + 7, counted=True)
+    app_launches, app_mesh_launches = app_out["launches"], app_out["mesh_launches"]
+    for name in EXTEND_KERNELS:
+        check(app_launches[name] > 0, f"kernel {name} was not launched on the App path")
+    for name in SHARDED_KERNELS:
+        check(app_mesh_launches[name] > 0, f"kernel {name} was not launched on the App's mesh leg")
+    print(f"App path: {len(app_sizes)} heights (k={app_sizes}), proposer and validator on the "
+          f"card, every honest block accepted, app hashes equal, data roots equal to the plain "
+          f"path's, 0 panic rejects, proposer process = EDS-cache hit each height; launches "
+          f"{app_launches} (5 a cold extension); the 1x4 mesh replay: process_proposal sharded and "
+          f"validate_blocks_batched batched, every verdict accept, launches {app_mesh_launches}; "
+          f"in {time.perf_counter() - t_app:.2f} s")
+    app_ms = {}
+    for kk in sorted(set(app_sizes)):
+        bds = app_out["prepare"][kk]
+        med = {name: statistics.median(b[name] for b in bds) for name in bds[0]}
+        for name in ("prepare_wall_ms", "process_hit_ms", "process_cold_ms", "key_ms"):
+            med[name] = statistics.median(app_out[name][kk])
+        app_ms[kk] = med
+        print(f"App k={kk} (median of {len(bds)} heights): prepare wall "
+              f"{med['prepare_wall_ms']:.3f} ms = filter {med['filter_ms']:.3f}, build "
+              f"{med['build_ms']:.3f}, extend {med['extend_ms']:.3f} (its EDS-cache key "
+              f"{med['key_ms']:.3f}); process_proposal wall "
+              f"{med['process_cold_ms']:.3f} ms cold (validator), {med['process_hit_ms']:.3f} ms "
+              f"EDS-cache hit (proposer) | {smi}")
+    results["app_ms"] = app_ms
+    results["app_hashes"] = app_out["app_hashes"]
+    results["app_data_roots"] = app_out["data_roots"]
+
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
-             sharded_launches)
+             sharded_launches, app_launches, app_mesh_launches)
     launches = {name: sum(p[name] for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------

@@ -162,6 +162,54 @@ def test_sharded_extension_runs_with_jax_and_celestia_tpu_unimportable():
     assert proc.stdout.startswith("OK ")
 
 
+def test_app_block_runs_with_jax_and_celestia_tpu_unimportable():
+    """The App closure (state, modules, inclusion, the host utilities and
+    the native library) imports and runs one prepare -> process ->
+    finalize with jax and celestia_tpu unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['celestia_tpu'] = None\n"
+        "from celestia_tpu_torch.da import inclusion\n"
+        "from celestia_tpu_torch.da.blob import Blob, BlobTx\n"
+        "from celestia_tpu_torch.da.namespace import Namespace\n"
+        "from celestia_tpu_torch.state.app import App\n"
+        "from celestia_tpu_torch.state.modules.blob import estimate_gas\n"
+        "from celestia_tpu_torch.state.tx import Fee, MsgPayForBlobs, MsgSend, Tx\n"
+        "from celestia_tpu_torch.utils.secp256k1 import PrivateKey\n"
+        "key = PrivateKey.from_seed(b'isolated')\n"
+        "addr = key.public_key().address()\n"
+        "app = App(chain_id='iso-1', device='cpu')\n"
+        "app.init_chain({'chain_id': 'iso-1', 'genesis_time_ns': 10**18,\n"
+        "                'accounts': [{'address': addr.hex(), 'balance': 10**12}]})\n"
+        "blob = Blob(Namespace.v0(b'\\x01' * 10), b'\\x42' * 3000)\n"
+        "pfb = MsgPayForBlobs(addr, (blob.namespace.raw,), (3000,),\n"
+        "                     (inclusion.create_commitment(blob),), (0,))\n"
+        "gas = estimate_gas([3000])\n"
+        "tx = Tx((pfb,), Fee(gas, gas), key.public_key().compressed(), 0, 0)\n"
+        "btx = BlobTx(tx.signed(key, 'iso-1').marshal(), (blob,)).marshal()\n"
+        "send = Tx((MsgSend(addr, b'\\x02' * 20, 5),), Fee(300, 100_000),\n"
+        "          key.public_key().compressed(), 1, 0).signed(key, 'iso-1').marshal()\n"
+        "assert [app.check_tx(t).code for t in (btx, send)] == [0, 0]\n"
+        "p = app.prepare_proposal([btx, send])\n"
+        "assert len(p.block_txs) == 2 and p.eds.tensor.device.type == 'cpu'\n"
+        "assert app.process_proposal(p.block_txs, p.square_size, p.data_root) == (True, '')\n"
+        "res, end, app_hash = app.finalize_block(p.block_txs, 2, 10**18 + 15 * 10**9,\n"
+        "                                        p.data_root)\n"
+        "assert [r.code for r in res] == [0, 0] and len(app_hash) == 32\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
+        "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "print('OK', p.data_root.hex(), app_hash.hex())\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK ")
+
+
 def test_default_device_is_the_card():
     from celestia_tpu_torch.utils.device import resolve_device
 
