@@ -48,6 +48,35 @@ def codec_pair(request):
         yield codec
 
 
+@pytest.fixture(scope="module")
+def jitted_jax_level_stack():
+    """JAX ``nmt_level_stack`` under ``jax.jit``, traced with SHA-256's scans
+    unrolled once and compiled once per shape at LLVM optimisation level 0,
+    for the JAX package's share, tx and namespace proofs, which call it
+    eagerly (9-19 s a call on a CPU; the integer results are the same, only
+    the compile is shorter).  Restored afterwards."""
+    import jax
+
+    from celestia_tpu.ops import nmt as jnmt
+
+    eager = jnmt.nmt_level_stack
+    compiled = {}
+
+    def run(leaves):
+        key = tuple(leaves.shape)
+        if key not in compiled:
+            with sha_scan_unrolled_once():
+                lowered = jax.jit(eager).lower(leaves)
+            compiled[key] = lowered.compile(
+                compiler_options={"xla_backend_optimization_level": 0}
+            )
+        return compiled[key](leaves)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnmt, "nmt_level_stack", run)
+        yield
+
+
 @pytest.fixture(autouse=True, scope="module")
 def torch_one_thread():
     """One intra-op thread for torch: the suite runs several test workers

@@ -210,6 +210,44 @@ def test_app_block_runs_with_jax_and_celestia_tpu_unimportable():
     assert proc.stdout.startswith("OK ")
 
 
+def test_devnet_runs_with_jax_and_celestia_tpu_unimportable():
+    """The node layer and the clients (state/disk, node/*, client/*)
+    import with jax and celestia_tpu unimportable, and a TestNode on the
+    CPU takes a Signer's PayForBlob into a block and proves it."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['celestia_tpu'] = None\n"
+        "from celestia_tpu_torch.state import disk\n"
+        "from celestia_tpu_torch.node import (bft, bft_network, malicious, mempool,\n"
+        "                                     network, snapshots, testnode)\n"
+        "from celestia_tpu_torch.client import errors, signer, txsim\n"
+        "from celestia_tpu_torch.da.blob import Blob\n"
+        "from celestia_tpu_torch.da.namespace import Namespace\n"
+        "from celestia_tpu_torch.utils.secp256k1 import PrivateKey\n"
+        "key = PrivateKey.from_seed(b'isolated-devnet')\n"
+        "node = testnode.TestNode(funded_accounts=[(key, 10**12)], device='cpu',\n"
+        "                         genesis_time_ns=10**18)\n"
+        "s = signer.Signer(node, key)\n"
+        "res = s.submit_pay_for_blob([Blob(Namespace.v0(b'\\x01' * 10), b'\\x42' * 3000)])\n"
+        "assert res.code == 0 and res.height == node.height == 2\n"
+        "blk = node.block(2)\n"
+        "q = node.abci_query('custom/proof/share', {'height': 2, 'start': 0, 'end': 2})\n"
+        "assert q['data_root'] == blk.header.data_hash.hex()\n"
+        "assert node.app.device.type == 'cpu'\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
+        "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
+        "               if v is not None)\n"
+        "print('OK', blk.header.data_hash.hex(), blk.header.app_hash.hex())\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK ")
+
+
 def test_default_device_is_the_card():
     from celestia_tpu_torch.utils.device import resolve_device
 

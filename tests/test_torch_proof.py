@@ -13,7 +13,6 @@ same; only the compile is shorter), and the block's ranges touch 1, 2, 6
 or 8 rows so that few shapes are compiled.
 """
 
-import jax
 import numpy as np
 import pytest
 
@@ -23,8 +22,7 @@ from celestia_tpu.da import namespace_data as jnsd
 from celestia_tpu.da import proof as jproof
 from celestia_tpu.da import square as jsquare
 from celestia_tpu.da.namespace import Namespace as JNamespace
-from celestia_tpu.ops import nmt as jnmt
-from _torch_common import pinned_codec, torch_one_thread  # noqa: F401 (fixture)
+from _torch_common import jitted_jax_level_stack, pinned_codec, torch_one_thread  # noqa: F401 (fixture)
 from celestia_tpu_torch.da import blob, dah, das, eds_cache, namespace_data, proof, square
 from celestia_tpu_torch.da.namespace import Namespace
 from celestia_tpu_torch.ops import gf256
@@ -35,23 +33,9 @@ ABSENT = b"\x01" + bytes([5]) * 9  # between the first two: a row root covers it
 
 
 @pytest.fixture(scope="module", autouse=True)
-def jitted_jax_level_stack():
-    """JAX ``nmt_level_stack`` under ``jax.jit`` for the JAX proofs (see
-    the module docstring), restored afterwards."""
-    eager = jnmt.nmt_level_stack
-    compiled = {}
-
-    def run(leaves):
-        key = tuple(leaves.shape)
-        if key not in compiled:
-            compiled[key] = jax.jit(eager).lower(leaves).compile(
-                compiler_options={"xla_backend_optimization_level": 0}
-            )
-        return compiled[key](leaves)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jnmt, "nmt_level_stack", run)
-        yield
+def jax_proofs_jitted(jitted_jax_level_stack):
+    """Every JAX proof of this module through the jitted level stack."""
+    yield
 
 
 @pytest.fixture(scope="module", params=gf256.CODECS)
