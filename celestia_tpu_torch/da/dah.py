@@ -247,7 +247,9 @@ def extend_and_header(
     device for DAS serving).
 
     ``device=None`` runs on the card and raises when there is none;
-    ``device="cpu"`` runs the plain PyTorch twins."""
+    ``device="cpu"`` runs the plain PyTorch twins.  The devprof brackets
+    are the plane's (``extend_levels``); JAX's ``extend_and_roots`` bracket
+    (:585) sits on its non-plane leg, which the port does not have."""
     from celestia_tpu_torch.da import device_plane
 
     return device_plane.extend_and_header(square, device=device)
@@ -258,7 +260,7 @@ def new_data_availability_header(
 ) -> DataAvailabilityHeader:
     """da.NewDataAvailabilityHeader parity: roots + hash from an existing EDS."""
     dev = resolve_device(device)
-    roots = nmt_ops.eds_nmt_roots(eds.tensor.to(dev).contiguous()).cpu().numpy()
+    roots = nmt_ops.eds_nmt_roots_device(eds.tensor.to(dev).contiguous()).cpu().numpy()
     rows = tuple(roots[0, i].tobytes() for i in range(roots.shape[1]))
     cols = tuple(roots[1, i].tobytes() for i in range(roots.shape[1]))
     return DataAvailabilityHeader(

@@ -22,10 +22,13 @@ prover (da/das.py ``_sample_proof_uncached``).
 
 The port runs the plane on every device (``device="cpu"`` runs the plain
 twins), which is the JAX package's routing with an accelerator attached.
-It keeps none of the JAX module's degradation ladder (``poison`` /
-``clear_poison``), mode switch (``CELESTIA_TPU_DEVICE_PLANE``,
-``forced``), buffer donation or devprof/tracing calls: a kernel, build or
-gather that fails raises.  A block whose entry is not cached on the EDS's
+It keeps the JAX module's ``extend.device_plane`` span and its devprof
+brackets (the ``extend_levels`` upload and dispatch, the ``data_root`` and
+``roots`` fetch legs, which ride one copy here, and the
+``das_proof_gather`` dispatch and ``proof_gather`` fetch), and none of its
+degradation ladder (``poison`` / ``clear_poison``), mode switch
+(``CELESTIA_TPU_DEVICE_PLANE``, ``forced``) or buffer donation: a kernel,
+build or gather that fails raises.  A block whose entry is not cached on the EDS's
 device (evicted, never extended there) is served from the EDS:
 :func:`sample_proofs_from_eds` rebuilds the touched rows' level stacks and
 the root tree on the EDS's device and gathers with K7b; da/das.py keeps the
@@ -49,10 +52,12 @@ import numpy as np
 import torch
 
 from celestia_tpu_torch.appconsts import SHARE_SIZE as SHARE
-from celestia_tpu_torch.ops import gather
+from celestia_tpu_torch.ops import gather, gf256
 from celestia_tpu_torch.ops import nmt as nmt_ops
 from celestia_tpu_torch.ops import rs
+from celestia_tpu_torch.utils import devprof, tracing
 from celestia_tpu_torch.utils.device import resolve_device
+from celestia_tpu_torch.utils.telemetry import clock
 
 DIGEST = nmt_ops.NMT_DIGEST_SIZE  # 90
 HASH = 32  # an RFC-6962 node
@@ -207,18 +212,29 @@ def extend_and_header(square, device=None):
     )
 
     dev = resolve_device(device)
-    sq = _square_tensor(square, dev)
-    k = sq.shape[0]
+    k = int(square.shape[0])
     n2 = 2 * k
-    eds, grid, levels, root_tree = _extend_levels(sq)
-    host = torch.cat([levels[-1].reshape(-1), root_tree[-1]]).cpu().numpy()
-    rr = host[: 2 * n2 * DIGEST].reshape(2, n2, DIGEST)
-    data_root = host[2 * n2 * DIGEST :].tobytes()
-    dah = DataAvailabilityHeader(
-        tuple(rr[0, i].tobytes() for i in range(n2)),
-        tuple(rr[1, i].tobytes() for i in range(n2)),
-        data_root,
-    )
+    codec = gf256.active_codec()
+    with tracing.span("extend.device_plane", k=k, codec=codec):
+        t0 = clock()
+        sq = _square_tensor(square, dev)
+        devprof.record_transfer("extend_levels", "h2d", k * k * SHARE, (clock() - t0) * 1000.0)
+        d = devprof.dispatch("extend_levels", dev, k=k, codec=codec)
+        eds, grid, levels, root_tree = d.done(_extend_levels(sq))
+        # the axis roots and the data root cross in one copy (JAX fetches
+        # them in two, :245-248); the ledger keeps JAX's two legs
+        nroots = 2 * n2 * DIGEST
+        host = devprof.fetch(
+            "roots", torch.cat([levels[-1].reshape(-1), root_tree[-1]]),
+            legs=[("roots", nroots), ("data_root", HASH)],
+        ).numpy()
+        rr = host[:nroots].reshape(2, n2, DIGEST)
+        data_root = host[nroots:].tobytes()
+        dah = DataAvailabilityHeader(
+            tuple(rr[0, i].tobytes() for i in range(n2)),
+            tuple(rr[1, i].tobytes() for i in range(n2)),
+            data_root,
+        )
     eds_cache.put_device_entry(data_root, DevicePlaneEntry(k, data_root, eds, grid, levels, root_tree))
     return ExtendedDataSquare(eds), dah
 
@@ -351,8 +367,19 @@ def assemble_proofs(k: int, dah, coords, gathered: np.ndarray) -> list:
 
 
 def _serve(k: int, dah, coords, sources, tree_rows=None) -> list:
-    out = gather_cells(k, sources, coords, tree_rows)
-    return assemble_proofs(k, dah, coords, out.cpu().numpy())
+    lay = _cell_layout(k)
+    n = len(coords)
+    with tracing.span("das.device_gather", cells=n, k=k):
+        d = devprof.dispatch(
+            "das_proof_gather", sources[0].tensor.device, cells=n, k=k,
+            payload_bytes=n * (SHARE + HASH * lay.n_aunt + DIGEST * lay.n_sib),
+            record_bytes=n * lay.cell_bytes,
+        )
+        out = d.done(gather_cells(k, sources, coords, tree_rows))
+        # the proof paths cross in ONE copy: the only device-to-host copy
+        # of warm serving
+        host = devprof.fetch("proof_gather", out).numpy()
+    return assemble_proofs(k, dah, coords, host)
 
 
 def sample_proofs_batch(entry: DevicePlaneEntry, dah, coords: Sequence[Tuple[int, int]]) -> list:

@@ -536,6 +536,18 @@ def eds_nmt_roots(eds: torch.Tensor) -> torch.Tensor:
     return _eds_roots(eds, eds_leaf_digests, grid_levels)
 
 
+def eds_nmt_roots_device(eds: torch.Tensor) -> torch.Tensor:
+    """:func:`eds_nmt_roots` as a standalone dispatch, bracketed by devprof
+    (JAX ``eds_nmt_roots_device``, :118-131: the root pass of
+    ``da/dah.new_data_availability_header``).  Callers that run the roots
+    inside another bracket (repair's verification) or as JAX's unbracketed
+    ``vmap`` (the catch-up batch) call :func:`eds_nmt_roots` itself."""
+    from celestia_tpu_torch.utils import devprof
+
+    d = devprof.dispatch("eds_nmt_roots", eds.device, n2=int(eds.shape[-2]))
+    return d.done(eds_nmt_roots(eds))
+
+
 def empty_root_np() -> np.ndarray:
     """EmptyRoot: zeros ns range + sha256 of the empty string."""
     import hashlib

@@ -56,6 +56,7 @@ from celestia_tpu_torch import kernels
 from celestia_tpu_torch.appconsts import SHARE_SIZE, is_power_of_two
 from celestia_tpu_torch.ops import gf256
 from celestia_tpu_torch.ops import nmt as nmt_ops
+from celestia_tpu_torch.utils import devprof
 from celestia_tpu_torch.utils.device import resolve_device
 
 
@@ -245,9 +246,11 @@ def extend_squares_batched(squares: torch.Tensor) -> torch.Tensor:
     K5b on a CUDA tensor, the plain version on a CPU tensor."""
     codec = gf256.active_codec()
     gf256.mark_codec_used()
+    d = devprof.dispatch("rs_extend_batched", squares.device, k=int(squares.shape[1]),
+                         n=int(squares.shape[0]))
     if squares.device.type == "cpu":
-        return extend_batched_plain(squares, codec)
-    return extend_batched_cuda(squares, codec)
+        return d.done(extend_batched_plain(squares, codec))
+    return d.done(extend_batched_cuda(squares, codec))
 
 
 # ---------------------------------------------------------------------------
@@ -890,13 +893,18 @@ def repair_square_device(
     with_roots = row_roots is not None or col_roots is not None
     if events:
         events[0].record()
+    d = devprof.dispatch(
+        "rs_repair_verify", dev, k=k, phases=0 if schedule is None else len(schedule[0]),
+        axes=0 if schedule is None else int(schedule[1].sum() + schedule[3].sum()),
+        roots=with_roots,
+    )
     # every unavailable cell is written by the decode before any axis reads
     # it, so the repair starts from the provided bytes as they are (JAX
     # zeroes them first, :387: the same result)
     repaired = _repair_phases(provided.clone(), schedule, k, codec)
-    mismatch_dev, provided_dev, roots_dev = _repair_verify(
+    mismatch_dev, provided_dev, roots_dev = d.done(_repair_verify(
         repaired, provided, avail_dev, k, with_roots
-    )
+    ))
     if events:
         events[1].record()
     if dev.type == "cuda":

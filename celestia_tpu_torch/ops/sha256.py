@@ -122,10 +122,15 @@ def sha256_cuda(msgs: torch.Tensor, prefix: int = -1) -> torch.Tensor:
 def sha256(msgs: torch.Tensor) -> torch.Tensor:
     """SHA-256 of a batch of equal-length messages: uint8[..., L] -> uint8[..., 32].
 
-    The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    The kernel on a CUDA tensor, the plain version on a CPU tensor; a
+    standalone dispatch, so it carries the devprof bracket (JAX :144)."""
+    from celestia_tpu_torch.utils import devprof
+
+    d = devprof.dispatch("sha256_batch", msgs.device, msg_len=int(msgs.shape[-1]),
+                         n=msgs.numel() // max(1, msgs.shape[-1]))
     if msgs.device.type == "cpu":
-        return sha256_plain(msgs)
-    return sha256_cuda(msgs)
+        return d.done(sha256_plain(msgs))
+    return d.done(sha256_cuda(msgs))
 
 
 def sha256_batch_host(msgs: np.ndarray) -> np.ndarray:

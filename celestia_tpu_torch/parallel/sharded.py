@@ -42,8 +42,10 @@ EDS is reassembled on the mesh's first device (sharded.py:253-255).
 
 Nothing falls back: a failing build or launch raises, a square whose size
 does not split over the row axis raises, and no code moves the path to the
-CPU when the mesh is on cards.  The JAX module's devprof and tracing calls
-are not ported yet.
+CPU when the mesh is on cards.  The JAX module's ``extend.sharded`` span and
+devprof brackets are kept: the ``extend_sharded`` / ``extend_sharded_batch``
+upload and dispatch (on every device of the groups it runs on), and the
+``sharded_roots`` / ``sharded_results`` fetch legs.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from celestia_tpu_torch.ops import nmt as nmt_ops
 from celestia_tpu_torch.ops import rs
 from celestia_tpu_torch.parallel import collectives
 from celestia_tpu_torch.parallel import mesh as mesh_mod
+from celestia_tpu_torch.utils import devprof, tracing
 from celestia_tpu_torch.utils.device import resolve_device
 from celestia_tpu_torch.utils.lru import LruCache
 
@@ -308,6 +311,24 @@ def _extend_sharded(squares: np.ndarray, mesh: Mesh, groups: int,
     return run
 
 
+def _bracketed(name: str, squares: np.ndarray, mesh: Mesh, groups: int,
+               breakdown: dict = None) -> ShardedRun:
+    """:func:`_extend_sharded` under the ``extend.sharded`` span, its upload
+    charged to the ledger's ``name`` leg and the run bracketed as one
+    dispatch on every device of its groups (JAX :232-254, :296-316)."""
+    n, k = squares.shape[0], squares.shape[1]
+    codec = gf256.active_codec()
+    data_ax, row_ax = mesh.shape["data"], mesh.shape["row"]
+    args = dict(k=k, mesh=f"{data_ax}x{row_ax}", codec=codec)
+    if name == "extend_sharded_batch":
+        args["batch"] = n
+    with tracing.span("extend.sharded", mesh_data=data_ax, mesh_row=row_ax, **args):
+        devprof.record_transfer(name, "h2d", int(squares.nbytes))
+        d = devprof.dispatch(name, [dev for g in range(groups) for dev in mesh.devices[g]],
+                             multi_device=True, **args)
+        return d.done(_extend_sharded(squares, mesh, groups, breakdown))
+
+
 def _extend_and_roots_sharded_device(square: np.ndarray, mesh: Mesh, *,
                                      record_stats: bool = True,
                                      breakdown: dict = None) -> ShardedRun:
@@ -322,15 +343,16 @@ def _extend_and_roots_sharded_device(square: np.ndarray, mesh: Mesh, *,
     square = np.asarray(square, dtype=np.uint8)
     if square.ndim != 3:
         raise ValueError(f"square must be (k, k, {SHARE_SIZE}), got {square.shape}")
-    run = _extend_sharded(square[None], mesh, 1, breakdown)
+    run = _bracketed("extend_sharded", square[None], mesh, 1, breakdown)
     if record_stats:
         mesh_mod.record_sharded_extend()
     return run
 
 
-def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """The tensors on the host in one device-to-host copy."""
-    host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+def _fetch(leg: str, *tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors on the host in one device-to-host copy, charged to the
+    transfer ledger's ``leg``."""
+    host = devprof.fetch(leg, torch.cat([t.reshape(-1) for t in tensors])).numpy()
     out, off = [], 0
     for t in tensors:
         out.append(host[off : off + t.numel()].reshape(tuple(t.shape)))
@@ -344,7 +366,7 @@ def extend_and_roots_sharded(square: np.ndarray, mesh: Mesh, *, record_stats: bo
     90], data_root uint8[32]), all four in one copy.
     :func:`extend_and_header_sharded` keeps the EDS on the device."""
     run = _extend_and_roots_sharded_device(square, mesh, record_stats=record_stats)
-    eds, rr, cc, dr = _fetch(run.eds, run.row_roots, run.col_roots, run.data_roots)
+    eds, rr, cc, dr = _fetch("sharded_results", run.eds, run.row_roots, run.col_roots, run.data_roots)
     return eds[0], rr[0], cc[0], dr[0]
 
 
@@ -358,7 +380,7 @@ def _extend_and_roots_sharded_batch_device(squares: np.ndarray, mesh: Mesh, *,
     squares = np.asarray(squares, dtype=np.uint8)
     if squares.ndim != 4:
         raise ValueError(f"squares must be (n, k, k, {SHARE_SIZE}), got {squares.shape}")
-    run = _extend_sharded(squares, mesh, mesh.shape["data"], breakdown)
+    run = _bracketed("extend_sharded_batch", squares, mesh, mesh.shape["data"], breakdown)
     mesh_mod.record_sharded_extend(
         batched=True, squares=squares.shape[0] if count_squares is None else count_squares
     )
@@ -371,7 +393,7 @@ def extend_and_roots_sharded_batch(squares: np.ndarray, mesh: Mesh, *,
     2k, 512], row_roots uint8[n, 2k, 90], col_roots uint8[n, 2k, 90],
     data_roots uint8[n, 32]), in one copy."""
     run = _extend_and_roots_sharded_batch_device(squares, mesh, count_squares=count_squares)
-    return tuple(_fetch(run.eds, run.row_roots, run.col_roots, run.data_roots))
+    return tuple(_fetch("sharded_results", run.eds, run.row_roots, run.col_roots, run.data_roots))
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +422,7 @@ def extend_and_header_sharded(square: np.ndarray, mesh: Mesh):
     from celestia_tpu_torch.da.dah import ExtendedDataSquare
 
     run = _extend_and_roots_sharded_device(square, mesh)
-    rr, cc, dr = _fetch(run.row_roots, run.col_roots, run.data_roots)
+    rr, cc, dr = _fetch("sharded_roots", run.row_roots, run.col_roots, run.data_roots)
     return ExtendedDataSquare(run.eds[0]), _header_from_roots(rr[0], cc[0], dr[0])
 
 
@@ -420,7 +442,7 @@ def extend_and_headers_sharded_batch(squares: np.ndarray, mesh: Mesh, *,
     from celestia_tpu_torch.da.dah import ExtendedDataSquare
 
     run = _extend_and_roots_sharded_batch_device(squares, mesh, count_squares=count_squares)
-    rr, cc, drs = _fetch(run.row_roots, run.col_roots, run.data_roots)
+    rr, cc, drs = _fetch("sharded_roots", run.row_roots, run.col_roots, run.data_roots)
     return [
         (ExtendedDataSquare(run.eds[i]), _header_from_roots(rr[i], cc[i], drs[i]))
         for i in range(run.eds.shape[0])

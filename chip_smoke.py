@@ -51,8 +51,9 @@ default runs every phase and every check:
    ``das.sample_proofs_batch`` of 1,024 cells served by the K7b gather
    (cell mode: only the cells' (row, tree_row, col) go to the card),
    every proof verified against the data root; namespace data for every
-   blob namespace and a share proof for every blob, equal to the plain
-   path's; the same cells after the card's entry is dropped, served from
+   blob namespace and a share proof for every blob, each verified and equal
+   to the plain path's (its row level stacks hashed once a block); the
+   same cells after the card's entry is dropped, served from
    the EDS on the card (K2's row-set mode + K3 over the touched rows, K4
    for the root tree, one K7b gather: each launched), and by the host
    prover from the plain path's EDS, all with equal bytes.  K1 is launched
@@ -123,6 +124,19 @@ default runs every phase and every check:
    after it with the counts set to 0 just before it, and held to their
    prediction; walls of ``produce_block``, each query, the rebuild, each
    network height and the join;
+4i. the node as users start it (``service_phase``): ``NodeService`` over
+   ``TestNode(device=cuda:0)`` with tracing and devprof on, 3 heights at k
+   = 64 and 4 at 128 (one untraced, one under ``torch.profiler``), clients
+   through RemoteNode's request bytes to the service's handlers; data roots
+   equal to the plain path's, every served DAS, share and tx proof
+   verified; ``/healthz`` and ``/metrics`` over 127.0.0.1 with the dispatch
+   counts held to the launch counters, busy time, memory gauges and the
+   cost table; the TraceDump's device track under the host spans; the
+   card's busy and idle share of each ``produce_block``; then the CLI:
+   ``keys add``, ``init``, ``validate-genesis`` as subprocesses, ``start``
+   on the card serving gRPC as a subprocess, a client's ``tx
+   pay-for-blob`` and verified ``query share-proof`` and ``das-sample``,
+   SIGTERM and exit 0;
 5. the kernels line (JSON: time, bound, plain time, library time, launches
    summed over every path) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -134,8 +148,10 @@ port is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import hashlib
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -144,20 +160,18 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks: HBM3 bandwidth from NVIDIA's data sheet; the int32 rate is
-# 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# dense int8 tensor-core peak (NVIDIA's data sheet): the floor of the
-# bit-GEMM form that K5, K5b, K8b and K9a compute
-INT8_TENSOR_OPS_PER_S = 1979e12
-# 32-bit integer operations of one SHA-256 compression, counted from
-# csrc/sha256.cuh as sm_90 issues them: a rotate is one funnel shift, 3-input
-# logic one LOP3, and up to three addends (an immediate among them) one
-# IADD3.  A schedule word is sigma0 and sigma1 (2 SHF + SHR + LOP3 each) and
-# 2 IADD3 = 10; a round is Sigma1 4 + ch 1 + t1 2 + Sigma0 4 + maj 1 + e 1 +
-# a 1 = 14; then 8 final adds.
-SHA_OPS_PER_COMPRESSION = 48 * 10 + 64 * 14 + 8
+# the bound column's rates and formulas: the ones the port's cost table uses
+from celestia_tpu_torch.utils.devprof import (  # noqa: E402
+    INT8_TENSOR_OPS_PER_S,
+    INT32_OPS_PER_S,
+    SHA_OPS_PER_COMPRESSION,
+    bit_gemm_ops,
+    bound,
+    compressions,
+    decode_matrix_ops,
+    leopard_decode_ops,
+    leopard_extend_ops,
+)
 
 REPLACES = {
     "sha256_batch": "celestia_tpu/ops/sha256.py:100",
@@ -215,7 +229,7 @@ SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 # the phases --phases selects from; 3-4f share the seeded blocks and run together
-PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "5")
+PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "5")
 PHASE_GROUPS = {name: "4" for name in ("3", "4b", "4c", "4d", "4e", "4f")}
 DEVNET_NET_HEIGHTS = 4  # ValidatorNetwork heights of phase 4h (validator 1 proposes at 5)
 # the devnet's queries: DAS from the plane entry (K7b's cell mode), namespace
@@ -226,37 +240,6 @@ DEVNET_SERVE_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "das_proof_gath
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def compressions(msg_len: int) -> int:
-    return (msg_len + 9 + 63) // 64
-
-
-def leopard_extend_ops(k: int) -> int:
-    """32-bit operations of the least-work form of the Leopard (leopard-ff8)
-    extension, counted low: per codeword of k shares an IFFT and an FFT of
-    (k/2)*log2(k) butterflies ``x ^= y*w; y ^= x`` each, on 512-byte shares,
-    at 3 operations per 4-byte word (the multiply counted as one, two XORs),
-    for the 3k codewords of Q1, Q2 and Q3.  The JAX package's bit-lift
-    matrix form, 2*(8k)^2*3k*512 int8 operations, does far more work."""
-    butterflies = 2 * (k // 2) * (k.bit_length() - 1)
-    return 3 * k * butterflies * (512 // 4) * 3
-
-
-def leopard_decode_ops(k: int, axes: int) -> int:
-    """32-bit operations of the least-work Leopard erasure decode of
-    ``axes`` codewords, counted low as ``leopard_extend_ops`` counts the
-    extension: an IFFT and an FFT over the 2k positions,
-    (2k/2)*log2(2k) butterflies each, at 3 operations per 4-byte word."""
-    butterflies = 2 * k * ((2 * k).bit_length() - 1)
-    return axes * butterflies * (512 // 4) * 3
-
-
-def decode_matrix_ops(k: int, axes: int) -> int:
-    """Operations of building ``axes`` Lagrange decode matrices (K8a), each
-    term an XOR, a table lookup and an add: k^2 for the denominators, and
-    per output row k for its numerator sum and k for its entries."""
-    return axes * (k * k + 2 * (2 * k) * k) * 3
 
 
 def deep_peel_mask(k: int) -> np.ndarray:
@@ -312,6 +295,52 @@ APP_PFBS = 10  # PayForBlobs a height at most (signing is host work)
 APP_CHAIN = "chip-smoke-1"
 APP_GENESIS_NS = 1_700_000_000 * 10**9
 APP_BLOCK_NS = 15 * 10**9
+
+
+class PlainRowStacks:
+    """The plain path's row level stacks of an EDS's original rows (the rows
+    a namespace or a blob can cover), hashed once: one ``row_level_stack``
+    call over all k rows on the CPU, which hashes each row's tree apart from
+    the others.  Inside ``with``, the port's ``nmt.row_level_stack`` answers
+    a call on these rows' bytes with that batch's slice, so the plain
+    ``namespace_data`` and ``proof`` calls of a block cost their gathers, not
+    0.5 s of hashing each; any other call runs as it is.  The first answer
+    is also held against the call it stands in for."""
+
+    def __init__(self, eds):
+        from celestia_tpu_torch.ops import nmt as nmt_ops
+
+        self._nmt, self._k = nmt_ops, eds.square_size
+        self._rows = eds.tensor[: self._k]
+        self._levels, self._checked = None, False
+
+    def _serve(self, real):
+        import torch
+
+        def row_level_stack(src, rows, in_place=False):
+            ids = [int(r) for r in rows]
+            if (in_place or src.device.type != "cpu" or not ids or min(ids) < 0
+                    or max(ids) >= self._k or not torch.equal(src, self._rows[ids])):
+                return real(src, rows, in_place)
+            if self._levels is None:
+                self._levels = real(self._rows, range(self._k))
+            got = [level[ids] for level in self._levels]
+            if not self._checked:
+                want = real(src, rows, in_place)
+                check(len(got) == len(want) and all(map(torch.equal, got, want)),
+                      "the plain row stacks hashed once differ from the call's own")
+                self._checked = True
+            return got
+
+        return row_level_stack
+
+    def __enter__(self):
+        self._real = self._nmt.row_level_stack
+        self._nmt.row_level_stack = self._serve(self._real)
+        return self
+
+    def __exit__(self, *exc):
+        self._nmt.row_level_stack = self._real
 
 
 def pfb_blobs(rng, k: int, n: int) -> list:
@@ -752,10 +781,376 @@ def devnet_phase(dev, sizes, net_heights: int, seed: int, *, counted: bool) -> d
     return out
 
 
-def bit_gemm_ops(rows: int, depth: int, cols: int) -> int:
-    """int8 operations of a GF(2) bit-GEMM: G (rows x depth) times the
-    inputs' bit planes (depth x cols), a multiply and an add each."""
-    return 2 * rows * depth * cols
+SERVICE_CHAIN = "chip-smoke-service-1"
+# phase 4i's heights: (GovMaxSquareSize, how the height is observed): "traced"
+# with tracing on and devprof collecting; "first" traced too, a size's first
+# height, which takes its first allocations; "untraced" with both off, three
+# of them alternating with three traced heights at k = 128 (the cost of
+# tracing, median against median); "profiled" traced under a torch.profiler
+# capture
+SERVICE_PLAN = ((64, "first"), (64, "traced"), (64, "traced"),
+                (128, "first"), (128, "untraced"), (128, "traced"), (128, "untraced"),
+                (128, "traced"), (128, "untraced"), (128, "traced"), (128, "profiled"))
+
+
+def service_remote(service):
+    """A RemoteNode whose transport is ``service``'s handlers: the request
+    bytes RemoteNode sends go to the handler its RPC names, in process
+    (``NodeService``'s methods are the snake_case of the RPCs)."""
+    from celestia_tpu_torch.node.remote import RemoteNode
+    from celestia_tpu_torch.utils.telemetry import snake_case
+
+    class ServiceRemote(RemoteNode):
+        def __init__(self):
+            self.address, self.timeout_s, self._methods = "in-process", 120.0, {}
+            self.chain_id = self.status()["chain_id"]
+
+        def _call(self, method, payload):
+            return getattr(service, snake_case(method))(payload, None)
+
+        def _call_stream(self, method, payload):
+            yield from getattr(service, snake_case(method))(payload, None)
+
+    return ServiceRemote()
+
+
+def cli_run(home: str, *argv: str) -> str:
+    """``python -m celestia_tpu_torch.cli --home home argv...`` from the
+    checkout's root; raises unless it exits 0; its standard output."""
+    from pathlib import Path
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "celestia_tpu_torch.cli", "--home", home, *argv],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300,
+    )
+    check(proc.returncode == 0, f"cli {' '.join(argv)} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def cli_in_process(home: str, *argv: str) -> str:
+    """A client command through the CLI's ``main`` in this process (its
+    standard output); raises unless it returns 0.  A client command reads no
+    device switch: its own process would add only imports (seconds each),
+    and the node's boundary is the same gRPC."""
+    import io
+
+    from celestia_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--home", home, *argv])
+    check(rc == 0, f"cli {' '.join(argv)} returned {rc}")
+    return out.getvalue()
+
+
+def cli_node(home: str, dev) -> dict:
+    """``cli start`` on ``dev`` as a subprocess (the card unless ``dev`` is
+    the CPU, then under ``CELESTIA_TPU_TORCH_DEVICE=cpu``) serving gRPC on
+    127.0.0.1; ``cli tx pay-for-blob`` from the home's key, ``cli query
+    block`` and ``cli query share-proof`` over the blob's block, the proof
+    verified against its data root, ``cli query das-sample`` of 16 cells
+    verified; then SIGTERM, and the node must exit 0.  The client commands
+    run through :func:`cli_in_process`.  Returns the walls (s) of the boot
+    and of the client commands."""
+    import os
+    import select
+    import signal
+    import socket
+    from pathlib import Path
+
+    import torch
+
+    from celestia_tpu_torch.da.proof import ShareInclusionProof
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = "127.0.0.1:%d" % sock.getsockname()[1]
+    env = dict(os.environ)
+    env.pop("CELESTIA_TPU_TORCH_DEVICE", None)
+    if torch.device(dev).type == "cpu":
+        env["CELESTIA_TPU_TORCH_DEVICE"] = "cpu"
+    walls = {}
+    t0 = time.perf_counter()
+    with open(os.path.join(home, "start.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "celestia_tpu_torch.cli", "--home", home, "start",
+             "--grpc-address", addr, "--block-interval", "0.2"],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=log, text=True,
+            env=env,
+        )
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], 300)
+            check(bool(ready), "cli start printed no address within 300 s")
+            started = json.loads(proc.stdout.readline())
+            check(started["grpc"] == addr, f"cli start serves {started}, not {addr}")
+            walls["boot"] = time.perf_counter() - t0
+            for name, argv in (
+                ("pay_for_blob", ("tx", "--node", addr, "--from", "alice", "pay-for-blob",
+                                  "c1105e0000", (b"chip-smoke" * 300).hex())),
+            ):
+                t1 = time.perf_counter()
+                tx = json.loads(cli_in_process(home, *argv))
+                walls[name] = time.perf_counter() - t1
+            check(tx["code"] == 0 and tx["height"] > 0, f"cli tx pay-for-blob: {tx}")
+            t1 = time.perf_counter()
+            blk = json.loads(cli_in_process(home, "query", "--node", addr, "block",
+                                            str(tx["height"])))
+            got = json.loads(cli_in_process(home, "query", "--node", addr, "share-proof",
+                                            str(tx["height"]), "0", "2"))
+            check(ShareInclusionProof.from_dict(got["proof"]).verify(
+                bytes.fromhex(blk["data_root"])), "cli query share-proof does not verify")
+            sampled = json.loads(cli_in_process(home, "query", "--node", addr, "das-sample",
+                                                str(tx["height"]), "--samples", "16"))
+            walls["queries"] = time.perf_counter() - t1
+            check(sampled["available"] and sampled["verified"] == 16 and not sampled["failed"],
+                  f"cli query das-sample: {sampled}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            check(rc == 0, f"cli start exited {rc} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    return walls
+
+
+def service_phase(dev, seed: int) -> dict:
+    """Phase 4i, the node as users start it (node/server.py, node/remote.py,
+    utils/devprof.py, cli.py).
+
+    ``NodeService(TestNode(device=dev))`` with tracing on and devprof
+    collecting runs the heights of ``SERVICE_PLAN``: each height's seeded
+    PayForBlobs and two sends are signed by the port's Signer over a
+    RemoteNode whose transport is the service's handlers (so the service's
+    ``broadcast`` handler takes the wire bytes RemoteNode sends), then
+    ``produce_block`` cuts the block; its data root equals the plain path's.
+    Each height answers a ``das_sample_batch`` of DEVNET_CELLS cells, a share
+    proof and a tx proof through the service's handlers, each verified
+    against the data root.  The metrics exposition is fetched over HTTP from
+    ``_MetricsHTTPServer`` on 127.0.0.1 with ``/healthz``; the TraceDump
+    document is validated and must hold ``device.extend_levels`` spans on a
+    ``device:<dev>`` track under ``extend.device_plane``.  Devprof's
+    occupancy probe gives the device's busy share of each ``produce_block``
+    wall; three untraced k = 128 heights, each between two traced ones,
+    price tracing; one traced height runs under a ``torch.profiler``
+    capture.  Then the CLI as subprocesses:
+    ``keys add``, ``init --fund-keyring``, ``validate-genesis``, and
+    :func:`cli_node` (``start`` serving gRPC, a client's PayForBlob and a
+    verified share proof, SIGTERM).
+
+    ``dev`` is a card: the dispatch counts are held to the launch counters
+    (``extend_levels`` one per traced height's cold extension,
+    ``das_proof_gather`` one per K7b launch of the DAS calls) and the
+    produce legs' launches to ``block_launches``."""
+    import re
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from celestia_tpu_torch import kernels
+    from celestia_tpu_torch.client.signer import Signer, SubmitResult
+    from celestia_tpu_torch.da import dah, das, proof
+    from celestia_tpu_torch.da.square import construct
+    from celestia_tpu_torch.node.server import NodeService, _MetricsHTTPServer
+    from celestia_tpu_torch.node.testnode import TestNode
+    from celestia_tpu_torch.parallel import mesh as provider
+    from celestia_tpu_torch.state.tx import MsgSend
+    from celestia_tpu_torch.utils import devprof, tracing
+    from celestia_tpu_torch.utils.secp256k1 import PrivateKey
+
+    class BroadcastOnly(Signer):
+        """The port's Signer without its confirmation poll: the phase cuts
+        the blocks itself."""
+
+        def confirm_tx(self, tx_hash, **kw):
+            return SubmitResult(0, "", tx_hash)
+
+    dev = torch.device(dev)
+    rng = np.random.default_rng(seed)
+    keys = [PrivateKey.from_seed(b"chip-smoke-service-%d" % i)
+            for i in range(APP_PFBS * len(SERVICE_PLAN))]
+    senders = [PrivateKey.from_seed(b"chip-smoke-service-send-%d" % i) for i in range(2)]
+    validator = PrivateKey.from_seed(b"chip-smoke-service-validator")
+    funded = [(k, 10**13) for k in keys + senders]
+    genesis = {
+        "chain_id": SERVICE_CHAIN, "genesis_time_ns": APP_GENESIS_NS, "codec": "leopard-ff8",
+        "accounts": [{"address": k.public_key().address().hex(), "balance": b} for k, b in funded],
+        "validators": [{"address": validator.public_key().address().hex(),
+                        "self_delegation": 10**9}],
+        "params": {"blob": {"GovMaxSquareSize": max(k for k, _ in SERVICE_PLAN)}},
+    }
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = {"produce_ms": {}, "height_ms": [], "prepare": {}, "query_ms": {}, "busy_pct": [],
+           "launches": []}
+    served_dispatches = k7b_launches = 0
+    blocks = []
+    provider.configure("off")
+    node = TestNode(chain_id=SERVICE_CHAIN, genesis=genesis, validator_key=validator,
+                    device=dev, auto_produce=False)
+    svc = NodeService(node)
+    remote = service_remote(svc)
+    http = _MetricsHTTPServer(svc, "127.0.0.1", 0)
+    http.start()
+    tracing.enable()
+    devprof.reset()
+    try:
+        senders_ = [BroadcastOnly(remote, k) for k in senders]
+        for i, (k, mode) in enumerate(SERVICE_PLAN):
+            if node.app.blob.gov_max_square_size() != k:
+                node.app.params.set("blob", "GovMaxSquareSize", k)
+            for key, blobs in zip(keys[i * APP_PFBS:(i + 1) * APP_PFBS],
+                                  pfb_blobs(rng, k, APP_PFBS)):
+                res = BroadcastOnly(remote, key).submit_pay_for_blob(list(blobs))
+                check(res.code == 0, f"a PayForBlobs was refused by the service: {res.log}")
+            for s in senders_:
+                res = s.submit_tx([MsgSend(s.address, rng.bytes(20), int(rng.integers(1, 10**4)))])
+                check(res.code == 0, f"a send was refused by the service: {res.log}")
+            if mode == "untraced":
+                tracing.disable()
+            if mode == "profiled":
+                profile_dir = tempfile.mkdtemp(prefix="chip-smoke-profile-")
+                devprof.start_profiler(profile_dir)
+            c0 = kernels.launch_counts()
+            sync()
+            devprof.occupancy_probe()
+            t0 = time.perf_counter()
+            blk = node.produce_block()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            busy = devprof.occupancy_probe()
+            launches = {n: c - c0[n] for n, c in kernels.launch_counts().items()}
+            if mode == "profiled":
+                trace_path = devprof.stop_profiler()
+            if mode == "untraced":
+                tracing.enable()
+            else:
+                out["busy_pct"].append(busy)
+            out["launches"].append(launches)
+            out["produce_ms"].setdefault(f"{k} {mode}", []).append(ms)
+            out["height_ms"].append(ms)
+            out["prepare"].setdefault(k, []).append(dict(node.app.last_prepare_breakdown))
+            h, root = blk.header.height, blk.header.data_hash
+            check(blk.header.square_size == k, f"height {h} filled to {blk.header.square_size}")
+            blocks.append(blk)
+            # the queries, through the service's handlers as RemoteNode sends them
+            cells = [(int(r), int(c)) for r, c in rng.integers(0, 2 * k, (DEVNET_CELLS, 2))]
+            before = devprof.device_profile()["dispatches"].get("das_proof_gather", 0)
+            k7b0 = kernels.launch_counts()["das_proof_gather"]
+            t0 = time.perf_counter()
+            ans = remote.das_sample_batch(h, cells)
+            out["query_ms"].setdefault("das_sample_batch", []).append(
+                (time.perf_counter() - t0) * 1e3)
+            served_dispatches += devprof.device_profile()["dispatches"].get(
+                "das_proof_gather", 0) - before
+            k7b_launches += kernels.launch_counts()["das_proof_gather"] - k7b0
+            check(len(ans["proofs"]) == DEVNET_CELLS and all(
+                das.SampleProof.from_dict(p).verify(root) for p in ans["proofs"]),
+                f"a DAS proof served by the service does not verify at height {h}")
+            start = k * int(rng.integers(0, k - 1)) + k - 4
+            for name, path, args in (
+                ("proof/share", "custom/proof/share", {"height": h, "start": start,
+                                                       "end": start + 8}),
+                ("proof/tx", "custom/proof/tx", {"height": h, "tx_index": len(blk.txs) - 1}),
+            ):
+                t0 = time.perf_counter()
+                got = remote.abci_query(path, args)
+                out["query_ms"].setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+                check(proof.ShareInclusionProof.from_dict(got["proof"]).verify(root),
+                      f"a {name} answer served by the service does not verify at height {h}")
+        # --- HTTP: healthz and the exposition --------------------------------
+        base = f"http://{http.address}"
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok", f"/healthz: {health}")
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            exposition = r.read().decode()
+        metrics = {}
+        for line in exposition.splitlines():
+            m = re.match(r"^([a-z_]+)(\{[^}]*\})? (\S+)$", line)
+            if m:
+                metrics[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+        traced = sum(mode != "untraced" for _, mode in SERVICE_PLAN)
+        want = {"extend_levels": traced, "das_proof_gather": k7b_launches}
+        for name, n in want.items():
+            got = metrics.get(f"celestia_tpu_span_device_{name}_seconds_count", 0)
+            check(got == n, f"the exposition counts {got} {name} dispatches, predicted {n}")
+        check(served_dispatches == want["das_proof_gather"],
+              f"das_proof_gather dispatches {served_dispatches} != K7b launches {k7b_launches}")
+        key = f"{dev.type}:{dev.index or 0}"
+        check(metrics.get(f'celestia_tpu_device_busy_ms{{device="{key}"}}', 0) > 0,
+              "no device busy time in the exposition")
+        if dev.type == "cuda":
+            for gauge in ("celestia_tpu_device_mem_bytes_in_use",
+                          "celestia_tpu_device_mem_peak_bytes"):
+                check(metrics.get(gauge, 0) > 0, f"{gauge} is not > 0")
+        profile = devprof.device_profile()
+        for name in profile["dispatches"]:
+            check(f'celestia_tpu_kernel_bytes{{kernel="{name}"}}' in metrics,
+                  f"no cost-table row for dispatch {name}")
+        # --- the trace -------------------------------------------------------
+        doc = json.loads(svc.trace_dump(b"{}", None))["trace"]
+        problems = tracing.validate_chrome_trace(doc)
+        check(not problems, f"the TraceDump document is invalid: {problems[:5]}")
+        events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        by_id = {e["args"].get("span_id"): e for e in events if "span_id" in e.get("args", {})}
+        track = {e["tid"] for e in doc["traceEvents"] if e.get("ph") == "M"
+                 and e.get("args", {}).get("name") == f"device:{key}"}
+        device_spans = [e for e in events if e["name"] == "device.extend_levels"]
+        check(track and device_spans and all(e["tid"] in track for e in device_spans),
+              f"no device.extend_levels spans on a device:{key} track")
+        check(all(by_id.get(e["args"].get("parent_id"), {}).get("name") == "extend.device_plane"
+                  for e in device_spans),
+              "a device.extend_levels span is not a child of extend.device_plane")
+        out["trace"] = {"events": len(doc["traceEvents"]), "device_spans": len(device_spans)}
+        out["exposition_lines"] = len(exposition.splitlines())
+        out["cost_table"] = profile["kernels"]
+        out["transfers"] = devprof.transfer_accounting()
+        out["dispatches"] = profile["dispatches"]
+        out["mem"] = profile["mem"]
+    finally:
+        http.stop()
+        tracing.disable()
+        provider.configure(None)
+    # the plain path's data roots, outside the traced window
+    for blk in blocks:
+        square, _, _ = construct(blk.txs, blk.header.square_size)
+        check(dah.extend_block(square, device="cpu")[1].hash == blk.header.data_hash,
+              f"the served node's data root at height {blk.header.height} != the plain path's")
+    # --- the torch.profiler capture ------------------------------------------
+    with open(trace_path) as f:
+        captured = json.load(f)
+    kernels_us = {}
+    for e in captured.get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            kernels_us[e["name"]] = kernels_us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    out["profiler_kernels_ms"] = {n: us / 1e3 for n, us in sorted(kernels_us.items())}
+    # --- the CLI as subprocesses -----------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as home:
+        cli_run(home, "keys", "add", "alice")
+        cli_run(home, "init", "--chain-id", "chip-smoke-cli-1", "--fund-keyring", "1000000000")
+        cli_run(home, "validate-genesis")
+        out["cli"] = cli_node(home, dev)
+    out["cli_s"] = time.perf_counter() - t0
+    # tracing's cost with the walls' drift over the heights taken out: each
+    # untraced height between two traced ones of its size against their mean
+    walls = out["height_ms"]
+    out["tracing_cost_ms"] = [
+        (walls[i - 1] + walls[i + 1]) / 2 - walls[i]
+        for i, (k, mode) in enumerate(SERVICE_PLAN[1:-1], 1)
+        if mode == "untraced" and SERVICE_PLAN[i - 1] == SERVICE_PLAN[i + 1] == (k, "traced")
+    ]
+    for (k, mode), launches in zip(SERVICE_PLAN, out["launches"]):
+        check(launches == block_launches(1), f"the {mode} height at k={k} launched "
+              f"{launches}, predicted {block_launches(1)}")
+    return out
 
 
 def kernel_sass_mix(kernel: str) -> dict:
@@ -791,11 +1186,6 @@ def kernel_sass_mix(kernel: str) -> dict:
                                               "STG", "LDL", "STL", "BAR")},
                     "longest_load_free_runs": runs[:3]}
     raise AssertionError(f"no kernel {kernel} in the built library's SASS")
-
-
-def bound(nbytes: float, ops: float, ops_rate: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def main() -> int:
@@ -844,6 +1234,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s)")
     results["device"] = smi
     results["build_seconds"] = kernels.build_seconds
+    # the node service's transport needs grpc; whether this machine has it
+    # decides which form of phase 4i runs (PERF.md says which ran)
+    grpc_found = importlib.util.find_spec("grpc") is not None
+    print(f"grpc: {'importable' if grpc_found else 'not importable'} on this machine")
+    results["grpc"] = grpc_found
 
     def upload(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -877,7 +1272,7 @@ def main() -> int:
     # the launches of every path; a path of an unselected phase launched nothing
     extend_launches = serve_launches = repair_launches = fraud_launches = {}
     catchup_launches = sharded_launches = app_launches = app_mesh_launches = {}
-    devnet_launches = {}
+    devnet_launches = service_launches = {}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         torch.cuda.synchronize()
@@ -1727,16 +2122,19 @@ def main() -> int:
                 check(res.available and res.verified == SAMPLES,
                       f"light client {sd}: {res.verified}/{SAMPLES} verified, {res.failed[:2]}")
             ranges = blob_ranges(sq_p)
+            plain_stacks = PlainRowStacks(eds_plain)
             for ns in sorted({r[0] for r in ranges}):
                 got = namespace_data.get_shares_by_namespace(eds_g, dah_g, ns)
                 check(got.verify(dah_g), "namespace data does not verify")
-                want = namespace_data.get_shares_by_namespace(eds_plain, dah_plain, ns)
+                with plain_stacks:
+                    want = namespace_data.get_shares_by_namespace(eds_plain, dah_plain, ns)
                 check(got.to_dict() == want.to_dict(), "namespace data differs from the plain path")
                 n_ns += 1
             for _, start, end in ranges:
                 got = proof.new_share_inclusion_proof(eds_g, dah_g, start, end)
                 check(got.verify(dah_g.hash), "share proof does not verify")
-                want = proof.new_share_inclusion_proof(eds_plain, dah_plain, start, end)
+                with plain_stacks:
+                    want = proof.new_share_inclusion_proof(eds_plain, dah_plain, start, end)
                 check(got.to_dict() == want.to_dict(), "share proof differs from the plain path")
                 n_share_proofs += 1
             check(das.host_prover_calls() == 0, "the host prover served a warm block")
@@ -1772,7 +2170,8 @@ def main() -> int:
             print(f"serve block k={kk}: {len(coords)} cells from the gather in {warm_s * 1e3:.2f} ms, "
                   f"from the EDS on the card (no entry) {cold_s * 1e3:.2f} ms, host prover "
                   f"{host_s * 1e3:.2f} ms; {len(ranges)} blobs in "
-                  f"{len({r[0] for r in ranges})} namespaces proven and equal to the plain path")
+                  f"{len({r[0] for r in ranges})} namespaces proven, each equal to the plain "
+                  "path's")
         torch.cuda.synchronize()
         serve_launches = kernels.launch_counts()
         print(f"serving path: {len(main_out)} blocks in {time.perf_counter() - t_serve:.2f} s; "
@@ -2255,8 +2654,54 @@ def main() -> int:
                              "net_height_ms": dn["net_height_ms"], "join_ms": dn["join_ms"],
                              "launches": dl, "node": dn["node"], "network": dn["network"]}
 
+    if "4i" in selected:
+        t_svc = time.perf_counter()
+        kernels.reset_launch_counts()
+        sv = service_phase(dev, args.seed + 12)
+        service_launches = kernels.launch_counts()
+        for name in EXTEND_KERNELS + SERVE_KERNELS:
+            check(service_launches[name] > 0, f"kernel {name} was not launched by the node service")
+        med = {k: statistics.median(v) for k, v in sv["produce_ms"].items()}
+        qmed = {q: statistics.median(v) for q, v in sv["query_ms"].items()}
+        busy = [b for b in sv["busy_pct"] if b is not None]
+        print(f"node service: NodeService(TestNode) on the card, {len(SERVICE_PLAN)} heights "
+              f"({', '.join(f'k={k} {m}' for k, m in SERVICE_PLAN)}) signed by the Signer over "
+              "the service's handlers, data roots equal to the plain path's, every served DAS, "
+              "share and tx proof verified; /healthz ok and /metrics over 127.0.0.1 with the "
+              "predicted dispatch counts (extend_levels = the traced heights' cold extensions, "
+              "das_proof_gather = K7b's launches), busy ms, memory gauges and a cost-table row a "
+              f"dispatch; TraceDump valid with {sv['trace']['device_spans']} device.extend_levels "
+              f"spans under extend.device_plane; CLI keys add, init, validate-genesis, then "
+              f"start on the card serving gRPC, tx pay-for-blob, query block, share-proof and "
+              f"das-sample (verified), SIGTERM and exit 0 ({sv['cli_s']:.1f} s; boot, tx, queries "
+              f"{', '.join(f'{v:.2f}' for v in sv['cli'].values())} s); in "
+              f"{time.perf_counter() - t_svc:.2f} s")
+        print("node service walls (ms, medians): produce_block "
+              + ", ".join(f"k={k} {v:.3f}" for k, v in med.items())
+              + "; queries " + ", ".join(f"{q} {v:.3f}" for q, v in qmed.items())
+              + f" | {smi}")
+        traced_ms, untraced_ms = sv["produce_ms"]["128 traced"], sv["produce_ms"]["128 untraced"]
+        print(f"node service tracing's cost at k=128: produce_block traced {traced_ms}, untraced "
+              f"{untraced_ms} ms (in plan order, alternating); median traced - median untraced "
+              f"{med['128 traced'] - med['128 untraced']:.3f} ms; each untraced height against "
+              f"the mean of its traced neighbours (a drift linear in the height cancels) "
+              f"{[round(v, 3) for v in sv['tracing_cost_ms']]} ms | {smi}")
+        print("node service device busy share of each traced produce_block (%, occupancy "
+              f"probe): {busy}; idle {[round(100.0 - b, 2) for b in busy]} | {smi}")
+        print(f"node service launches: {json.dumps(service_launches)}")
+        print(f"node service dispatches: {json.dumps(sv['dispatches'])}; transfers: "
+              f"{json.dumps(sv['transfers'])}")
+        print(f"node service cost table: {json.dumps(sv['cost_table'])}")
+        print("torch.profiler over one height, kernels' device ms: "
+              + (json.dumps(sv["profiler_kernels_ms"]) if sv["profiler_kernels_ms"]
+                 else "not measured (the capture held no CUDA kernel events)"))
+        results["service"] = {key: sv[key] for key in (
+            "query_ms", "busy_pct", "trace", "cost_table", "transfers", "dispatches", "mem",
+            "profiler_kernels_ms", "cli", "cli_s", "tracing_cost_ms")}
+        results["service"]["produce_ms"] = med
+
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
-             sharded_launches, app_launches, app_mesh_launches, devnet_launches)
+             sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------

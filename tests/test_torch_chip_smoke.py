@@ -1,0 +1,75 @@
+"""``chip_smoke.py``'s ``PlainRowStacks`` on the CPU: inside it, the port's
+plain namespace data and share proofs of a block are the bytes the calls
+give without it (the row level stacks hashed once for the block, then
+sliced), a call on other rows or another EDS runs as it is, and
+``nmt.row_level_stack`` is restored on exit."""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from celestia_tpu_torch.da import dah, namespace_data, proof
+from celestia_tpu_torch.da import square as square_mod
+from celestia_tpu_torch.da.blob import Blob, BlobTx
+from celestia_tpu_torch.da.namespace import Namespace
+from celestia_tpu_torch.da.shares import sparse_shares_needed
+from celestia_tpu_torch.ops import nmt
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+K = 8
+
+
+def seeded_block(seed: int):
+    rng = np.random.default_rng(seed)
+    txs = [BlobTx(rng.bytes(300), tuple(
+        Blob(Namespace.v0(b"\x01" + rng.bytes(9)), rng.bytes(int(rng.integers(478, 3000))))
+        for _ in range(int(rng.integers(1, 4))))).marshal() for _ in range(4)]
+    sq, _, _ = square_mod.build(txs, max_square_size=K)
+    eds, hdr = dah.extend_block(sq, device="cpu")
+    ranges, i = [], 0
+    while i < len(sq.shares):
+        sh = sq.shares[i]
+        if sh.namespace.is_reserved() or not sh.is_sequence_start or not sh.sequence_len():
+            i += 1
+            continue
+        n = sparse_shares_needed(sh.sequence_len())
+        ranges.append((sh.namespace.raw, i, i + n))
+        i += n
+    return eds, hdr, ranges
+
+
+def answers(eds, hdr, ranges, stacks=None):
+    out = []
+    for ns in sorted({r[0] for r in ranges}):
+        if stacks is None:
+            out.append(namespace_data.get_shares_by_namespace(eds, hdr, ns).to_dict())
+        else:
+            with stacks:
+                out.append(namespace_data.get_shares_by_namespace(eds, hdr, ns).to_dict())
+    for _, start, end in ranges:
+        if stacks is None:
+            out.append(proof.new_share_inclusion_proof(eds, hdr, start, end).to_dict())
+        else:
+            with stacks:
+                out.append(proof.new_share_inclusion_proof(eds, hdr, start, end).to_dict())
+    return out
+
+
+def test_plain_row_stacks_give_the_calls_own_answers():
+    eds, hdr, ranges = seeded_block(3)
+    assert len(ranges) >= 3
+    ranges = ranges[:3]
+    real = nmt.row_level_stack
+    stacks = chip_smoke.PlainRowStacks(eds)
+    assert answers(eds, hdr, ranges, stacks) == answers(eds, hdr, ranges)
+    assert stacks._levels is not None and stacks._checked
+    assert nmt.row_level_stack is real
+    # another block's EDS inside the first block's stacks: its own answers
+    other, other_hdr, other_ranges = seeded_block(4)
+    other_ranges = other_ranges[:1]
+    assert answers(other, other_hdr, other_ranges, stacks) == answers(other, other_hdr,
+                                                                      other_ranges)
+    assert nmt.row_level_stack is real

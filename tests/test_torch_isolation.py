@@ -248,6 +248,62 @@ def test_devnet_runs_with_jax_and_celestia_tpu_unimportable():
     assert proc.stdout.startswith("OK ")
 
 
+def test_node_service_runs_with_jax_celestia_tpu_and_grpc_unimportable():
+    """The node as users start it (cli, node/server, node/remote,
+    node/config, client/remote, client/blobstream and the observability
+    utils) imports with jax, celestia_tpu and grpc unimportable, and a
+    traced NodeService on the CPU takes a broadcast into a block, serves a
+    DAS batch and exposes its device plane."""
+    code = (
+        "import importlib, json, sys\n"
+        "for name in ('jax', 'jaxlib', 'celestia_tpu', 'grpc'):\n"
+        "    sys.modules[name] = None\n"
+        "for name in ('cli', 'node.server', 'node.remote', 'node.config', 'client.remote',\n"
+        "             'client.blobstream', 'utils.devprof', 'utils.hostprof',\n"
+        "             'utils.timeseries', 'utils.critpath', 'utils.flight',\n"
+        "             'utils.lockwatch'):\n"
+        "    importlib.import_module('celestia_tpu_torch.' + name)\n"
+        "from celestia_tpu_torch.client.signer import Signer\n"
+        "from celestia_tpu_torch.da.blob import Blob\n"
+        "from celestia_tpu_torch.da.namespace import Namespace\n"
+        "from celestia_tpu_torch.node.server import NodeService\n"
+        "from celestia_tpu_torch.node.testnode import TestNode\n"
+        "from celestia_tpu_torch.state.tx import MsgSend\n"
+        "from celestia_tpu_torch.utils import tracing\n"
+        "from celestia_tpu_torch.utils.secp256k1 import PrivateKey\n"
+        "key = PrivateKey.from_seed(b'isolated-service')\n"
+        "node = TestNode(funded_accounts=[(key, 10**12)], device='cpu', auto_produce=False,\n"
+        "                genesis_time_ns=10**18)\n"
+        "svc = NodeService(node)\n"
+        "tracing.enable()\n"
+        "s = Signer(node, key)\n"
+        "s.confirm_tx = lambda tx_hash, **kw: None\n"
+        "blob = Blob(Namespace.v0(b'\\x01' * 10), b'\\x42' * 3000)\n"
+        "s.submit_pay_for_blob([blob])\n"
+        "raw = s.sign_tx([MsgSend(s.address, bytes(20), 5)]).marshal()\n"
+        "assert json.loads(svc.broadcast(raw, None))['code'] == 0\n"
+        "blk = node.produce_block()\n"
+        "assert json.loads(svc.status(b'{}', None))['height'] == blk.header.height\n"
+        "assert len(blk.txs) == 2\n"
+        "req = json.dumps({'height': blk.header.height, 'coords': [[0, 0], [3, 1]]}).encode()\n"
+        "chunks = [json.loads(c) for c in svc.das_sample_batch(req, None)]\n"
+        "assert sum(len(c['proofs']) for c in chunks) == 2\n"
+        "text = svc.metrics_text()\n"
+        "assert 'celestia_tpu_kernel_bytes{kernel=\"extend_levels\"}' in text\n"
+        "doc = json.loads(svc.trace_dump(b'{}', None))['trace']\n"
+        "assert tracing.validate_chrome_trace(doc) == []\n"
+        "assert svc.healthz()['status'] == 'ok'\n"
+        "assert not any(m.split('.')[0] in ('jax', 'celestia_tpu', 'grpc')\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('OK', blk.header.data_hash.hex())\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK ")
+
+
 def test_default_device_is_the_card():
     from celestia_tpu_torch.utils.device import resolve_device
 
