@@ -446,6 +446,9 @@ def cmd_start(args) -> int:
             [a for a in args.peers.split(",") if a],
             block_gap_s=cfg.consensus.block_interval_s,
             logger=log.with_fields(mod="gossip"),
+            # a catch-up window the node cannot adopt, or a proposal it
+            # cannot build, ends it, as a failed block does (exit 1)
+            on_failure=server.fail,
         )
         gossip.start()
         log.info("gossip mesh enabled", peers=len(gossip.peer_addrs))
@@ -479,9 +482,16 @@ def cmd_start(args) -> int:
     signal.signal(signal.SIGTERM, _terminate)
     try:
         # the serve command's idle park: all work happens on the server's
-        # and gossip's threads; a failed block producer ends it with exit 1
+        # and gossip's threads; a failed block producer, catch-up or
+        # proposal ends it with exit 1
         server.failed.wait()
-        log.error("block producer failed; shutting down", error=repr(server.failure))
+        what = ", ".join(
+            {"producer": "block producer", "catchup": "catch-up"}.get(w, w)
+            for w in server.service.failures
+        )
+        log.error(
+            f"{what} failed; shutting down", error=repr(server.failure)
+        )
         if gossip is not None:
             gossip.stop()
         server.stop()

@@ -4,9 +4,6 @@ Parity with test/txsim/: the Sequence interface
 (sequence.go:16-31) with cloneable blob/send/stake sequences (blob.go:23,
 send.go:23, stake.go:19) and the run loop (run.go:31-115) that drives N
 sequences against a node, each with its own funded signer.
-
-Copied from ``celestia_tpu/client/txsim.py`` without ``run_remote``: the
-remote node client (``node/remote.py``) is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -100,7 +97,7 @@ def _drive(
     iterations: int,
     seed: int,
 ) -> List[dict]:
-    """The round-robin drive loop of run (run.go:31-115;
+    """The round-robin drive loop shared by run/run_remote (run.go:31-115;
     the reference runs each sequence in a goroutine — here rounds
     interleave deterministically, which exercises the same mempool /
     sequence contention paths reproducibly)."""
@@ -138,4 +135,34 @@ def run(
         node.app.bank.mint(addr, funding)
         node.app.accounts.get_or_create(addr)
         signers.append(Signer(node, key))
+    return _drive(sequences, signers, iterations, seed)
+
+
+def run_remote(
+    node,
+    master_signer: "Signer",
+    sequences: TypingSequence[Sequence],
+    iterations: int = 10,
+    seed: int = 0,
+    funding: int = 10**9,
+) -> List[dict]:
+    """txsim against a REMOTE node (test/cmd/txsim/cli.go parity): the
+    master key funds one derived sub-account per sequence over the network
+    (the reference's master-account funding flow), then sequences run
+    round-robin."""
+    keys = [
+        PrivateKey.from_seed(b"txsim-sub-%d" % i + seed.to_bytes(4, "big"))
+        for i in range(len(sequences))
+    ]
+    # one multi-msg tx funds every sub-account: a single broadcast +
+    # confirmation instead of N round trips
+    res = master_signer.submit_tx(
+        [
+            MsgSend(master_signer.address, key.public_key().address(), funding)
+            for key in keys
+        ]
+    )
+    if res.code != 0:
+        raise RuntimeError(f"funding sub-accounts failed: {res.log}")
+    signers = [Signer(node, key) for key in keys]
     return _drive(sequences, signers, iterations, seed)

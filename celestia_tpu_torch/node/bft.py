@@ -29,6 +29,7 @@ engine reports every such double-sign it observes via on_equivocation.
 from __future__ import annotations
 
 import hashlib
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
@@ -185,6 +186,22 @@ class Proposal:
 
 def msg_from_wire(d: dict):
     return Proposal.from_wire(d) if d["kind"] == "proposal" else Vote.from_wire(d)
+
+
+# heights past the engine's whose messages it holds, and how many it holds
+AHEAD = 2
+AHEAD_HELD = 1024
+
+
+class ProposeFailed(RuntimeError):
+    """This validator could not build its proposal (its App's
+    PrepareProposal raised: a CUDA launch or synchronise error among the
+    causes): the node's own failure, which ends it."""
+
+
+class MalformedWire(ValueError):
+    """A decided-block wire that does not parse: the fault of the peer
+    that served it (node/gossip.py opens that peer's breaker)."""
 
 
 @dataclass
@@ -363,6 +380,9 @@ class BFTNode:
         self._fired: Set[Tuple] = set()
 
         self.decided: Dict[int, DecidedBlock] = {}
+        # messages of the next AHEAD heights, held until start_height
+        # reaches theirs (bounded: oldest dropped first)
+        self._ahead: deque = deque(maxlen=AHEAD_HELD)
         self.outbox: List[dict] = []
         # timeout requests for the transport: (step, height, round)
         self.timeout_requests: List[Tuple[str, int, int]] = []
@@ -390,6 +410,12 @@ class BFTNode:
         self.valid_round = -1
         self._prune_below(height)
         self._start_round(0)
+        held = list(self._ahead)
+        self._ahead.clear()
+        self._ahead.extend(m for m in held if m.height > height)
+        for m in held:
+            if m.height == height:
+                self.receive(m)
 
     def _prune_below(self, height: int) -> None:
         """Drop per-height consensus state no longer reachable: a
@@ -488,8 +514,17 @@ class BFTNode:
     # -- inbound ---------------------------------------------------------
 
     def receive(self, msg) -> None:
+        """Handle a proposal or vote.  One for a height up to ``AHEAD``
+        past the engine's is held and handled when ``start_height``
+        reaches it (departure from the reference, which drops it: a
+        transport that delivers each message once, as the gossip mesh's
+        dedup does, would never deliver it again, and a validator a height
+        behind its peers would wait for their votes for good)."""
         if isinstance(msg, dict):
             msg = msg_from_wire(msg)
+        if self.height < msg.height <= self.height + AHEAD:
+            self._ahead.append(msg)
+            return
         if isinstance(msg, Proposal):
             self._on_proposal(msg)
         elif isinstance(msg, Vote):

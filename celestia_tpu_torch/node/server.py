@@ -346,9 +346,10 @@ class NodeService:
         self.flight = flight
         # service birth (telemetry clock) for the /healthz uptime field
         self._t0 = clock()
-        # the error that ended NodeServer's producer, if one did: /healthz
-        # then reports the node failed (departure from the reference)
-        self.producer_failure: Optional[str] = None
+        # the errors that ended the node (NodeServer.fail), by where they
+        # arose ("producer", "catchup", "propose"): /healthz then reports
+        # the node failed (departure from the reference)
+        self.failures: Dict[str, str] = {}
         # DAS serving-plane admission (specs/robustness.md): sampling
         # requests above the inflight bound are SHED with a retry-after
         # hint instead of queueing behind the service lock until every
@@ -1371,9 +1372,10 @@ class NodeService:
             "das": das,
             "block": block,
         }
-        if self.producer_failure is not None:
+        if self.failures:
             body["status"] = "failed"
-            body["producer_failure"] = self.producer_failure
+            for where, what in self.failures.items():
+                body[f"{where}_failure"] = what
         return body
 
     def query(self, req: bytes, ctx) -> bytes:
@@ -1701,7 +1703,7 @@ class NodeServer:
         self.block_interval_s = block_interval_s
         self._stop = threading.Event()
         self._producer: Optional[threading.Thread] = None
-        # set when the producer fails (see _produce_loop), with its error
+        # set when the node fails (see fail), with its error
         self.failed = threading.Event()
         self.failure: Optional[BaseException] = None
         # continuous telemetry sampler (utils/timeseries.py): one cheap
@@ -1789,21 +1791,29 @@ class NodeServer:
             )
             self._sampler.start()
 
+    def fail(self, exc: BaseException, where: str = "producer") -> None:
+        """End the node on a failure of its own work: a block the producer
+        cannot make, blocks the gossip catch-up cannot adopt, or a BFT
+        proposal it cannot build (a CUDA launch or synchronise error among
+        the causes).  ``/healthz`` then
+        reports the node failed, with the error under
+        ``<where>_failure``, and ``failed`` is set (``cli start`` then
+        exits 1)."""
+        import traceback
+
+        traceback.print_exception(exc)
+        self.failure = exc
+        self.service.failures[where] = f"{type(exc).__name__}: {exc}"
+        self.failed.set()
+
     def _produce_loop(self) -> None:
         # Departure from the reference, whose producer prints the error and
-        # keeps producing: a block that fails (a CUDA launch or synchronise
-        # error among the causes) ends the loop, /healthz reports the node
-        # failed, and ``failed`` is set (``cli start`` then exits 1).
+        # keeps producing: a block that fails ends the loop and the node.
         while not self._stop.wait(self.block_interval_s):
             try:
                 self.node.produce_block()
             except Exception as e:  # noqa: BLE001 — surfaced, not swallowed
-                import traceback
-
-                traceback.print_exc()
-                self.failure = e
-                self.service.producer_failure = f"{type(e).__name__}: {e}"
-                self.failed.set()
+                self.fail(e, "producer")
                 return
 
     def _sample_loop(self) -> None:
@@ -1820,7 +1830,12 @@ class NodeServer:
     def stop(self, grace: float = 1.0) -> None:
         self._stop.set()
         if self._server is not None:
-            self._server.stop(grace)
+            # wait for the transport to end: a process that exits while
+            # gRPC is still taking calls (a mesh's peers keep sending) can
+            # hang at exit, a worker waiting on a call whose events the
+            # serving thread, refused by the shut executor, never delivers
+            # (departure from the reference, which does not wait)
+            self._server.stop(grace).wait(grace + 5.0)
         if self._owns_hostprof:
             from celestia_tpu_torch.utils import hostprof
 

@@ -266,6 +266,8 @@ class TestNode:
     def _bft_validate(self, payload):
         from celestia_tpu_torch.node.bft import validate_payload_against_chain
 
+        # one a proposal (the engine caches each block id's verdict)
+        self.app.telemetry.incr("bft_proposals_validated")
         try:
             expected = self.app.store.committed_hash(payload.height - 1)
         except KeyError:
@@ -298,13 +300,18 @@ class TestNode:
         )
 
     def _bft_propose(self, height: int, round_: int):
-        from celestia_tpu_torch.node.bft import BlockPayload
+        from celestia_tpu_torch.node.bft import BlockPayload, ProposeFailed
 
         mem_txs = self.mempool.reap()
         try:
             proposal = self.app.prepare_proposal([t.raw for t in mem_txs])
-        except Exception:
-            return None
+        except Exception as e:
+            # departure from the reference, whose validator forfeits the
+            # round and goes on: the failure is the node's own and ends it
+            # (node/gossip.py hands it to NodeServer.fail)
+            raise ProposeFailed(
+                f"PrepareProposal at height {height} round {round_}: {e!r}"
+            ) from e
         # keep the proposer's own (EDS, DAH, layout): its validate leg
         # hits the content-addressed EDS cache instead of re-extending,
         # and _bft_decide reuses the artifacts for proof serving (the
@@ -433,7 +440,12 @@ class TestNode:
         already deserialized the wire)."""
         if payload.height != self.height + 1:
             return payload.height <= self.height, "not the next height"
-        return self._bft.adopt_decision(payload, precommits)
+        ok, why = self._bft.adopt_decision(payload, precommits)
+        if ok:
+            # adopted on its certificate: finalized without an extension
+            self.app.telemetry.incr("bft_blocks_adopted")
+            self.app.telemetry.gauge("bft_adopted_height", payload.height)
+        return ok, why
 
     def bft_catchup_batch(self, decided_wires: List[dict]) -> Tuple[int, str]:
         """Adopt a WINDOW of externally-replayed decided blocks: the
@@ -449,13 +461,14 @@ class TestNode:
         time.  A failure of the batched warm leg raises before any block
         is adopted (there is no per-block fallback).  Returns (blocks
         adopted, reason for the first failed adoption verdict or "").
-        A MALFORMED wire re-raises its parse error AFTER the intact
-        prefix has been adopted — the same
-        penalty path per-block replay took (the gossip caller's outer
-        except drops the serving peer and records a breaker failure;
-        swallowing it would leave a peer persistently serving junk
-        breaker-healthy and re-pulled forever)."""
-        from celestia_tpu_torch.node.bft import BlockPayload, Vote
+        A MALFORMED wire raises ``MalformedWire`` (from its parse error)
+        AFTER the intact prefix has been adopted — the same
+        penalty path per-block replay took (the gossip caller drops the
+        serving peer and records a breaker failure; swallowing it would
+        leave a peer persistently serving junk breaker-healthy and
+        re-pulled forever).  The gossip engine tells it apart from a
+        failure of this node's own adoption, which ends the node."""
+        from celestia_tpu_torch.node.bft import BlockPayload, MalformedWire, Vote
         from celestia_tpu_torch.utils import faults
 
         if self._bft is None:
@@ -522,7 +535,9 @@ class TestNode:
         if parse_exc is not None:
             # the prefix's progress is already committed to state;
             # the junk wire still penalizes the peer that served it
-            raise parse_exc
+            raise MalformedWire(
+                f"decided wire {len(parsed)} of the window: {parse_exc!r}"
+            ) from parse_exc
         return adopted, ""
 
     def verify_state_sync_anchor(
@@ -999,6 +1014,7 @@ class TestNode:
             raise RuntimeError(
                 f"reconstructed data root mismatch at height {height}"
             )
+        self.app.telemetry.incr("block_artifacts_rebuilt")
         art = {"eds": eds, "dah": dah, "square": square, "wrappers": wrappers}
         self._eds_cache[height] = art
         return art

@@ -631,7 +631,8 @@ def exposition_lines() -> List[str]:
     ``celestia_tpu_device_*`` + ``celestia_tpu_devprof_*``), appended to the
     node's Metrics exposition by node/server.py.  Dispatch counts and
     durations ride the span aggregates of the device spans
-    (``celestia_tpu_span_device_<name>_seconds``), as in the JAX package."""
+    (``celestia_tpu_span_device_<name>_seconds``), as in the JAX package;
+    the kernel launch counts and the build wall are the port's own."""
     with _lock:
         kernels = {k: dict(v) for k, v in _kernels.items()}
         busy = dict(_busy_s)
@@ -650,6 +651,17 @@ def exposition_lines() -> List[str]:
         lines.append(f"celestia_tpu_device_mem_peak_bytes {mem['peak_bytes_in_use']}")
         lines.append(f"celestia_tpu_device_mem_peak_frac {mem['peak_frac']}")
     lines.append(f"celestia_tpu_devprof_notes_total {notes_total}")
+    # this process's kernel launches (kernels.launch_counts), a line for
+    # each kernel launched so far, and the wall of its library build (0.0
+    # when it loaded a library already built), once it loaded one: how a
+    # caller reads them from another process
+    from celestia_tpu_torch import kernels
+
+    for name, n in sorted(kernels.launch_counts().items()):
+        if n:
+            lines.append(f'celestia_tpu_kernel_launches_total{{kernel="{name}"}} {n}')
+    if kernels.build_seconds is not None:
+        lines.append(f"celestia_tpu_kernel_build_seconds {kernels.build_seconds}")
     return lines
 
 

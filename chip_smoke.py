@@ -137,6 +137,23 @@ default runs every phase and every check:
    on the card serving gRPC as a subprocess, a client's ``tx
    pay-for-blob`` and verified ``query share-proof`` and ``das-sample``,
    SIGTERM and exit 0;
+4j. the network stack on the card (``network_phase``): a gossip mesh of 4
+   ``cli start --bft-valset --peers`` processes on the card at
+   GovMaxSquareSize 64 (one seed each, PEX, tracing on); a ``cli
+   bft-relay`` observer over the first filled height, then killed; 4 heights
+   filled to k = 64 by seeded PayForBlobs sent to one validator each
+   (want/have gossip carries them); validator 3 stopped by SIGTERM after
+   the second and restarted from its home after the fourth, caught up by
+   the certificate-verified catch-up on the card (``bft_catchup_batch``;
+   one card has no mesh, so it adopts block by block, each block's
+   extension cold: K5, K2, K3, K4); every process on
+   one data root and app hash at every height, each data root the plain
+   path's; ``cli query cluster-health`` and ``cluster-trace``, ``cli
+   txsim``, the DAS swarm (``SwarmConfig()``) with its served cells
+   verified; each process's launches from its Metrics exposition beside
+   the prediction; then a ``ProcessCoordinator`` over 3 ``NodeServer``s
+   of ``TestNode(device=cuda:0)`` for 2 heights at k = 64, data roots the
+   plain path's;
 5. the kernels line (JSON: time, bound, plain time, library time, launches
    summed over every path) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -229,7 +246,7 @@ SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 # the phases --phases selects from; 3-4f share the seeded blocks and run together
-PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "5")
+PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "5")
 PHASE_GROUPS = {name: "4" for name in ("3", "4b", "4c", "4d", "4e", "4f")}
 DEVNET_NET_HEIGHTS = 4  # ValidatorNetwork heights of phase 4h (validator 1 proposes at 5)
 # the devnet's queries: DAS from the plane entry (K7b's cell mode), namespace
@@ -1153,6 +1170,663 @@ def service_phase(dev, seed: int) -> dict:
     return out
 
 
+NET_CHAIN = "chip-smoke-mesh-1"
+NET_VALIDATORS = 4
+NET_FILLED_HEIGHTS = 4  # heights whose square is the mesh's GovMaxSquareSize
+NET_STOP_AFTER, NET_RESTART_AFTER = 2, 4  # validator 3 is down between these heights
+NET_BLOCK_GAP_S = 0.2  # cli start --block-interval: the gap before the next height
+# one PayForBlobs a filled height, its blobs 30 % of a k x k square's shares:
+# above a quarter, so the block's square is k, and its proposal (the txs as
+# hex in JSON) stays under gRPC's 4 MiB receive limit at k = 64
+NET_FILL = 0.3
+NET_VERIFY_CELLS = 1024  # the swarm's served cells verified against the data roots
+COORD_VALIDATORS, COORD_HEIGHTS = 3, 2
+# the relay leg: heights a cli bft-relay drives before it is killed, its
+# block interval (the wait in which it is killed), and the heights the mesh
+# then commits on its own (one of them filled)
+RELAY_HEIGHTS, RELAY_GAP_S, RELAY_MESH_HEIGHTS = 2, 1.0, 3
+
+
+def mesh_blobs(rng, k: int) -> list:
+    """The blobs (1-3) of one PayForBlobs that alone take NET_FILL of a
+    k x k square."""
+    from celestia_tpu_torch.da.blob import Blob
+    from celestia_tpu_torch.da.namespace import Namespace
+
+    n = int(rng.integers(1, 4))
+    total = int(NET_FILL * k * k * 478)
+    return [Blob(Namespace.v0(b"\x01" + rng.bytes(9)), rng.bytes(total // n)) for _ in range(n)]
+
+
+class Gossiped:
+    """A Signer's node for a ProcessCoordinator's validators: queries go to
+    ``remote``, a broadcast to every validator (``coord.gossip_tx``)."""
+
+    def __init__(self, coord, remote):
+        self.coord, self.remote = coord, remote
+
+    def __getattr__(self, name):
+        return getattr(self.remote, name)
+
+    def broadcast_tx(self, raw: bytes):
+        from celestia_tpu_torch.client.signer import SubmitResult
+
+        return self.coord.gossip_tx(raw) or SubmitResult(0, "", hashlib.sha256(raw).digest())
+
+
+def log_tail(path, n: int = 12) -> str:
+    try:
+        return "\n".join(open(path, errors="replace").read().splitlines()[-n:])
+    except OSError as e:
+        return f"({e})"
+
+
+COUNTERS = {  # node_counts' keys: the telemetry counters they read
+    "rebuilt": "celestia_tpu_block_artifacts_rebuilt_total",
+    "validated": "celestia_tpu_bft_proposals_validated_total",
+    "adopted": "celestia_tpu_bft_blocks_adopted_total",
+}
+
+
+def node_counts(text: str) -> dict:
+    """From a node's Metrics exposition: its kernel launches, the build
+    wall, the cold extensions its App made (the content cache's misses, all
+    legs), the blocks it rebuilt for serving, the DAS chunks it streamed
+    (its per-lane sample latency histograms' counts), the BFT proposals it
+    validated, and the decided blocks it adopted on their certificates and
+    the height of the last."""
+    from celestia_tpu_torch.node import cluster
+
+    out = {"launches": {}, "build_seconds": None, "misses": 0, "chunks": 0, "adopted_height": 0,
+           **dict.fromkeys(COUNTERS, 0)}
+    names = {metric: key for key, metric in COUNTERS.items()}
+    for name, labels, value in cluster.parse_exposition(text):
+        if name == "celestia_tpu_kernel_launches_total":
+            out["launches"][labels["kernel"]] = int(value)
+        elif name == "celestia_tpu_kernel_build_seconds":
+            out["build_seconds"] = value
+        elif name.startswith("celestia_tpu_eds_cache_miss_") and name.endswith("_total"):
+            out["misses"] += int(value)
+        elif name.startswith("celestia_tpu_das_latency_") and name.endswith("_seconds_count"):
+            # one observation a served DAS sample or streamed chunk, per lane
+            out["chunks"] += int(value)
+        elif name in names:
+            out[names[name]] = int(value)
+        elif name == "celestia_tpu_bft_adopted_height":
+            out["adopted_height"] = int(value)
+    return out
+
+
+def window(a: dict, b: dict) -> dict:
+    """What a node did between two readings ``a`` and ``b``: the heights,
+    the launches of every kernel and the differences of its counters."""
+    from celestia_tpu_torch import kernels
+
+    return {"heights": [a["height"], b["height"]],
+            "launches": {n: b["launches"].get(n, 0) - a["launches"].get(n, 0)
+                         for n in kernels.KERNELS},
+            **{key: b[key] - a[key] for key in ("misses", "chunks", *COUNTERS)}}
+
+
+def window_bounds(w: dict, new: int) -> list:
+    """The cold extensions a window of a mesh validator can hold, given
+    ``new`` block contents new to it among the window's heights: each
+    such content once, less one for each block it adopted on its
+    certificate (finalized, never extended), and at most one more for
+    each proposal it validated that did not decide (a round that timed
+    out, whose proposer's mempool may have held other txs).  A node
+    validates one proposal a height it decides live, give or take the
+    next height's at each end of the window."""
+    live = w["heights"][1] - w["heights"][0] - w["adopted"]
+    return [new - w["adopted"], new + max(0, w["validated"] - live + 1)]
+
+
+def window_prediction(w: dict) -> dict:
+    """The launches a window of a node should hold: one extension (K5
+    twice, K2, K3, K4) for each cold extension and each rebuilt block, and
+    one K7b gather for each DAS chunk it streamed."""
+    want = block_launches(w["misses"] + w["rebuilt"])
+    want["das_proof_gather"] = w["chunks"]
+    return want
+
+
+def network_phase(dev, k: int, seed: int) -> dict:
+    """Phase 4j, the network stack on ``dev`` (node/gossip.py,
+    node/coordinator.py, node/cluster.py, client/swarm.py, txsim's
+    ``run_remote`` and the CLI commands that reach them).
+
+    A gossip mesh of NET_VALIDATORS ``cli start --bft-valset --peers``
+    processes on ``dev`` (the card unless ``dev`` is the CPU, then under
+    ``CELESTIA_TPU_TORCH_DEVICE=cpu``), each told one seed's address, with a
+    shared genesis at GovMaxSquareSize ``k`` and ``k`` among its warm
+    squares; tracing on in each.  A Signer in this process sends, at each
+    of NET_FILLED_HEIGHTS heights, one seeded PayForBlobs that fills the
+    square to ``k`` and two sends, each to ONE validator (want/have gossip
+    carries the rest); validator 3 is stopped with SIGTERM (exit 0) after
+    filled height NET_STOP_AFTER and restarted from its home after
+    NET_RESTART_AFTER: it catches up through the certificate-verified
+    catch-up (``bft_catchup_batch``, block by block without a mesh) and
+    lands on the mesh's app hash.  Then over the mesh: ``cli query
+    cluster-health`` (4 peers, one height and app hash), ``cli query
+    cluster-trace`` (a valid merged document, one Chrome process a node,
+    cross-node flow links) and ``cli txsim --blob 2 --send 1`` (every tx
+    succeeded).  Every process reports the same data root and app hash at
+    every height, and each data root equals the plain path's
+    (``device="cpu"``) on the decided block's txs.  Last ``swarm.run_swarm``
+    with ``SwarmConfig()``'s defaults against one node, whose served cells
+    (up to NET_VERIFY_CELLS) verify against their data roots.
+
+    Each process's launches are read from its Metrics exposition, each
+    reading at one height (``snapshot``): after warm-up at a baseline once
+    the mesh runs and before any tx (a restarted validator: as soon as it
+    is ready), and again at the end of each window.  In every window the
+    launches are exactly one extension (5 launches) for each cold
+    extension the node's App made and each block it rebuilt for serving,
+    and one K7b gather for each DAS chunk it streamed; and the cold
+    extensions are exactly the block contents new to that process among
+    the heights of the window (an empty block repeats one square, which a
+    process extends once).
+
+    Then a ``cli bft-relay`` drives an in-process mesh of NET_VALIDATORS
+    ``TestNode(device=dev)`` BFT validators behind ``NodeServer``s for
+    RELAY_HEIGHTS heights (their ``GossipEngine``s not started: an engine
+    drains the outboxes a relay forwards) and is killed mid-run; the
+    engines start, a filled PayForBlobs sent to one validator commits and
+    the mesh goes on for RELAY_MESH_HEIGHTS heights on one app hash and the
+    plain path's data roots.  Last, a ``ProcessCoordinator`` in this process
+    over COORD_VALIDATORS ``NodeServer``s of ``TestNode(device=dev)`` for
+    COORD_HEIGHTS heights filled to ``k``: data roots equal to the plain
+    path's, one app hash.  In both legs the launches are counted here (0
+    just before) and equal one extension for each block content (the
+    validators of one process share the device's content cache).
+
+    Returns the walls, the swarm's report and the launch windows."""
+    import os
+    import select
+    import signal
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from celestia_tpu_torch import kernels
+    from celestia_tpu_torch.client import swarm
+    from celestia_tpu_torch.client.signer import Signer, SubmitResult
+    from celestia_tpu_torch.da import dah, das, eds_cache
+    from celestia_tpu_torch.da.square import construct
+    from celestia_tpu_torch.node.bft import BlockPayload
+    from celestia_tpu_torch.node.coordinator import PeerValidator, ProcessCoordinator
+    from celestia_tpu_torch.node.gossip import GossipEngine
+    from celestia_tpu_torch.node.remote import RemoteNode
+    from celestia_tpu_torch.node.server import NodeServer
+    from celestia_tpu_torch.node.testnode import TestNode
+    from celestia_tpu_torch.state.tx import MsgSend
+    from celestia_tpu_torch.utils import tracing
+    from celestia_tpu_torch.utils.secp256k1 import PrivateKey
+
+    class BroadcastOnly(Signer):
+        def confirm_tx(self, tx_hash, **kw):
+            return SubmitResult(0, "", tx_hash)
+
+    dev = torch.device(dev)
+    rng = np.random.default_rng(seed)
+    root = Path(__file__).resolve().parent
+    base = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
+    vals = [PrivateKey.from_seed(b"chip-smoke-mesh-val-%d" % i) for i in range(NET_VALIDATORS)]
+    users = [PrivateKey.from_seed(b"chip-smoke-mesh-user-%d" % i)
+             for i in range(NET_FILLED_HEIGHTS + 1 + COORD_HEIGHTS)]
+    senders = [PrivateKey.from_seed(b"chip-smoke-mesh-send-%d" % i) for i in range(2)]
+    alice = PrivateKey.from_seed(b"chip-smoke-mesh-alice")
+    genesis = {
+        "chain_id": NET_CHAIN, "genesis_time_ns": APP_GENESIS_NS,
+        "accounts": [{"address": p.public_key().address().hex(), "balance": 10**13}
+                     for p in vals + users + senders + [alice]],
+        "validators": [{"address": v.public_key().address().hex(), "self_delegation": 10**8}
+                       for v in vals],
+        "params": {"blob": {"GovMaxSquareSize": k}},
+    }
+    valset = [{"address": v.public_key().address().hex(),
+               "pubkey": v.public_key().compressed().hex(), "power": 100} for v in vals]
+    (base / "genesis.json").write_text(json.dumps(genesis))
+    (base / "valset.json").write_text(json.dumps(valset))
+    client_home = base / "client"
+    (client_home / "keyring").mkdir(parents=True)
+    (client_home / "keyring" / "alice.json").write_text(json.dumps(
+        {"priv": f"{alice.d:064x}", "address": alice.public_key().address().hex()}))
+    for i, v in enumerate(vals):
+        home = base / f"val{i}"
+        cli_in_process(str(home), "init", "--chain-id", NET_CHAIN, "--genesis",
+                       str(base / "genesis.json"))
+        (home / "config" / "priv_validator_key.json").write_text(
+            json.dumps({"priv_key": f"{v.d:064x}"}))
+    socks = [socket.socket() for _ in vals]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    addrs = ["127.0.0.1:%d" % s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    warm = sorted({1, 2, 4, k})
+    env = dict(os.environ)
+    env.pop("CELESTIA_TPU_TORCH_DEVICE", None)
+    if dev.type == "cpu":
+        env["CELESTIA_TPU_TORCH_DEVICE"] = "cpu"
+
+    def spawn(i: int):
+        argv = [sys.executable, "-m", "celestia_tpu_torch.cli", "--home", str(base / f"val{i}"),
+                "start", "--bft-valset", str(base / "valset.json"), "--grpc-address", addrs[i],
+                "--peers", addrs[1] if i == 0 else addrs[0],
+                "--block-interval", str(NET_BLOCK_GAP_S), "--warm-squares",
+                ",".join(map(str, warm)), "--timeseries-interval", "0"]
+        log = open(base / f"val{i}.log", "a")
+        proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE, stderr=log, text=True,
+                                env={**env, "CELESTIA_TPU_TORCH_TRACE": "1",
+                                     "CELESTIA_TPU_TORCH_NODE_ID": f"val-{i}",
+                                     "PYTHONFAULTHANDLER": "1"})
+        log.close()
+        return proc
+
+    def stop(i: int, proc) -> None:
+        """SIGTERM, which must end the process with 0 within 60 s; past
+        that its threads' stacks are dumped into its log (SIGABRT under
+        PYTHONFAULTHANDLER) and the check fails with the log's end."""
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGABRT)
+            proc.wait(timeout=60)
+            check(False, f"mesh validator {i} did not exit within 60 s of SIGTERM; its log "
+                  "ends:\n" + log_tail(base / f"val{i}.log", 120))
+        check(rc == 0, f"mesh validator {i} exited {rc} on SIGTERM; its log ends:\n"
+              + log_tail(base / f"val{i}.log"))
+
+    def ready(procs: dict, t0: float) -> dict:
+        """Each process's boot wall (s) to the address line it prints."""
+        boot = {}
+        for i, proc in procs.items():
+            left = max(1.0, 300 - (time.perf_counter() - t0))
+            got, _, _ = select.select([proc.stdout], [], [], left)
+            line = proc.stdout.readline() if got else ""
+            check(line.startswith("{") and json.loads(line)["grpc"] == addrs[i],
+                  f"mesh validator {i} started as {line!r}; its log ends:\n"
+                  + log_tail(base / f"val{i}.log"))
+            boot[i] = time.perf_counter() - t0
+        return boot
+
+    def mesh_state() -> str:
+        """Each live validator's height, gossip stats and the failures its
+        tracer noted, and the end of its log: what a timeout reports."""
+        lines = []
+        for i, r in sorted(remotes.items()):
+            try:
+                st = r.status()
+                notes = [(e["args"].get("point"), e["args"].get("error"))
+                         for e in r.trace_dump()["trace"].get("traceEvents", [])
+                         if e.get("name") == "fault.note"][-6:]
+                lines.append(f"validator {i}: height {st['height']}, gossip {st.get('gossip')}, "
+                             f"noted {notes}")
+            except Exception as e:  # noqa: BLE001 — a diagnostic, best effort
+                lines.append(f"validator {i}: {e!r}"[:300])
+            lines.append(log_tail(base / f"val{i}.log", 8))
+        return "\n".join(lines)
+
+    def wait_for(what: str, cond, timeout: float = 120.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                got = cond()
+            except Exception:  # a node restarting or busy: ask again
+                got = None
+            if got:
+                return got
+            if time.monotonic() >= deadline:
+                check(False, f"timed out after {timeout} s waiting for {what}:\n"
+                      + mesh_state())
+            time.sleep(0.05)
+
+    def heights(idx) -> list:
+        return [remotes[i].height for i in idx]
+
+    def snapshot(i: int) -> dict:
+        """Validator i's counts (``node_counts``) at one height: its
+        height, its Metrics exposition, and its height again, until a
+        block did not commit in between."""
+        for _ in range(100):
+            h = remotes[i].height
+            got = node_counts(remotes[i].metrics())
+            if remotes[i].height == h:
+                return dict(got, height=h)
+        check(False, f"validator {i} committed a block across each of 100 readings")
+
+    out = {"filled": [], "commit_ms": []}
+    procs, remotes = {}, {}
+    t_mesh = time.perf_counter()
+    try:
+        # --- the mesh boots --------------------------------------------------
+        t0 = time.perf_counter()
+        procs = {i: spawn(i) for i in range(NET_VALIDATORS)}
+        out["boot_s"] = ready(procs, t0)
+        remotes = {i: RemoteNode(a, timeout_s=60.0) for i, a in enumerate(addrs)}
+        wait_for("the mesh's first heights", lambda: min(heights(remotes)) >= 3)
+        # PEX: each validator, told one seed, learns every other one
+        wait_for("PEX to give each validator every peer", lambda: all(
+            remotes[i].status()["gossip"]["peers"] >= NET_VALIDATORS - 1 for i in remotes))
+        # the baselines: every process warmed up and past its first (empty)
+        # block, no tx sent yet
+        first = {i: snapshot(i) for i in remotes}
+        send_signers = [BroadcastOnly(remotes[1], s) for s in senders]
+        live = list(range(NET_VALIDATORS))
+        for j in range(NET_FILLED_HEIGHTS):
+            # --- one filled height: each tx to one validator -------------------
+            to = live[j % len(live)]
+            t1 = time.perf_counter()
+            res = BroadcastOnly(remotes[to], users[j]).submit_pay_for_blob(mesh_blobs(rng, k))
+            check(res.code == 0, f"the mesh refused a PayForBlobs: {res.log}")
+            txs = [res.tx_hash]
+            for s in send_signers:
+                sent = s.submit_tx([MsgSend(s.address, rng.bytes(20), int(rng.integers(1, 10**4)))])
+                check(sent.code == 0, f"the mesh refused a send: {sent.log}")
+                txs.append(sent.tx_hash)
+            def committed():
+                infos = [remotes[i].get_tx(h) for h in txs for i in live]
+                return infos[:len(live)] if all(infos) else None
+
+            landed = wait_for(f"filled height {j + 1} on every live validator", committed)
+            out["commit_ms"].append((time.perf_counter() - t1) * 1e3)
+            h = landed[0]["height"]
+            check(all(info["height"] == h and info["code"] == 0 for info in landed),
+                  f"the filled height's PayForBlobs landed as {landed}")
+            blk = remotes[live[0]].block(h)
+            check(blk["square_size"] == k, f"filled height {h} has a k={blk['square_size']} square")
+            out["filled"].append(h)
+            if j + 1 == NET_STOP_AFTER:
+                stopped = snapshot(3)
+                stop(3, procs[3])
+                procs[3].stdout.close()
+                remotes.pop(3).close()
+                live = [0, 1, 2]
+                out["stopped_at"] = stopped["height"]
+        check(min(heights(live)) >= out["stopped_at"] + 2,
+              "the mesh did not commit past the stopped validator")
+        # --- validator 3 restarts from its home and catches up --------------------
+        t0 = time.perf_counter()
+        procs[3] = spawn(3)
+        out["restart_boot_s"] = ready({3: procs[3]}, t0)[3]
+        remotes[3] = RemoteNode(addrs[3], timeout_s=60.0)
+        restarted = snapshot(3)
+        t1 = time.perf_counter()
+        target = max(heights(live))
+        wait_for("validator 3's catch-up", lambda: remotes[3].height >= target, timeout=300)
+        out["catchup_s"] = time.perf_counter() - t1
+        out["caught_up_heights"] = target - out["stopped_at"]
+        check(remotes[3].block(target)["app_hash"] == remotes[0].block(target)["app_hash"],
+              f"validator 3 caught up to another app hash at height {target}")
+        out["mesh_s"] = time.perf_counter() - t_mesh
+        t_idle, h_idle = time.perf_counter(), min(heights(remotes))
+        # --- cluster observability over the mesh ----------------------------------------
+        nodes_arg = ",".join(addrs)
+        def level_health():
+            got = json.loads(cli_in_process(str(client_home), "query", "--node", addrs[0],
+                                            "cluster-health", "--nodes", nodes_arg))
+            return got if got["height_spread"] == 0 else None
+
+        health = wait_for("one height on every peer", level_health)
+        check(health["reachable"] == NET_VALIDATORS and health["app_hash_agree"] is True,
+              f"cluster-health: {health['reachable']} reachable, agree {health['app_hash_agree']}")
+        out["health"] = {key: health[key] for key in ("reachable", "max_height", "app_hash_agree",
+                                                       "breakers_open", "fault_notes")}
+        trace_path = base / "cluster.trace.json"
+        got = json.loads(cli_in_process(str(client_home), "query", "--node", addrs[0],
+                                        "cluster-trace", "--nodes", nodes_arg, "--out",
+                                        str(trace_path)))
+        doc = json.loads(trace_path.read_text())
+        check(not tracing.validate_chrome_trace(doc), "cluster-trace wrote an invalid document")
+        pids = {e["pid"] for e in doc["traceEvents"] if e.get("name") == "process_name"}
+        check(len(pids) == NET_VALIDATORS and got["cross_node_flows"] >= 1,
+              f"cluster-trace: {len(pids)} processes, {got['cross_node_flows']} flows")
+        out["trace"] = {"events": got["events"], "cross_node_flows": got["cross_node_flows"]}
+        # --- remote txsim ---------------------------------------------------------------
+        t1 = time.perf_counter()
+        rep = json.loads(cli_in_process(str(client_home), "txsim", "--node", addrs[1], "--from",
+                                        "alice", "--blob", "2", "--send", "1", "--iterations",
+                                        "2"))
+        check(rep["succeeded"] == rep["submitted"] > 0, f"cli txsim: {rep}")
+        out["txsim"] = dict(rep, seconds=time.perf_counter() - t1)
+        # every tx has committed: the windows close here
+        last = {i: snapshot(i) for i in remotes}
+        out["heights_at_read"] = {i: last[i]["height"] for i in remotes}
+        # the mesh's own pace while the observability and txsim legs ran
+        # beside it: its inverse, ms a height
+        out["idle_ms_per_height"] = 1e3 * (time.perf_counter() - t_idle) / max(
+            1, min(out["heights_at_read"].values()) - h_idle)
+        # --- one chain on every process, every data root the plain path's ----------
+        top = max(out["heights_at_read"].values())
+        roots, empty = {}, {}
+        for h in range(2, top + 1):
+            blks = [remotes[i].block(h) for i in remotes if out["heights_at_read"][i] >= h]
+            check(len({(b["data_root"], b["app_hash"]) for b in blks}) == 1,
+                  f"the mesh's processes differ at height {h}: {blks}")
+            wire = remotes[0].bft_decided(h)
+            check(wire is not None, f"no decided block served at height {h}")
+            payload = BlockPayload.from_wire(wire["payload"])
+            square, _, _ = construct(list(payload.txs), payload.square_size)
+            check(dah.extend_block(square, device="cpu")[1].hash.hex() == blks[0]["data_root"]
+                  == payload.data_root.hex(), f"the mesh's data root at height {h} != the plain "
+                  "path's")
+            roots[h], empty[h] = blks[0]["data_root"], not payload.txs
+        out["heights"] = top
+        check(len({roots[h] for h in roots if empty[h]}) == 1,
+              "the mesh's empty blocks differ in data root")
+
+        def contents(lo: int, hi: int, seen=()) -> int:
+            """Block contents among heights (lo, hi] that are not ``seen``."""
+            return len({roots[h] for h in range(lo + 1, hi + 1)} - set(seen))
+
+        # --- the DAS swarm against one node ------------------------------------------
+        roots_bytes = {h: bytes.fromhex(roots[h]) for h in out["filled"]}
+        answers = []
+        report = swarm.run_swarm(addrs[2], [(h, k) for h in out["filled"]], swarm.SwarmConfig(),
+                                 on_served=lambda h, coords, ans: answers.append((h, coords, ans)))
+        swarmed = snapshot(2)
+        check(report["rounds_run"] == 3 and not report["deadline_hit"], f"swarm: {report}")
+        cells = [(h, set(coords), p) for h, coords, ans in answers for p in ans["proofs"]]
+        step = max(1, len(cells) // NET_VERIFY_CELLS)
+        verified = 0
+        for h, coords, p in cells[::step]:
+            proof = das.SampleProof.from_dict(p)
+            check((proof.row, proof.col) in coords and proof.verify(roots_bytes[h]),
+                  f"a cell the swarm was served at height {h} does not verify")
+            verified += 1
+        check(verified >= 64, f"only {verified} served cells verified")
+        # --- each process's windows ------------------------------------------------------
+        # a process extends the empty block's square once, before its
+        # baseline (validator 3 restarted: after its restart, with a new
+        # content cache), and every other content once
+        empty_root = [roots[h] for h in roots if empty[h]][:1]
+        windows = {f"validator {i}": (window(first[i], last[i]),
+                                      contents(first[i]["height"], last[i]["height"], empty_root))
+                   for i in (0, 1, 2)}
+        windows["validator 3"] = (window(first[3], stopped),
+                                  contents(first[3]["height"], stopped["height"], empty_root))
+        # restarted, with a new content cache: every content of its heights
+        # since the stop is new to it (only empty blocks commit between its
+        # stop reading and its restart); those it extended before its
+        # first reading are in that reading
+        windows["validator 3 restarted"] = (
+            window(restarted, last[3]),
+            contents(out["stopped_at"], last[3]["height"]) - restarted["misses"])
+        # past its last adopted height it decided every height itself, so
+        # it extended each content of those heights in this life
+        live_floor = contents(max(last[3]["adopted_height"], out["stopped_at"]),
+                              last[3]["height"]) - restarted["misses"]
+        windows["validator 2 swarm"] = (window(last[2], swarmed), 0)
+        out["swarm"] = dict(report, verified=verified, answered=len(answers),
+                            k7b_launches=windows["validator 2 swarm"][0]["launches"][
+                                "das_proof_gather"],
+                            chunks=windows["validator 2 swarm"][0]["chunks"])
+        out["windows"] = {name: dict(w, new_contents=n, want=window_prediction(w),
+                                     bounds=window_bounds(w, n))
+                          for name, (w, n) in windows.items()}
+        bounds = out["windows"]["validator 3 restarted"]["bounds"]
+        bounds[0] = max(bounds[0], live_floor)
+        out["build_seconds"] = {i: last[i]["build_seconds"] for i in last}
+        out["build_seconds"]["3 before its stop"] = stopped["build_seconds"]
+        for r in remotes.values():
+            r.close()
+        remotes = {}
+        for i, proc in procs.items():
+            stop(i, proc)
+    finally:
+        for r in remotes.values():
+            r.close()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if proc.stdout is not None:
+                proc.stdout.close()
+    # --- a relay drives an in-process mesh, is killed, and the mesh goes on ----------
+    rgen = dict(genesis, chain_id=NET_CHAIN + "-relay")
+    rnodes = [TestNode(chain_id=rgen["chain_id"], genesis=rgen, validator_key=v, device=dev,
+                       auto_produce=False) for v in vals]
+    for n in rnodes:
+        n.enable_bft(valset)
+    rservers = [NodeServer(n, block_interval_s=None) for n in rnodes]
+    engines, relay = [], None
+    try:
+        for s in rservers:
+            s.start()
+        raddrs = [s.address for s in rservers]
+        # built after the servers bind: an engine stamps its node's address
+        engines = [GossipEngine(n, [a for j, a in enumerate(raddrs) if j != i],
+                                block_gap_s=NET_BLOCK_GAP_S) for i, n in enumerate(rnodes)]
+        eds_cache.content_cache(dev).clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        relay = subprocess.Popen(
+            [sys.executable, "-m", "celestia_tpu_torch.cli", "bft-relay", "--peers",
+             ",".join(raddrs), "--blocks", "0", "--block-interval", str(RELAY_GAP_S)],
+            cwd=root, stdout=subprocess.PIPE, stderr=open(base / "relay.log", "w"), env=env,
+            text=True)
+        driven = []
+        while len(driven) < RELAY_HEIGHTS:
+            got, _, _ = select.select([relay.stdout], [], [], 120)
+            line = relay.stdout.readline() if got else ""
+            check(line.startswith("{"), f"cli bft-relay printed {line!r} after heights {driven}; "
+                  f"exit {relay.poll()}; its log ends:\n" + log_tail(base / "relay.log"))
+            driven.append(json.loads(line)["height"])
+        # killed while it waits out its block interval: mid-run, no height
+        # half driven
+        relay.kill()
+        relay.wait()
+        killed_at = min(n.height for n in rnodes)
+        check(driven == list(range(2, 2 + RELAY_HEIGHTS)) and killed_at == driven[-1],
+              f"cli bft-relay drove heights {driven}; the validators are at "
+              f"{[n.height for n in rnodes]}")
+        relay_s = time.perf_counter() - t0
+        for e in engines:
+            e.start()
+        rremote = RemoteNode(raddrs[1], timeout_s=60.0)
+        try:
+            res = BroadcastOnly(rremote, users[NET_FILLED_HEIGHTS]).submit_pay_for_blob(
+                mesh_blobs(rng, k))
+        finally:
+            rremote.close()
+        check(res.code == 0, f"the relay leg's mesh refused a PayForBlobs: {res.log}")
+        deadline = time.monotonic() + 120
+        while not all(n.get_tx(res.tx_hash) for n in rnodes) or min(
+                n.height for n in rnodes) < killed_at + RELAY_MESH_HEIGHTS:
+            check(time.monotonic() < deadline, "the relay leg's mesh stopped at heights "
+                  f"{[n.height for n in rnodes]} after the relay was killed at {killed_at}")
+            time.sleep(0.05)
+        for e in engines:
+            e.stop()
+        engines = []
+        relay_launches = kernels.launch_counts()
+        rtop = min(n.height for n in rnodes)
+        check(len({n.app.store.committed_hash(rtop) for n in rnodes}) == 1,
+              f"the relay leg's validators differ in app hash at height {rtop}")
+        rroots = set()
+        for h in range(2, rtop + 1):
+            blks = [n.block(h) for n in rnodes]
+            check(len({b.header.data_hash for b in blks}) == 1,
+                  f"the relay leg's validators differ at height {h}")
+            square, _, _ = construct(list(blks[0].txs), blks[0].header.square_size)
+            check(dah.extend_block(square, device="cpu")[1].hash == blks[0].header.data_hash,
+                  f"the relay leg's data root at height {h} != the plain path's")
+            rroots.add(blks[0].header.data_hash)
+        filled_h = rnodes[0].get_tx(res.tx_hash)["height"]
+        check(rnodes[0].block(filled_h).header.square_size == k,
+              f"the relay leg's filled height {filled_h} is not k={k}")
+        # the validators share the device's content cache: each block
+        # content is extended at least once, and at most once by each
+        # validator that validated it (two that miss the cache at once both
+        # extend); 5 launches each (none on the CPU)
+        counts = [node_counts(n.app.telemetry.export_prometheus()) for n in rnodes]
+        misses = sum(c["misses"] for c in counts)
+        validated = sum(c["validated"] for c in counts)
+        adopted = sum(c["adopted"] for c in counts)
+        check(len(rroots) - adopted <= misses <= validated, f"the relay leg's validators made "
+              f"{misses} cold extensions for {len(rroots)} block contents ({validated} "
+              f"proposals validated, {adopted} blocks adopted)")
+        want = block_launches(misses if dev.type == "cuda" else 0)
+        check(relay_launches == want, f"the relay leg launched {relay_launches}, predicted "
+              f"{want} ({misses} cold extensions)")
+        out["relay"] = {"driven": driven, "killed_at": killed_at, "mesh_to": rtop,
+                        "filled": filled_h, "contents": len(rroots), "misses": misses,
+                        "validated": validated, "adopted": adopted, "relay_s": relay_s,
+                        "launches": relay_launches}
+    finally:
+        if relay is not None:
+            if relay.poll() is None:
+                relay.kill()
+                relay.wait()
+            relay.stdout.close()
+        for e in engines:
+            e.stop()
+        for s in rservers:
+            s.stop()
+    # --- the process coordinator in this process -----------------------------------------
+    coord_vals = vals[:COORD_VALIDATORS]
+    cgen = dict(genesis, chain_id=NET_CHAIN + "-coord", validators=[
+        {"address": v.public_key().address().hex(), "self_delegation": 10**8} for v in coord_vals])
+    nodes = [TestNode(chain_id=cgen["chain_id"], genesis=cgen, validator_key=v, device=dev,
+                      auto_produce=False) for v in coord_vals]
+    servers = [NodeServer(n, block_interval_s=None) for n in nodes]
+    for s in servers:
+        s.start()
+    clients = [RemoteNode(s.address, timeout_s=120.0) for s in servers]
+    out["coord_ms"] = []
+    try:
+        coord = ProcessCoordinator([PeerValidator(f"val-{i}", c) for i, c in enumerate(clients)])
+        kernels.reset_launch_counts()
+        for j in range(COORD_HEIGHTS):
+            signer = BroadcastOnly(Gossiped(coord, clients[0]), users[NET_FILLED_HEIGHTS + 1 + j])
+            res = signer.submit_pay_for_blob(mesh_blobs(rng, k))
+            check(res.code == 0, f"the coordinator's validators refused a PayForBlobs: {res.log}")
+            t1 = time.perf_counter()
+            coord.produce_block()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out["coord_ms"].append((time.perf_counter() - t1) * 1e3)
+        out["coord_launches"] = kernels.launch_counts()
+        check(len({n.app.store.app_hash() for n in nodes}) == 1,
+              "the coordinator's validators differ in app hash")
+        for blk in coord.blocks:
+            check(blk["square_size"] == k, f"the coordinator's height {blk['height']} is "
+                  f"k={blk['square_size']}")
+            square, _, _ = construct(list(blk["block_txs"]), blk["square_size"])
+            check(dah.extend_block(square, device="cpu")[1].hash == blk["data_root"],
+                  f"the coordinator's data root at height {blk['height']} != the plain path's")
+    finally:
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()
+    return out
+
+
 def kernel_sass_mix(kernel: str) -> dict:
     """Opcode counts of the built library's SASS for the kernel whose mangled
     name holds ``kernel`` (``cuobjdump -sass``, beside nvcc): how its rounds
@@ -1272,7 +1946,7 @@ def main() -> int:
     # the launches of every path; a path of an unselected phase launched nothing
     extend_launches = serve_launches = repair_launches = fraud_launches = {}
     catchup_launches = sharded_launches = app_launches = app_mesh_launches = {}
-    devnet_launches = service_launches = {}
+    devnet_launches = service_launches = network_launches = {}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         torch.cuda.synchronize()
@@ -2700,8 +3374,87 @@ def main() -> int:
             "profiler_kernels_ms", "cli", "cli_s", "tracing_cost_ms")}
         results["service"]["produce_ms"] = med
 
+    if "4j" in selected:
+        t_net = time.perf_counter()
+        net = network_phase(dev, DEFAULT_GOV_MAX_SQUARE_SIZE, args.seed + 13)
+        windows = net["windows"]
+        relay = net["relay"]
+        coord_launches = net["coord_launches"]
+        network_launches = sum_counts([w["launches"] for w in windows.values()]
+                                      + [relay["launches"], coord_launches])
+        sw = net["swarm"]
+        print(f"network stack: gossip mesh of {NET_VALIDATORS} cli start processes on the card, "
+              f"{len(net['filled'])} heights filled to k={DEFAULT_GOV_MAX_SQUARE_SIZE} "
+              f"({net['filled']}) among {net['heights']} heights, one data root and app hash "
+              f"on every process, each the plain path's; validator 3 stopped at "
+              f"{net['stopped_at']}, restarted and caught up {net['caught_up_heights']} heights "
+              f"on the mesh's app hash; cluster-health {net['health']}; cluster-trace "
+              f"{net['trace']}; txsim {net['txsim']['succeeded']}/{net['txsim']['submitted']}; "
+              f"swarm rounds {sw['rounds_run']}, {sw['verified']} served cells verified; "
+              f"cli bft-relay drove heights {relay['driven']} of an in-process mesh on the card "
+              f"and was killed, the mesh went on to {relay['mesh_to']} (filled at "
+              f"{relay['filled']}); coordinator {COORD_HEIGHTS} heights at "
+              f"k={DEFAULT_GOV_MAX_SQUARE_SIZE} on the plain path's roots; in "
+              f"{time.perf_counter() - t_net:.2f} s")
+        print(f"network walls: boot per process (s) "
+              f"{[round(v, 2) for v in net['boot_s'].values()]}, restart boot "
+              f"{net['restart_boot_s']:.2f} s, catch-up {net['catchup_s']:.3f} s for "
+              f"{net['caught_up_heights']} heights; filled heights' submit-to-commit (ms) "
+              f"{[round(v, 1) for v in net['commit_ms']]}; mesh to the catch-up in "
+              f"{net['mesh_s']:.2f} s, {net['idle_ms_per_height']:.1f} ms a height beside the "
+              f"observability and txsim legs (block gap {NET_BLOCK_GAP_S} s); txsim "
+              f"{net['txsim']['seconds']:.2f} s; relay {relay['relay_s']:.2f} s for "
+              f"{len(relay['driven'])} heights (block interval {RELAY_GAP_S} s); "
+              f"coordinator heights (ms) {[round(v, 1) for v in net['coord_ms']]} | {smi}")
+        print(f"network swarm (SwarmConfig defaults): latency {json.dumps(sw['latency'])}, "
+              f"{sw['samples_per_s']} cells/s, shed rate {sw['shed_rate']} (groups "
+              f"{json.dumps(sw['groups'])}), Jain index {sw['fairness_index']}, "
+              f"{sw['requests']} requests, {sw['answered']} answered, {sw['cells_served']} cells, "
+              f"{sw['chunks']} chunks streamed, K7b launches {sw['k7b_launches']} | {smi}")
+        for name, w in windows.items():
+            print(f"network launches, {name} (heights {w['heights'][0]}-{w['heights'][1]}): "
+                  f"{json.dumps({n: c for n, c in w['launches'].items() if c})}; "
+                  f"{w['misses']} cold extensions ({w['new_contents']} new block contents, "
+                  f"{w['adopted']} blocks adopted, {w['validated']} proposals validated), "
+                  f"{w['rebuilt']} rebuilt, {w['chunks']} DAS chunks; predicted "
+                  f"{json.dumps({n: c for n, c in w['want'].items() if c})}")
+        print(f"network launches, relay leg ({relay['contents']} block contents, "
+              f"{relay['misses']} cold extensions, one process): "
+              f"{json.dumps({n: c for n, c in relay['launches'].items() if c})}")
+        print(f"network launches, coordinator ({COORD_HEIGHTS} heights, one process): "
+              f"{json.dumps({n: c for n, c in coord_launches.items() if c})}, predicted "
+              f"{json.dumps({n: c for n, c in block_launches(COORD_HEIGHTS).items() if c})}")
+        results["network"] = {key: net[key] for key in (
+            "boot_s", "restart_boot_s", "catchup_s", "caught_up_heights", "commit_ms", "filled",
+            "stopped_at", "heights", "mesh_s", "idle_ms_per_height", "health", "trace", "txsim",
+            "swarm", "relay", "coord_ms", "coord_launches", "heights_at_read", "windows",
+            "build_seconds")}
+        for i, built in net["build_seconds"].items():
+            check(built == 0.0, f"mesh validator {i} built the kernel library ({built} s) "
+                  "instead of loading phase 1's")
+        # every window: exactly one extension for each cold extension and
+        # rebuilt block and one K7b gather for each DAS chunk; the cold
+        # extensions within the bounds the window's block contents give
+        for name, w in windows.items():
+            check(w["launches"] == w["want"], f"network {name} launched "
+                  f"{w['launches']}, predicted {w['want']}")
+            lo, hi = w["bounds"]
+            check(lo <= w["misses"] <= hi, f"network {name} made {w['misses']} cold "
+                  f"extensions over heights {w['heights']}, which hold {w['new_contents']} "
+                  f"block contents new to it ({w['adopted']} adopted, {w['validated']} "
+                  f"proposals validated): outside [{lo}, {hi}]")
+        for i in range(NET_VALIDATORS):
+            check(windows[f"validator {i}"]["misses"] > 0, f"mesh validator {i} extended "
+                  "no block on the card")
+        check(sw["k7b_launches"] > 0, "the swarm's node launched no K7b gather")
+        # one process: the proposer's prepare extends, the validators hit
+        # the device's content cache
+        check(coord_launches == block_launches(COORD_HEIGHTS), f"the coordinator's heights "
+              f"launched {coord_launches}, predicted {block_launches(COORD_HEIGHTS)}")
+
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
-             sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches)
+             sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches,
+             network_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------

@@ -3,6 +3,9 @@ neither jax nor anything of celestia_tpu, and the port's main path runs
 with both unimportable."""
 
 import ast
+import json
+import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -326,3 +329,102 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_network_stack_runs_with_jax_and_celestia_tpu_unimportable(tmp_path):
+    """The network stack (node/gossip, node/coordinator, node/cluster,
+    client/swarm, txsim.run_remote) imports with jax and celestia_tpu
+    unimportable, and each CLI command that reaches it runs on the CPU:
+    ``start --bft-valset --peers`` (a one-validator mesh) commits heights,
+    ``query cluster-health``, ``cluster-trace`` and ``cluster-incidents``
+    roll it up, ``txsim`` lands its load, ``bft-relay`` drives a height,
+    ``coordinator`` one block of a ``NodeServer`` in the same process,
+    and SIGTERM ends ``start`` with 0."""
+    code = (
+        "import contextlib, io, importlib, json, os, signal, sys, threading, time\n"
+        "for name in ('jax', 'jaxlib', 'celestia_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "for name in ('node.gossip', 'node.coordinator', 'node.cluster', 'client.swarm'):\n"
+        "    importlib.import_module('celestia_tpu_torch.' + name)\n"
+        "from celestia_tpu_torch import cli\n"
+        "from celestia_tpu_torch.client import txsim\n"
+        "from celestia_tpu_torch.node.remote import RemoteNode\n"
+        "from celestia_tpu_torch.node.server import NodeServer\n"
+        "from celestia_tpu_torch.node.testnode import TestNode\n"
+        "from celestia_tpu_torch.utils.secp256k1 import PrivateKey\n"
+        "assert callable(txsim.run_remote)\n"
+        "home, addr = sys.argv[1], sys.argv[2]\n"
+        "quiet = io.StringIO()\n"
+        "with contextlib.redirect_stdout(quiet):\n"
+        "    assert cli.main(['--home', home, 'keys', 'add', 'alice']) == 0\n"
+        "    assert cli.main(['--home', home, 'init', '--chain-id', 'iso-mesh-1',\n"
+        "                     '--fund-keyring', str(10**12)]) == 0\n"
+        "key = PrivateKey(int(json.load(open(home + '/config/priv_validator_key.json'))\n"
+        "                     ['priv_key'], 16))\n"
+        "valset = home + '/valset.json'\n"
+        "json.dump([{'address': key.public_key().address().hex(),\n"
+        "            'pubkey': key.public_key().compressed().hex(), 'power': 100}],\n"
+        "          open(valset, 'w'))\n"
+        "out = {}\n"
+        "def client(*argv):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        rc = cli.main(['--home', home, *argv])\n"
+        "    return rc, buf.getvalue()\n"
+        "def drive():\n"
+        "    try:\n"
+        "        deadline = time.time() + 60\n"
+        "        while time.time() < deadline:\n"
+        "            try:\n"
+        "                r = RemoteNode(addr, timeout_s=10)\n"
+        "                break\n"
+        "            except Exception:\n"
+        "                time.sleep(0.1)\n"
+        "        while r.height < 3 and time.time() < deadline:\n"
+        "            time.sleep(0.05)\n"
+        "        out['height'] = r.height\n"
+        "        rc, text = client('query', '--node', addr, 'cluster-health')\n"
+        "        out['health'] = (rc, json.loads(text)['reachable'])\n"
+        "        rc, text = client('query', '--node', addr, 'cluster-trace', '--out',\n"
+        "                          home + '/cluster.json')\n"
+        "        out['trace'] = (rc, json.loads(text)['nodes'])\n"
+        "        rc, text = client('query', '--node', addr, 'cluster-incidents')\n"
+        "        out['incidents'] = (rc, json.loads(text)['incidents_total'])\n"
+        "        rc, text = client('txsim', '--node', addr, '--from', 'alice', '--blob', '1',\n"
+        "                          '--send', '1', '--iterations', '1', '--blob-size-max', '900')\n"
+        "        rep = json.loads(text)\n"
+        "        out['txsim'] = (rc, rep['submitted'], rep['succeeded'])\n"
+        "        rc, text = client('bft-relay', '--peers', addr, '--blocks', '1')\n"
+        "        out['relay'] = (rc, json.loads(text.splitlines()[-1])['height'] > 0)\n"
+        "        plain = TestNode(device='cpu', auto_produce=False, genesis_time_ns=10**18)\n"
+        "        srv = NodeServer(plain, block_interval_s=None)\n"
+        "        srv.start()\n"
+        "        rc, text = client('coordinator', '--peers', srv.address, '--blocks', '1')\n"
+        "        out['coordinator'] = (rc, json.loads(text)['height'])\n"
+        "        srv.stop()\n"
+        "        r.close()\n"
+        "    finally:\n"
+        "        os.kill(os.getpid(), signal.SIGTERM)\n"
+        "t = threading.Thread(target=drive)\n"
+        "t.start()\n"
+        "with contextlib.redirect_stdout(quiet):\n"
+        "    rc = cli.main(['--home', home, 'start', '--bft-valset', valset, '--peers',\n"
+        "                   '127.0.0.1:1', '--grpc-address', addr, '--block-interval', '0.05',\n"
+        "                   '--warm-squares', '1', '--timeseries-interval', '0'])\n"
+        "t.join()\n"
+        "assert not any(m.split('.')[0] in ('jax', 'celestia_tpu')\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print(json.dumps({'start': rc, **out}))\n"
+    )
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = "127.0.0.1:%d" % sock.getsockname()[1]
+    env = {**os.environ, "CELESTIA_TPU_TORCH_DEVICE": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "home"), addr], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["start"] == 0 and got["height"] >= 3
+    assert got["health"] == [0, 1] and got["trace"][0] == 0 and got["incidents"] == [0, 0]
+    assert got["txsim"] == [0, 2, 2] and got["relay"] == [0, True]
+    assert got["coordinator"] == [0, 2]
