@@ -125,9 +125,9 @@ def cmd_init(args) -> int:
 
 
 def cmd_start(args) -> int:
-    # the node's device: CELESTIA_TPU_TORCH_DEVICE (e.g. "cpu", the plain
-    # path the tests run), else the card; without a card the start fails
-    # at once (no wait for a backend, no CPU fallback)
+    # the node's device: CELESTIA_TPU_TORCH_DEVICE (e.g. "cpu", the host
+    # regime of da/dah.py that the tests run), else the card; without a
+    # card the start fails at once (no wait for a backend, no CPU fallback)
     from celestia_tpu_torch.utils.device import resolve_device
 
     requested = os.environ.get("CELESTIA_TPU_TORCH_DEVICE", "").strip() or None

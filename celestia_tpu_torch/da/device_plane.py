@@ -20,8 +20,10 @@ aunts and siblings into one buffer that the host fetches with one copy --
 never a re-hash.  Proofs are byte-identical to the host
 prover (da/das.py ``_sample_proof_uncached``).
 
-The port runs the plane on every device (``device="cpu"`` runs the plain
-twins), which is the JAX package's routing with an accelerator attached.
+``dah.extend_and_header`` runs the plane on the card, which is the JAX
+package's routing with an accelerator attached; on the CPU it runs the
+host regime, and the plane (the plain twins) is reached only by calling
+:func:`extend_and_header` here with ``device="cpu"``, as tests do.
 It keeps the JAX module's ``extend.device_plane`` span and its devprof
 brackets (the ``extend_levels`` upload and dispatch, the ``data_root`` and
 ``roots`` fetch legs, which ride one copy here, and the

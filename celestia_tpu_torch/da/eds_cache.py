@@ -197,8 +197,10 @@ def stats(device) -> dict:
 # EDS (da/das.py) — never by trusting a claimed root.
 #
 # Each device has its own cache ("cuda:0", "cpu"): an entry is found only
-# for an EDS on the entry's device, and a plain-path extend of a block
-# (device="cpu") can neither replace nor evict the card's entry for it.
+# for an EDS on the entry's device, and the plane on the CPU
+# (device_plane.extend_and_header(..., device="cpu"), which tests call;
+# da/dah.py's CPU entries run the host regime and park no entry) can
+# neither replace nor evict the card's entry for a block.
 #
 # The byte budget is explicit and conservative: a k=128 entry of the
 # port weighs ~48.9 MiB of HBM (32 MiB shares, a 5.6 MiB leaf-digest

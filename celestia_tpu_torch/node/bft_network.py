@@ -29,7 +29,7 @@ node/network.py's legacy driver.
 Re-homed from ``celestia_tpu/node/bft_network.py``: ``BFTNetwork(device=
 None)`` gives its device to every validator's App.  No device means the
 card, and the constructor raises without one; ``device="cpu"`` runs the
-plain PyTorch path.
+host regime (da/dah.py).
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ class BFTNetwork:
         device=None,
     ):
         """device: where every validator's App extends its squares (None:
-        the card, raising when there is none; ``"cpu"``: the plain
-        PyTorch path)."""
+        the card, raising when there is none; ``"cpu"``: the host
+        regime)."""
         self.device = resolve_device(device)
         self.chain_id = chain_id
         self.block_interval_ns = block_interval_ns

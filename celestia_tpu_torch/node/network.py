@@ -30,7 +30,7 @@ Re-homed from ``celestia_tpu/node/network.py``.  What differs:
 * ``ValidatorNetwork(device=None)`` gives its device to every App it
   builds, the byzantine ones and a joining validator's too.  No device
   means the card, and the constructor raises without one; ``device="cpu"``
-  runs the plain PyTorch path.
+  runs the host regime (da/dah.py).
 * ``join_validator`` checks a chunk of committed blocks with one
   ``dah.data_roots_batched`` call on that device (K5b extends the batch,
   K2 and K3 hash every axis root, K4 every data root), and compares the
@@ -116,7 +116,7 @@ class ValidatorNetwork:
         """malicious: {validator index -> malicious handler name} builds
         those validators with a MaliciousApp.  device: where every App
         extends its squares (None: the card, raising when there is none;
-        ``"cpu"``: the plain PyTorch path)."""
+        ``"cpu"``: the host regime)."""
         self.device = resolve_device(device)
         self.chain_id = chain_id
         self.block_interval_ns = block_interval_ns

@@ -13,7 +13,8 @@ Re-homed from ``celestia_tpu/node/testnode.py``.  What differs:
 
 * ``TestNode(**app_kwargs)`` passes ``device=`` to its App: no device means
   the card, and the constructor raises without one; ``device="cpu"`` runs
-  the plain PyTorch path.  A node restored from a snapshot or a network
+  the host regime (da/dah.py), and DAS is served by the host prover.  A
+  node restored from a snapshot or a network
   state-sync keeps its App's device.
 * A block that has aged out of the node's EDS cache is rebuilt on the
   App's device (``dah.extend_block(square, device=self.app.device)``), so

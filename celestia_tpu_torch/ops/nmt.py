@@ -548,6 +548,22 @@ def eds_nmt_roots_device(eds: torch.Tensor) -> torch.Tensor:
     return d.done(eds_nmt_roots(eds))
 
 
+def eds_nmt_roots_host(eds: np.ndarray, nthreads=None) -> np.ndarray:
+    """All 4k NMT axis roots on the host (JAX :178): uint8[2k, 2k, B] ->
+    uint8[2, 2k, 90], the native library's threaded pass over the 4k
+    trees (``nthreads`` None: ``hostpool.cpu_threads()``).  Raises
+    ``RuntimeError`` when the library cannot be loaded; JAX's numpy legs
+    (:134, :215) are not ported."""
+    from celestia_tpu_torch.utils import native
+
+    eds = np.ascontiguousarray(eds, dtype=np.uint8)
+    n2 = eds.shape[0]
+    native.require()
+    return native.eds_nmt_roots(eds, nthreads=nthreads).reshape(
+        2, n2, NMT_DIGEST_SIZE
+    )
+
+
 def empty_root_np() -> np.ndarray:
     """EmptyRoot: zeros ns range + sha256 of the empty string."""
     import hashlib

@@ -38,7 +38,10 @@ orientation in place (K8b ``rs_decode_axes``), re-extends Q0 (K5), flags
 the cells that disagree (K8c ``rs_repair_verdicts``) and hashes the axis
 roots (K2 + K3), then fetches the verdicts once.  On CPU tensors the same
 host loop runs the plain versions, which keep the JAX package's GF(2)
-lift (:func:`_bit_expand_dev`).
+lift (:func:`_bit_expand_dev`).  :func:`repair_square` is the JAX
+package's host repair on the native library: Leopard's erasure decoder
+under ``leopard-ff8``, the Lagrange matrices and a GF matmul under
+``lagrange-gf256``, a native re-extension and root pass to check.
 """
 
 from __future__ import annotations
@@ -967,28 +970,140 @@ def repair_square_device(
     return out
 
 
+def _gf_matmul_axes_host(D: np.ndarray, X: np.ndarray, nthreads=None) -> np.ndarray:
+    """out[i] = D[i] x X[i] over GF(256), threaded in the native library
+    (JAX :494, its native branch)."""
+    from celestia_tpu_torch.utils import native
+
+    return native.gf_matmul_axes(D, X, nthreads=nthreads)
+
+
 def repair_square(
     eds,
     available,
     row_roots: np.ndarray = None,
     col_roots: np.ndarray = None,
+    nthreads: int = None,
 ) -> np.ndarray:
     """Reconstruct a full EDS from a partial one on the host (rsmt2d.Repair
-    parity, JAX :531): :func:`repair_square_device` with ``device="cpu"``,
-    through the plain versions.
+    parity): the JAX package's host repair (:531-740) on the native library.
 
     eds: uint8[2k, 2k, B] with garbage in unavailable cells; available:
     bool[2k, 2k]; row_roots / col_roots: optional uint8[2k, 90] committed
-    NMT axis roots.  Raises ValueError when the repair stalls and
-    :class:`ByzantineError` when the provided shares are not a consistent
-    codeword or do not match the roots.  The JAX package's native host legs
-    (its Leopard FFT decoder, which writes only erased cells) are not
-    ported; the plain path overwrites each solved axis whole, as the
-    JAX device program does.  A tensor on another device raises
-    ValueError: repair it with :func:`repair_square_device` there."""
+    NMT axis roots.  Every row, then column, with >= k available cells is
+    solved, phase by phase, until the square is complete: under
+    ``leopard-ff8`` by the native Leopard erasure decoder, in place (it
+    writes only erased cells), under ``lagrange-gf256`` by one Lagrange
+    decode matrix per axis and the native GF matmul (which overwrites each
+    solved axis whole).  The result is re-extended natively from Q0 and
+    checked cell by cell, then against the roots when given.  Raises
+    ValueError when the repair stalls and :class:`ByzantineError` when the
+    provided shares are not a consistent codeword or do not match the
+    roots, with JAX's messages.  ``nthreads`` (None: the host pool's size)
+    threads the decode, the re-extension and the roots; the bytes do not
+    depend on it.  Raises RuntimeError without the native library, and
+    ValueError for a tensor that is not on the host: repair it with
+    :func:`repair_square_device` there."""
+    from celestia_tpu_torch.utils import native
+
     if isinstance(eds, torch.Tensor) and eds.device.type != "cpu":
         raise ValueError(f"repair_square repairs on the host, got eds on {eds.device}")
-    return repair_square_device(np.asarray(eds), available, row_roots, col_roots, device="cpu")
+    native.require()
+    # the provided shares are snapshot lazily: the Leopard decoder writes
+    # only erased cells, so the final eds == recomputed check covers them;
+    # the matrix path snapshots before its first write
+    original_eds: np.ndarray = None
+    eds = np.array(eds, dtype=np.uint8, copy=True)
+    avail = np.array(_host_array(available), dtype=bool, copy=True)
+    n2 = eds.shape[0]
+    k = n2 // 2
+    if eds.ndim != 3 or eds.shape[:2] != (n2, n2) or avail.shape != (n2, n2):
+        raise ValueError("eds must be (2k, 2k, B) with matching availability mask")
+    eds[~avail] = 0  # garbage cannot leak through the masks
+    leopard = gf256.active_codec() == gf256.CODEC_LEOPARD
+
+    while not avail.all():
+        progress = False
+        for axis in (0, 1):  # rows then columns
+            data = eds if axis == 0 else eds.transpose(1, 0, 2)
+            mask = avail if axis == 0 else avail.T
+            counts = mask.sum(axis=1)
+            idxs = np.nonzero((counts >= k) & (counts < n2))[0]
+            if len(idxs) == 0:
+                continue
+            if leopard:
+                if axis == 0 and bool((counts >= k).all()):
+                    # every row holds >= k cells: decode the whole
+                    # contiguous square in place (complete rows are no-ops)
+                    ok = native.leo_decode_axes(eds, avail.astype(np.uint8), nthreads=nthreads)
+                    if not ok.all():
+                        raise RuntimeError("leo_decode_axes rejected a solvable axis")
+                    avail[:, :] = True
+                    progress = True
+                    continue
+                block = np.ascontiguousarray(data[idxs])
+                ok = native.leo_decode_axes(block, mask[idxs].astype(np.uint8), nthreads=nthreads)
+                if not ok.all():
+                    raise RuntimeError("leo_decode_axes rejected a solvable axis")
+                decoded = block
+            else:
+                if original_eds is None:
+                    original_eds = eds.copy()
+                order = np.argsort(~mask[idxs], axis=1, kind="stable")
+                known_idx = np.sort(order[:, :k], axis=1)  # [n_axes, k]
+                D = gf256.decode_matrices_batch(known_idx.astype(np.uint8), k)
+                X = np.take_along_axis(data[idxs], known_idx[:, :, None], axis=1)
+                decoded = _gf_matmul_axes_host(D, X, nthreads)  # [n_axes, 2k, B]
+            if axis == 0:
+                eds[idxs] = decoded
+                avail[idxs] = True
+            else:
+                eds[:, idxs] = decoded.transpose(1, 0, 2)
+                avail[:, idxs] = True
+            progress = True
+        if not progress:
+            raise ValueError("repair stalled: insufficient available cells to reconstruct")
+
+    # the completed square must be the unique codeword extending its Q0,
+    # and every provided share must agree with it (rsmt2d ErrByzantine)
+    orig_avail = np.asarray(_host_array(available), dtype=bool)
+    provided = original_eds if original_eds is not None else eds
+    native_roots = None
+    if row_roots is not None or col_roots is not None:
+        # one threaded pass gives the re-extension and the axis roots
+        extend = native.extend_block_leopard_cpu if leopard else native.extend_block_cpu
+        recomputed, native_roots, _ = extend(eds[:k, :k], nthreads=nthreads)
+    elif leopard:
+        recomputed = native.leo_extend_square(eds[:k, :k], nthreads=nthreads)
+    else:
+        recomputed = native.rs_extend_square(eds[:k, :k])
+    if not np.array_equal(eds, recomputed):
+        bad = np.nonzero((eds != recomputed).any(axis=2))
+        raise ByzantineError(f"inconsistent erasure coding at cells {list(zip(*bad))[:8]}")
+    mismatch = orig_avail & (provided != recomputed).any(axis=2)
+    if mismatch.any():
+        bad = np.nonzero(mismatch)
+        raise ByzantineError(
+            f"provided shares disagree with the reconstructed codeword at "
+            f"cells {list(zip(*bad))[:8]}"
+        )
+    if native_roots is not None:
+        # eds == recomputed here, so the pipeline's roots are the repaired
+        # square's
+        roots = native_roots.reshape(2, n2, 90)
+        for name, axis_roots, got in (("row", row_roots, roots[0]), ("col", col_roots, roots[1])):
+            if axis_roots is None:
+                continue
+            axis_roots = np.asarray(_host_array(axis_roots), dtype=np.uint8)
+            if axis_roots.shape != got.shape:
+                raise ValueError(f"{name}_roots must be {got.shape}, got {axis_roots.shape}")
+            bad = np.nonzero((axis_roots != got).any(axis=1))[0]
+            if len(bad):
+                raise ByzantineError(
+                    f"reconstructed {name} axes {bad.tolist()[:8]} do not "
+                    f"match the committed NMT roots"
+                )
+    return eds
 
 
 # ---------------------------------------------------------------------------

@@ -133,6 +133,17 @@ def sha256(msgs: torch.Tensor) -> torch.Tensor:
     return d.done(sha256_cuda(msgs))
 
 
+def sha256_np(msgs: np.ndarray, device=None) -> np.ndarray:
+    """Numpy in and out (JAX :133): :func:`sha256` on ``device`` (None:
+    the card, K1; ``"cpu"``: the plain version) under its ``sha256_batch``
+    bracket.  K1's only entry point: no path of the port launches K1."""
+    from celestia_tpu_torch.utils.device import resolve_device
+
+    msgs = np.ascontiguousarray(msgs, dtype=np.uint8)
+    t = torch.from_numpy(msgs if msgs.flags.writeable else msgs.copy())
+    return sha256(t.to(resolve_device(device))).cpu().numpy()
+
+
 def sha256_batch_host(msgs: np.ndarray) -> np.ndarray:
     """Batched SHA-256 on the host with hashlib: uint8[n, L] -> uint8[n, 32]."""
     import hashlib

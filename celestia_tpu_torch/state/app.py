@@ -15,10 +15,12 @@ arithmetic or the bit-exact device kernels.
 Re-homed from ``celestia_tpu/state/app.py``.  What differs:
 
 * ``App(device=None)`` resolves its device once (``utils/device.py``): the
-  card unless the caller passes ``"cpu"``.  Every square is extended on
-  that device through the port's device-resident plane (K5 twice, K2, K3,
+  card unless the caller passes ``"cpu"``.  On the card every square is
+  extended through the port's device-resident plane (K5 twice, K2, K3,
   K4), or through the port's mesh (parallel/sharded.py) when one is
-  configured over that device.
+  configured over that device; on the CPU through the JAX package's host
+  regime (da/dah.py: the native library's legs and the row memo), or the
+  mesh when one is configured over the CPU.
 * The EDS cache is scoped by that device (``eds_cache.content_cache``): a
   CPU App's EDS is never handed to an App on the card, nor the reverse.
 * No mesh poison, no fallback: a sharded or batched extension that fails
@@ -157,7 +159,7 @@ class App:
         device=None,
     ):
         """``device``: where every square is extended (None: the card,
-        raising when there is none; ``"cpu"``: the plain PyTorch path)."""
+        raising when there is none; ``"cpu"``: the host regime)."""
         self.device = resolve_device(device)
         self.chain_id = chain_id
         self.min_gas_price = min_gas_price  # node-local CheckTx filter

@@ -9,8 +9,10 @@ Copy of ``celestia_tpu/utils/native.py`` for the port.  One change: the
 port builds its own copy of the library, ``build/torch_native/
 celestia_native.so``, to a temporary name that ``os.replace`` moves into
 place, so a process of either package never loads a library the other is
-still writing.  The port's host legs (commitments, secp256k1) are the
-JAX package's; no device leg of the port calls this library.
+still writing.  The port's host legs (commitments, secp256k1, and the
+host regime's extension, roots and repair in da/dah.py, ops/nmt.py and
+ops/rs.py, which :func:`require` the library) are the JAX package's; no
+device leg of the port calls this library.
 """
 
 from __future__ import annotations
@@ -216,6 +218,21 @@ def available() -> bool:
         if _poison_reason is not None:
             return False
     return _load() is not None
+
+
+def require() -> None:
+    """Raise ``RuntimeError`` naming why when the library is not
+    :func:`available` (poisoned, or it did not build or load).  The port's
+    host regime (da/dah.py, ``ops/rs.py`` ``repair_square``) runs only on
+    this library: it has no plain fallback."""
+    if available():
+        return
+    reason = poisoned() or (
+        f"{_SO} could not be loaded"
+        if _SO_OVERRIDE
+        else f"g++ could not build {_SRC} into {_SO}, or it did not load"
+    )
+    raise RuntimeError(f"host regime: the native library is unavailable: {reason}")
 
 
 def _ptr(a: np.ndarray):

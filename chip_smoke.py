@@ -154,8 +154,32 @@ default runs every phase and every check:
    the prediction; then a ``ProcessCoordinator`` over 3 ``NodeServer``s
    of ``TestNode(device=cuda:0)`` for 2 heights at k = 64, data roots the
    plain path's;
+4k. the host regime (``host_phase``): ``dah.extend_and_header(sq,
+   device="cpu")``, the native library's legs the port runs when the
+   caller asks for the CPU, on 4 seeded squares at k = 64 and 4 at 128
+   against the card's ``extend_and_header``: equal EDS bytes, 4k axis roots
+   and data roots, no launch counted across the host calls; walls of both
+   beside the host CPU's model, ``hostpool.cpu_threads()`` and
+   ``torch.get_num_threads()``; ``extend_and_header_breakdown`` on the card
+   and on the CPU (upload, compute, fetch: medians of 5); at k = 128 a 25 %
+   random mask repaired by ``rs.repair_square`` on the host and by
+   ``repair_square_device`` on the card, both giving the EDS, walls of both;
+   in a child process under lagrange-gf256 (a process pins its codec at the
+   library's first use), a k = 64 square and one sharing 3/4 of its rows:
+   the row memo assembles the second once, at 37.5 % reuse, with the card's
+   bytes; one filled k = 64 height of ``TestNode(device="cpu")`` and of a
+   TestNode on the card on the same transactions: one data root, both
+   ``produce_block`` walls; the card legs' launches held to 5 an
+   extension;
 5. the kernels line (JSON: time, bound, plain time, library time, launches
    summed over every path) and, last, ``{"ok": true, "device": {...}}``.
+
+"The plain path" of phases 4-4j is the port with ``device="cpu"``: at the
+block entry points (``dah.extend_block(square, device="cpu")``, the path
+references of phases 4, 4g-4j) that is the host regime, the native
+library's legs, and elsewhere (serving, ``repair_square_device``, fraud,
+the catch-up batch) the plain PyTorch twins.  Each kernel is held against
+its plain twin in phase 2 and where a phase says so.
 
 Imports torch, numpy and the port; nothing of JAX or of ``celestia_tpu``.
 It exits non-zero without a result when no CUDA device is present or the
@@ -170,6 +194,7 @@ import functools
 import hashlib
 import importlib.util
 import json
+import platform
 import statistics
 import subprocess
 import sys
@@ -246,7 +271,7 @@ SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 # the phases --phases selects from; 3-4f share the seeded blocks and run together
-PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "5")
+PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "5")
 PHASE_GROUPS = {name: "4" for name in ("3", "4b", "4c", "4d", "4e", "4f")}
 DEVNET_NET_HEIGHTS = 4  # ValidatorNetwork heights of phase 4h (validator 1 proposes at 5)
 # the devnet's queries: DAS from the plane entry (K7b's cell mode), namespace
@@ -1827,6 +1852,274 @@ def network_phase(dev, k: int, seed: int) -> dict:
     return out
 
 
+HOST_SQUARES = 4  # seeded squares a size of phase 4k
+HOST_RUNS = 5  # breakdown calls and repairs a size of phase 4k
+HOST_CHAIN = "chip-smoke-host-1"
+
+
+def host_square(rng, k: int) -> np.ndarray:
+    """A seeded k x k square of 512-byte shares with sorted version-0
+    namespaces, as a real square has."""
+    sq = rng.integers(0, 256, (k, k, 512), dtype=np.uint8)
+    ns = np.sort(rng.integers(0, 256, (k * k, 10), dtype=np.uint8).view("S10").ravel())
+    flat = sq.reshape(k * k, 512)
+    flat[:, :19] = 0
+    flat[:, 19:29] = np.frombuffer(ns.tobytes(), np.uint8).reshape(-1, 10)
+    return sq
+
+
+def host_threads() -> str:
+    """The host CPU the host regime runs on and the threads beside it: the
+    native pool's (``hostpool.cpu_threads()``) and torch's own."""
+    import os
+
+    import torch
+
+    from celestia_tpu_torch.utils import hostpool
+
+    # /proc/cpuinfo names an x86 model; an Arm host's names only parts,
+    # which lscpu decodes
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), None)
+    except OSError:
+        pass
+    if model is None:
+        try:
+            lscpu = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+            model = next((line.split(":", 1)[1].strip() for line in lscpu.splitlines()
+                          if line.startswith("Model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    model = f"{model or 'model not reported'} ({platform.machine()})"
+    return (f"{model}, {os.cpu_count()} logical CPUs; native pool "
+            f"{hostpool.cpu_threads()} threads, torch {torch.get_num_threads()} threads")
+
+
+def reference_extend(dev):
+    """``dev``'s extend_and_header: on the card the entry point (the plane);
+    on the CPU, where the entry point is the host regime itself, the plane's
+    plain twins (a rehearsal)."""
+    import torch
+
+    from celestia_tpu_torch.da import dah, device_plane
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return lambda sq: dah.extend_and_header(sq, device=dev)
+    return lambda sq: device_plane.extend_and_header(sq, device=dev)
+
+
+def memo_child(dev, k: int, seed: int) -> None:
+    """Phase 4k's row-memo leg, run in a child process: the codec is
+    switched to lagrange-gf256 before the library's first use (a process
+    pins its codec at that use).  A seeded square, then one sharing 3/4 of
+    its rows, through the host regime: the memo must assemble the second
+    once, at the predicted reuse, with the bytes of the fused leg and of
+    ``dev``'s extension.  Prints one JSON line."""
+    from celestia_tpu_torch.da import dah
+    from celestia_tpu_torch.ops import gf256
+
+    gf256.set_active_codec(gf256.CODEC_LAGRANGE)
+    rng = np.random.default_rng(seed)
+    first = host_square(rng, k)
+    second = first.copy()
+    second[3 * k // 4:] = host_square(rng, k)[3 * k // 4:]
+    dah.clear_row_memo()
+    host, walls = [], []
+    for sq in (first, second):
+        t0 = time.perf_counter()
+        host.append(dah.extend_and_header(sq, device="cpu"))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    stats = dah.row_memo_stats()
+    check(stats["assembled"] == 1, f"the row memo assembled {stats['assembled']} squares, not 1")
+    want_pct = 100.0 * (3 * k // 4) / (2 * k)
+    check(stats["reuse_pct"] == want_pct, f"the row memo's reuse {stats['reuse_pct']} % != "
+          f"{want_pct} %")
+    t0 = time.perf_counter()
+    cold = dah._extend_and_header_host(second)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(cold[0].shares, host[1][0].shares) and cold[1] == host[1][1],
+          "the memo's square differs from the fused native leg's")
+    card = reference_extend(dev)
+    for (eds_h, dah_h), sq in zip(host, (first, second)):
+        eds_c, dah_c = card(sq)
+        check(dah_h == dah_c and np.array_equal(eds_h.shares, eds_c.shares),
+              "the host regime's memo square differs from the card's")
+    print(json.dumps({"memo": stats, "walls_ms": walls, "fused_ms": cold_ms,
+                      "codec": gf256.active_codec(), "threads": host_threads()}))
+
+
+def host_phase(dev, sizes, memo_k: int, seed: int, *, counted: bool) -> dict:
+    """Phase 4k, the host regime (``device="cpu"`` at the block entry points
+    of da/dah.py and ``ops/rs.py`` ``repair_square``: the native library's
+    legs) against ``dev``.
+
+    For each k in ``sizes``, HOST_SQUARES seeded squares through
+    ``dah.extend_and_header(sq, device="cpu")`` and through ``dev``'s
+    extension (``reference_extend``): equal EDS bytes, 4k axis roots and
+    data roots, the kernel launch counts unmoved by the host calls; walls
+    of both.  ``extend_and_header_breakdown`` on ``dev`` and on the CPU,
+    HOST_RUNS calls a k.  At the largest k, a 25 % random mask repaired by
+    ``rs.repair_square`` (host) and ``rs.repair_square_device`` on ``dev``,
+    both the EDS.  In a child process under lagrange-gf256 at ``memo_k``, the
+    row memo (``memo_child``).  Last, one filled height at GovMaxSquareSize
+    ``sizes[0]`` of ``TestNode(device="cpu")`` and of ``TestNode(device=
+    dev)`` on the same transactions: equal data roots; both walls.
+
+    ``counted``: ``dev`` is a card; the launches of its legs are returned,
+    and its extensions' held to 5 each."""
+    import os
+
+    import torch
+
+    from celestia_tpu_torch import kernels
+    from celestia_tpu_torch.client.signer import Signer, SubmitResult
+    from celestia_tpu_torch.da import dah
+    from celestia_tpu_torch.node.testnode import TestNode
+    from celestia_tpu_torch.ops import rs
+    from celestia_tpu_torch.parallel import mesh as provider
+    from celestia_tpu_torch.utils.secp256k1 import PrivateKey
+
+    dev = torch.device(dev)
+    rng = np.random.default_rng(seed)
+    card = reference_extend(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def host_leg(fn):
+        """fn's result and wall; fn must launch no kernel."""
+        before = kernels.launch_counts()
+        out, ms = timed(fn)
+        check(kernels.launch_counts() == before, "the host regime launched a kernel")
+        return out, ms
+
+    out = {"threads": host_threads(), "host_ms": {}, "card_ms": {}, "breakdown": {},
+           "host_breakdown": {}, "launches": {}}
+    card_calls, extended = 0, {}
+    kernels.reset_launch_counts()
+    for k in sizes:
+        squares = [host_square(rng, k) for _ in range(HOST_SQUARES)]
+        card(squares[0])  # one warm call a leg
+        host_leg(lambda: dah.extend_and_header(squares[0], device="cpu"))
+        card_calls += 1
+        for sq in squares:
+            (eds_h, dah_h), h_ms = host_leg(lambda: dah.extend_and_header(sq, device="cpu"))
+            (eds_c, dah_c), c_ms = timed(lambda: card(sq))
+            card_calls += 1
+            check(dah_h.row_roots == dah_c.row_roots and dah_h.col_roots == dah_c.col_roots,
+                  f"the host regime's axis roots differ from the card's at k={k}")
+            check(dah_h.hash == dah_c.hash, f"the host regime's data root differs at k={k}")
+            check(np.array_equal(eds_h.shares, eds_c.shares),
+                  f"the host regime's EDS differs from the card's at k={k}")
+            out["host_ms"].setdefault(k, []).append(h_ms)
+            out["card_ms"].setdefault(k, []).append(c_ms)
+        extended[k] = (eds_c.shares, dah_c)
+        for key, where, leg in (("breakdown", dev, timed), ("host_breakdown", "cpu", host_leg)):
+            runs = []
+            for _ in range(HOST_RUNS):
+                (_, dah_b, split), _ = leg(
+                    lambda: dah.extend_and_header_breakdown(squares[-1], device=where))
+                check(dah_b == dah_h, f"the breakdown's DAH differs at k={k} ({key})")
+                runs.append(split)
+            out[key][k] = {name: statistics.median(r[name] for r in runs) for name in runs[0]}
+        card_calls += HOST_RUNS
+    extend_launches = kernels.launch_counts()
+    if counted:
+        check(extend_launches == block_launches(card_calls), f"phase 4k's card extensions "
+              f"launched {extend_launches}, predicted {block_launches(card_calls)}")
+    out["launches"]["extend"] = extend_launches
+
+    # repair at the largest k: a 25 % random mask, host and card
+    k = max(sizes)
+    eds, dah_c = extended[k]
+    roots = [np.frombuffer(b"".join(r), dtype=np.uint8).reshape(2 * k, 90)
+             for r in (dah_c.row_roots, dah_c.col_roots)]
+    avail = np.random.default_rng(seed + 1).random((2 * k, 2 * k)) >= 0.25
+    damaged = eds.copy()
+    damaged[~avail] = 0
+    host_runs, card_runs = [], []
+    kernels.reset_launch_counts()
+    for _ in range(HOST_RUNS):
+        got, ms = host_leg(lambda: rs.repair_square(damaged, avail, *roots))
+        check(np.array_equal(got, eds), f"the host repair at k={k} is not the EDS")
+        host_runs.append(ms)
+        got, ms = timed(lambda: rs.repair_square_device(damaged, avail, *roots, device=dev))
+        check(np.array_equal(got, eds), f"the repair on {dev} at k={k} is not the EDS")
+        card_runs.append(ms)
+    out["launches"]["repair"] = kernels.launch_counts()
+    out["repair_ms"] = {"host": host_runs, "card": card_runs, "k": k,
+                        "withheld": int((~avail).sum())}
+
+    # the row memo, in a child process under lagrange-gf256
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.memo_child({str(dev)!r}, "
+         f"{memo_k}, {seed + 2})"],
+        cwd=here, capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0, f"the row-memo child failed: {proc.stderr[-2000:]}")
+    out["memo"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["memo"]["child_s"] = time.perf_counter() - t0
+    out["memo"]["k"] = memo_k
+
+    # one filled height of a TestNode on the CPU and one on dev, same txs
+    class BroadcastOnly(Signer):
+        def confirm_tx(self, tx_hash, **kw):
+            return SubmitResult(0, "", tx_hash)
+
+    k = sizes[0]
+    keys = [PrivateKey.from_seed(b"chip-smoke-host-%d" % i) for i in range(APP_PFBS)]
+    validator = PrivateKey.from_seed(b"chip-smoke-host-validator")
+    genesis = {
+        "chain_id": HOST_CHAIN, "genesis_time_ns": APP_GENESIS_NS, "codec": "leopard-ff8",
+        "accounts": [{"address": key.public_key().address().hex(), "balance": 10**13}
+                     for key in keys],
+        "validators": [{"address": validator.public_key().address().hex(),
+                        "self_delegation": 10**9}],
+        "params": {"blob": {"GovMaxSquareSize": k}},
+    }
+    blobs = pfb_blobs(rng, k, APP_PFBS)
+    blocks, node_ms = {}, {}
+    provider.configure("off")
+    try:
+        for label, where, leg in (("host", "cpu", host_leg), ("card", dev, timed)):
+            node = TestNode(chain_id=HOST_CHAIN, genesis=genesis, validator_key=validator,
+                            device=where, auto_produce=False)
+            for key, b in zip(keys, blobs):
+                res = BroadcastOnly(node, key).submit_pay_for_blob(list(b))
+                check(res.code == 0, f"a PayForBlobs was refused: {res.log}")
+            kernels.reset_launch_counts()
+            blocks[label], node_ms[label] = leg(node.produce_block)
+            out["launches"][f"testnode_{label}"] = kernels.launch_counts()
+    finally:
+        provider.configure(None)
+    blk_h, blk_c = blocks["host"], blocks["card"]
+    check(blk_h.header.square_size == k, f"the host TestNode's height filled to "
+          f"{blk_h.header.square_size}, not {k}")
+    check(blk_h.txs == blk_c.txs and blk_h.header.data_hash == blk_c.header.data_hash,
+          "the host TestNode's block differs from the card TestNode's")
+    if counted:
+        check(out["launches"]["testnode_card"] == block_launches(1), "the card TestNode's "
+              f"height launched {out['launches']['testnode_card']}, predicted "
+              f"{block_launches(1)}")
+    out["testnode_ms"] = node_ms
+    out["testnode_root"] = blk_c.header.data_hash.hex()
+    return out
+
+
 def kernel_sass_mix(kernel: str) -> dict:
     """Opcode counts of the built library's SASS for the kernel whose mangled
     name holds ``kernel`` (``cuobjdump -sass``, beside nvcc): how its rounds
@@ -1863,6 +2156,7 @@ def kernel_sass_mix(kernel: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
@@ -1946,7 +2240,7 @@ def main() -> int:
     # the launches of every path; a path of an unselected phase launched nothing
     extend_launches = serve_launches = repair_launches = fraud_launches = {}
     catchup_launches = sharded_launches = app_launches = app_mesh_launches = {}
-    devnet_launches = service_launches = network_launches = {}
+    devnet_launches = service_launches = network_launches = host_launches = {}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         torch.cuda.synchronize()
@@ -3452,9 +3746,51 @@ def main() -> int:
         check(coord_launches == block_launches(COORD_HEIGHTS), f"the coordinator's heights "
               f"launched {coord_launches}, predicted {block_launches(COORD_HEIGHTS)}")
 
+    if "4k" in selected:
+        # --- 4k. the host regime against the card ------------------------------
+        t_host = time.perf_counter()
+        hr = host_phase(dev, [DEFAULT_GOV_MAX_SQUARE_SIZE, 128], DEFAULT_GOV_MAX_SQUARE_SIZE,
+                        args.seed + 14, counted=True)
+        host_launches = sum_counts(hr["launches"].values())
+        for name in EXTEND_KERNELS:
+            check(hr["launches"]["extend"][name] > 0,
+                  f"kernel {name} was not launched by phase 4k's card extensions")
+        for name in REPAIR_KERNELS:
+            check(hr["launches"]["repair"][name] > 0,
+                  f"kernel {name} was not launched by phase 4k's card repairs")
+        check(set(hr["launches"]["testnode_host"].values()) == {0},
+              "the host TestNode's height launched a kernel")
+        med = {side: {k: statistics.median(v) for k, v in hr[f"{side}_ms"].items()}
+               for side in ("host", "card")}
+        print(f"host regime: dah.extend_and_header(device='cpu') at k="
+              f"{sorted(hr['host_ms'])}, {HOST_SQUARES} seeded squares each, EDS bytes, 4k "
+              "axis roots and data roots equal to the card's, no launch on the host calls; "
+              f"host repair at k={hr['repair_ms']['k']} ({hr['repair_ms']['withheld']} cells "
+              "withheld, the DAH's roots) equal to repair_square_device on the card; the row "
+              f"memo under {hr['memo']['codec']} at k={hr['memo']['k']} in a child: "
+              f"{json.dumps(hr['memo']['memo'])}, bytes equal to the card's; TestNode(cpu) and "
+              f"TestNode(card) at k={DEFAULT_GOV_MAX_SQUARE_SIZE} on one data root "
+              f"{hr['testnode_root']}; in {time.perf_counter() - t_host:.2f} s")
+        print(f"host regime CPU: {hr['threads']} (the memo child: {hr['memo']['threads']})")
+        print("host regime walls (ms, medians): extend_and_header host "
+              + ", ".join(f"k={k} {v:.3f}" for k, v in med["host"].items())
+              + "; card " + ", ".join(f"k={k} {v:.3f}" for k, v in med["card"].items())
+              + "; host breakdown " + json.dumps(hr["host_breakdown"])
+              + f"; repair host {statistics.median(hr['repair_ms']['host']):.3f}, card "
+              f"{statistics.median(hr['repair_ms']['card']):.3f}; memo child square 1 "
+              f"{hr['memo']['walls_ms'][0]:.3f}, square 2 (memo) {hr['memo']['walls_ms'][1]:.3f}, "
+              f"square 2 fused {hr['memo']['fused_ms']:.3f}; produce_block host "
+              f"{hr['testnode_ms']['host']:.3f}, card {hr['testnode_ms']['card']:.3f} | {smi}")
+        print("host regime card breakdown (ms, medians of "
+              f"{HOST_RUNS}): {json.dumps(hr['breakdown'])} | {smi}")
+        print(f"host regime launches (card legs only): {json.dumps(hr['launches'])}")
+        results["host_regime"] = {key: hr[key] for key in (
+            "threads", "host_ms", "card_ms", "breakdown", "host_breakdown", "repair_ms",
+            "memo", "testnode_ms", "testnode_root", "launches")}
+
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
              sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches,
-             network_launches)
+             network_launches, host_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------
@@ -3480,6 +3816,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+    print(f"chip_smoke: phases {','.join(sorted(selected))} in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -73,3 +73,15 @@ def test_plain_row_stacks_give_the_calls_own_answers():
     assert answers(other, other_hdr, other_ranges, stacks) == answers(other, other_hdr,
                                                                       other_ranges)
     assert nmt.row_level_stack is real
+
+
+def test_host_phase_rehearses_on_the_cpu():
+    """Phase 4k's control flow on the CPU at tiny sizes (the host regime
+    against the plane's plain twins, the memo in its child under
+    lagrange-gf256, the two TestNodes): every check of the phase holds."""
+    out = chip_smoke.host_phase("cpu", [2, 1], 4, 3, counted=False)
+    assert set(out["host_ms"]) == set(out["card_ms"]) == {1, 2}
+    assert out["memo"]["memo"]["assembled"] == 1 and out["memo"]["memo"]["reuse_pct"] == 37.5
+    assert out["memo"]["codec"] == "lagrange-gf256"
+    assert out["repair_ms"]["k"] == 2 and len(out["repair_ms"]["host"]) == chip_smoke.HOST_RUNS
+    assert all(set(c.values()) == {0} for c in out["launches"].values())

@@ -125,17 +125,18 @@ def _start(home: str, env: dict):
 
 
 def test_start_exits_1_when_a_launch_fails_in_the_producer(tmp_path):
-    """``start`` (``CELESTIA_TPU_TORCH_DEVICE=cpu``) whose plane extension
-    raises as a failed CUDA launch would: the node stops and exits 1."""
+    """``start`` (``CELESTIA_TPU_TORCH_DEVICE=cpu``) whose extension (the
+    host regime's native leg on the CPU) raises as a failed CUDA launch
+    would: the node stops and exits 1."""
     home = str(tmp_path / "home")
     chip_smoke.cli_in_process(home, "keys", "add", "alice")
     chip_smoke.cli_in_process(home, "init", "--chain-id", "cli-fail-1")
     code = (
         "import sys\n"
-        "from celestia_tpu_torch.da import device_plane\n"
+        "from celestia_tpu_torch.da import dah\n"
         "def failed_launch(square):\n"
         "    raise RuntimeError('CUDA error: an illegal memory access was encountered')\n"
-        "device_plane._extend_levels = failed_launch\n"
+        "dah._native_extend = failed_launch\n"
         "from celestia_tpu_torch import cli\n"
         f"sys.exit(cli.main(['--home', {home!r}, 'start', '--grpc-address', '127.0.0.1:0',\n"
         "                    '--warm-squares', '', '--block-interval', '0.05']))\n"

@@ -1,6 +1,8 @@
 """The port's block extension (celestia_tpu_torch.da.dah) against the JAX
-package and the Go-pinned DAH hashes, on the CPU (``device="cpu"``: the
-plain PyTorch path).  The bar is byte equality.
+package and the Go-pinned DAH hashes, on the CPU: ``device="cpu"`` at the
+dah entry points runs the host regime (the native library's legs), and
+the plane on the CPU (``device_plane.extend_and_header(...,
+device="cpu")``) the plain PyTorch path.  The bar is byte equality.
 """
 
 import numpy as np
@@ -12,7 +14,7 @@ from celestia_tpu.da import golden as jgolden
 from celestia_tpu.ops import gf256 as jgf256
 from _torch_common import sha_scan_unrolled_once
 from _torch_common import codec_pair, torch_one_thread  # noqa: F401 (fixtures)
-from celestia_tpu_torch.da import dah, golden
+from celestia_tpu_torch.da import dah, device_plane, golden
 from celestia_tpu_torch.ops import gf256
 
 
@@ -42,12 +44,14 @@ def _jax_program(k: int, codec: str, square: np.ndarray):
 def test_extend_and_header_matches_jax(codec_pair, k):
     sq = _random_square(k, k)
     eds_j, rows_j, cols_j, root_j = _jax_program(k, codec_pair, sq)(sq)
-    eds, hdr = dah.extend_and_header(sq, device="cpu")
-    np.testing.assert_array_equal(eds.shares, np.asarray(eds_j))
-    assert hdr.row_roots == tuple(r.tobytes() for r in np.asarray(rows_j))
-    assert hdr.col_roots == tuple(c.tobytes() for c in np.asarray(cols_j))
-    assert hdr.hash == np.asarray(root_j).tobytes()
-    hdr.validate_basic()
+    # the plain path (the plane on the CPU), then the host regime
+    for extend in (device_plane.extend_and_header, dah.extend_and_header):
+        eds, hdr = extend(sq, device="cpu")
+        np.testing.assert_array_equal(eds.shares, np.asarray(eds_j))
+        assert hdr.row_roots == tuple(r.tobytes() for r in np.asarray(rows_j))
+        assert hdr.col_roots == tuple(c.tobytes() for c in np.asarray(cols_j))
+        assert hdr.hash == np.asarray(root_j).tobytes()
+        hdr.validate_basic()
 
 
 def test_golden_hashes_shared_with_jax():
@@ -70,7 +74,7 @@ def test_dah_2x2_hash():
 
 def test_dah_128_hash_plain_path():
     square = golden.fixture_shares(128 * 128).reshape(128, 128, 512)
-    _, hdr = dah.extend_and_header(square, device="cpu")
+    _, hdr = device_plane.extend_and_header(square, device="cpu")
     assert hdr.hash == golden.DAH_128_HASH
 
 

@@ -13,7 +13,7 @@ import pytest
 from celestia_tpu.da import dah as jdah
 from celestia_tpu.da import das as jdas
 from _torch_common import pinned_codec, torch_one_thread  # noqa: F401 (fixture)
-from celestia_tpu_torch.da import dah, das, eds_cache
+from celestia_tpu_torch.da import das, device_plane, eds_cache
 from celestia_tpu_torch.ops import gf256
 
 K = 4
@@ -28,7 +28,7 @@ def block(request):
     sq[..., :29] = 0
     sq[..., 28] = np.sort(rng.integers(1, 200, K * K)).reshape(K, K)
     with pinned_codec(request.param):
-        eds, hdr = dah.extend_and_header(sq, device="cpu")
+        eds, hdr = device_plane.extend_and_header(sq, device="cpu")
     jeds = jdah.ExtendedDataSquare(eds.shares.copy())
     jhdr = jdah.DataAvailabilityHeader(hdr.row_roots, hdr.col_roots, hdr.hash)
     yield eds, hdr, jeds, jhdr

@@ -98,7 +98,7 @@ def _all_cells(k: int):
 def test_every_cell_proof_matches_jax(codec_pair):
     k = 4
     eds_j, levels_j, roots_j = _jax_plane(k, codec_pair)
-    eds, hdr = dah.extend_and_header(_square(k, k), device="cpu")
+    eds, hdr = device_plane.extend_and_header(_square(k, k), device="cpu")
     coords = _all_cells(k)
     calls = das.host_prover_calls()
     proofs = das.sample_proofs_batch(eds, hdr, coords)
@@ -182,7 +182,7 @@ def test_entry_from_arrays_rejects_a_foreign_layout():
 
 def test_eviction_serves_the_same_bytes_from_the_host_prover():
     k = 4
-    eds, hdr = dah.extend_and_header(_square(k, 31), device="cpu")
+    eds, hdr = device_plane.extend_and_header(_square(k, 31), device="cpu")
     coords = [(0, 0), (1, 5), (7, 2), (4, 4), (2, 7), (6, 6)]
     first = das.sample_proofs_batch(eds, hdr, coords)
     calls = das.host_prover_calls()
@@ -200,7 +200,7 @@ def test_device_handle_budget_evicts_lru():
     max_entries = eds_cache.device_cache("cpu").max_entries
     roots = []
     for i in range(max_entries + 1):
-        _, hdr = dah.extend_and_header(_square(2, 100 + i), device="cpu")
+        _, hdr = device_plane.extend_and_header(_square(2, 100 + i), device="cpu")
         roots.append(hdr.hash)
     assert eds_cache.get_device_entry(roots[0], "cpu") is None  # LRU evicted
     for root in roots[1:]:
@@ -214,7 +214,7 @@ def test_device_handle_budget_evicts_lru():
 @pytest.mark.parametrize("fault", ["shape", "device"])
 def test_malformed_entry_raises_and_is_not_served_by_the_host(fault):
     k = 2
-    eds, hdr = dah.extend_and_header(_square(k, 41), device="cpu")
+    eds, hdr = device_plane.extend_and_header(_square(k, 41), device="cpu")
     entry = eds_cache.get_device_entry(hdr.hash, "cpu")
     levels = list(entry.levels)
     if fault == "shape":
@@ -236,7 +236,8 @@ def test_extend_block_parks_the_entry_and_matches_jax():
     txs = [bytes([i]) * (300 + 37 * i) for i in range(30)]
     _, hdr_j = jdah.extend_block(jbuild(txs)[0])
     sq, _, _ = build(txs)
-    eds, hdr = dah.extend_block(sq, device="cpu")
+    k = sq.size
+    eds, hdr = device_plane.extend_and_header(sq.to_array().reshape(k, k, 512), device="cpu")
     assert hdr.hash == hdr_j.hash
     entry = eds_cache.get_device_entry(hdr.hash, "cpu")
     assert entry.k == sq.size and entry.eds is eds.tensor
@@ -245,7 +246,7 @@ def test_extend_block_parks_the_entry_and_matches_jax():
 def test_entry_of_another_device_is_not_served_nor_displaced():
     k = 4
     sq = _square(k, 51)
-    eds, hdr = dah.extend_and_header(sq, device="cpu")
+    eds, hdr = device_plane.extend_and_header(sq, device="cpu")
     coords = [(0, 3), (5, 0), (7, 7), (2, 6)]
     cpu_entry = eds_cache.get_device_entry(hdr.hash, "cpu")
     # the same block's entry, parked on another device
@@ -263,7 +264,7 @@ def test_entry_of_another_device_is_not_served_nor_displaced():
     assert das.host_prover_calls() == calls + 1
     assert got == [das._sample_proof_uncached(eds, hdr, r, c) for r, c in coords]
     # a plain-path extend of the same block parks its own entry beside it
-    eds2, hdr2 = dah.extend_and_header(sq, device="cpu")
+    eds2, hdr2 = device_plane.extend_and_header(sq, device="cpu")
     assert hdr2.hash == hdr.hash
     assert eds_cache.get_device_entry(hdr.hash, "meta") is other
     assert eds_cache.get_device_entry(hdr.hash, "cpu").eds is eds2.tensor
@@ -279,7 +280,7 @@ def test_proofs_from_the_eds_match_the_host_prover(entry_cached):
     """The card's miss path (touched rows' level stacks, root tree and one
     gather on the EDS's device), here on the plain twins."""
     k = 4
-    eds, hdr = dah.extend_and_header(_square(k, 61), device="cpu")
+    eds, hdr = device_plane.extend_and_header(_square(k, 61), device="cpu")
     if not entry_cached:  # the root tree is then rebuilt from the DAH
         assert eds_cache.drop_device_entry(hdr.hash)
     coords = [(7, 1), (0, 0), (7, 7), (3, 5), (0, 0), (4, 2)]  # unsorted, repeated

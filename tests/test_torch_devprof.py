@@ -37,8 +37,8 @@ from celestia_tpu.parallel import sharded as jax_sharded
 from celestia_tpu.utils import devprof as jax_devprof
 from celestia_tpu.utils import tracing as jax_tracing
 from _torch_common import sha_scan_unrolled_once, torch_one_thread  # noqa: F401 (fixture)
-from celestia_tpu_torch.da import dah, das, eds_cache
-from celestia_tpu_torch.ops import rs, sha256
+from celestia_tpu_torch.da import dah, das, device_plane, eds_cache
+from celestia_tpu_torch.ops import nmt, rs, sha256
 from celestia_tpu_torch.parallel import sharded
 from celestia_tpu_torch.utils import devprof, tracing
 from celestia_tpu_torch.utils.telemetry import validate_exposition
@@ -89,14 +89,15 @@ def _jax_extend():
 
 
 def _port_extend():
-    dah.extend_and_header(square(1), device="cpu")
+    # the port's plane, called directly: dah's CPU entry runs the host regime
+    device_plane.extend_and_header(square(1), device="cpu")
 
 
 def _serve_setup(side):
     if side == "jax":
         with jax_plane.forced("on"), sha_scan_unrolled_once():
             return jax_dah.extend_and_header(square(2))
-    return dah.extend_and_header(square(2), device="cpu")
+    return device_plane.extend_and_header(square(2), device="cpu")
 
 
 def _jax_serve(setup):
@@ -147,7 +148,8 @@ def _jax_roots(shares):
 
 
 def _port_roots(shares):
-    dah.new_data_availability_header(dah.ExtendedDataSquare(shares), device="cpu")
+    # the port's bracketed device leg (its host regime takes the native one)
+    nmt.eds_nmt_roots_device(torch.from_numpy(shares.copy()))
 
 
 MSGS = np.random.default_rng(7).integers(0, 256, (6, 91), dtype=np.uint8)
@@ -272,7 +274,7 @@ def test_inactive_dispatch_is_the_shared_noop(monkeypatch):
 def test_traced_run_validates_with_device_spans_under_host_spans():
     tracing.enable(4)
     with tracing.block_span("prepare_proposal", height=3):
-        eds, hdr = dah.extend_and_header(square(11), device="cpu")
+        eds, hdr = device_plane.extend_and_header(square(11), device="cpu")
         das.sample_proofs_batch(eds, hdr, cells(K))
     doc = tracing.trace_dump()
     assert tracing.validate_chrome_trace(doc) == []
@@ -291,7 +293,7 @@ def test_traced_run_validates_with_device_spans_under_host_spans():
     assert names[devprof.DEVICE_TID_BASE] == "device:cpu:0"
     # profiling never changes bytes
     tracing.disable()
-    assert dah.extend_and_header(square(11), device="cpu")[1].hash == hdr.hash
+    assert device_plane.extend_and_header(square(11), device="cpu")[1].hash == hdr.hash
 
 
 def test_cost_table_equals_the_formulas_chip_smoke_imports():
@@ -304,14 +306,14 @@ def test_cost_table_equals_the_formulas_chip_smoke_imports():
     hash_ops = (n2 * n2 * c(542) + 2 * n2 * (n2 - 1) * c(181)) * sha
     tree_ops = (4 * k * c(91) + (4 * k - 1) * c(65)) * sha
     with devprof.collect():
-        eds, hdr = dah.extend_and_header(square(12), device="cpu")
+        eds, hdr = device_plane.extend_and_header(square(12), device="cpu")
         das.sample_proofs_batch(eds, hdr, cells(K))
         setup = _repair_setup("port")
         _port_repair(setup)
         _port_batched()
         _port_sha()
         _port_sharded()
-        dah.new_data_availability_header(eds, device="cpu")
+        nmt.eds_nmt_roots_device(eds.tensor)
         table = devprof.device_profile()["kernels"]
     n_cells = len(cells(K))
     payload = 512 + 32 * 3 + 90 * 2  # share, log2(4k) aunts, log2(2k) siblings
@@ -392,7 +394,7 @@ def test_profiler_capture_writes_a_chrome_trace(tmp_path):
 
 def test_exposition_and_profile_after_a_window():
     with devprof.collect():
-        eds, hdr = dah.extend_and_header(square(14), device="cpu")
+        eds, hdr = device_plane.extend_and_header(square(14), device="cpu")
         das.sample_proofs_batch(eds, hdr, cells(K))
         prof = devprof.device_profile()
         lines = devprof.exposition_lines()

@@ -66,7 +66,7 @@ def test_main_path_runs_with_jax_and_celestia_tpu_unimportable():
         "rng = __import__('numpy').random.default_rng(3)\n"
         "sq2 = rng.integers(0, 256, (2, 2, 512), dtype='uint8')\n"
         "sq2[..., :29] = 0\n"
-        "eds2, hdr2 = dah.extend_and_header(sq2, device='cpu')\n"
+        "eds2, hdr2 = device_plane.extend_and_header(sq2, device='cpu')\n"
         "cells = [(r, c) for r in range(4) for c in range(4)]\n"
         "warm = das.sample_proofs_batch(eds2, hdr2, cells)\n"
         "assert das.host_prover_calls() == 0 and all(p.verify(hdr2.hash) for p in warm)\n"
@@ -78,6 +78,9 @@ def test_main_path_runs_with_jax_and_celestia_tpu_unimportable():
         "nd = namespace_data.get_shares_by_namespace(eds2, hdr2, bytes(sq2[0, 0, :29]))\n"
         "assert nd.verify(hdr2) and nd.rows\n"
         "assert 'eds_device' in lru.registry_stats()['caches']\n"
+        "# the host regime on the same square: the plane's bytes\n"
+        "eds3, hdr3 = dah.extend_and_header(sq2, device='cpu')\n"
+        "assert hdr3 == hdr2 and (eds3.shares == eds2.shares).all()\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m == 'celestia_tpu'\n"
         "               or m.startswith('celestia_tpu.') for m, v in sys.modules.items()\n"
         "               if v is not None)\n"
@@ -291,6 +294,12 @@ def test_node_service_runs_with_jax_celestia_tpu_and_grpc_unimportable():
         "req = json.dumps({'height': blk.header.height, 'coords': [[0, 0], [3, 1]]}).encode()\n"
         "chunks = [json.loads(c) for c in svc.das_sample_batch(req, None)]\n"
         "assert sum(len(c['proofs']) for c in chunks) == 2\n"
+        "# the node's CPU blocks ran the host regime: no dispatch; the plane,\n"
+        "# called directly, is exposed\n"
+        "assert 'kernel=\"extend_levels\"' not in svc.metrics_text()\n"
+        "import numpy as np\n"
+        "from celestia_tpu_torch.da import device_plane\n"
+        "device_plane.extend_and_header(np.zeros((2, 2, 512), dtype='uint8'), device='cpu')\n"
         "text = svc.metrics_text()\n"
         "assert 'celestia_tpu_kernel_bytes{kernel=\"extend_levels\"}' in text\n"
         "doc = json.loads(svc.trace_dump(b'{}', None))['trace']\n"

@@ -23,7 +23,7 @@ from celestia_tpu.da import proof as jproof
 from celestia_tpu.da import square as jsquare
 from celestia_tpu.da.namespace import Namespace as JNamespace
 from _torch_common import jitted_jax_level_stack, pinned_codec, torch_one_thread  # noqa: F401 (fixture)
-from celestia_tpu_torch.da import blob, dah, das, eds_cache, namespace_data, proof, square
+from celestia_tpu_torch.da import blob, das, device_plane, eds_cache, namespace_data, proof, square
 from celestia_tpu_torch.da.namespace import Namespace
 from celestia_tpu_torch.ops import gf256
 
@@ -53,7 +53,8 @@ def blocks(request):
     jsq, jblock_txs, jwrappers = jsquare.build(theirs, max_square_size=8)
     assert sq.size == jsq.size == 8 and block_txs == jblock_txs
     with pinned_codec(request.param):
-        eds, hdr = dah.extend_block(sq, device="cpu")
+        # the plane on the CPU: the block's entry is parked for the proofs
+        eds, hdr = device_plane.extend_and_header(sq.to_array().reshape(8, 8, 512), device="cpu")
         jeds, jhdr = jdah.extend_block(jsq)
     assert hdr.hash == jhdr.hash
     normal = [t for t in block_txs if t in plain]

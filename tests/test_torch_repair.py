@@ -5,9 +5,11 @@ The same seeded partial squares go through JAX ``rs.repair_square_device``
 / ``rs.repair_square`` and the port's ``repair_square_device(...,
 device="cpu")`` / ``repair_square``: repaired squares must be equal (0
 bytes of tolerance), and the byzantine and insufficient cases must raise
-the same exception type with the same message.  On CPU tensors the port
-runs the plain versions of K8a/K8b/K8c, which keep the JAX GF(2) lift;
-they are also held against the JAX helpers directly.
+the same exception type with the same message.  On CPU tensors the port's
+``repair_square_device`` runs the plain versions of K8a/K8b/K8c, which
+keep the JAX GF(2) lift; they are also held against the JAX helpers
+directly.  ``repair_square`` is the JAX host repair on the native library
+in both packages.
 """
 
 import jax.numpy as jnp
@@ -149,13 +151,12 @@ def test_repair_provided_share_mismatch_raises_like_jax(codec_pair):
     want = _raised(jrs.repair_square_device, bad, avail, return_device=True)
     assert want[0] == "ByzantineError" and "provided shares disagree" in want[1]
     assert _raised(_port, bad, avail, return_device=True) == want
-    # the port's host entry runs the same plain path (every solved axis
-    # overwritten whole), so it reports the same.  The JAX host entry does
-    # too under lagrange-gf256; under leopard-ff8 its native Leopard
-    # decoder writes only erased cells and the flip shows as inconsistent
-    # coding instead (a host leg the port does not copy).
-    assert _raised(rs.repair_square, bad, avail) == want
+    # the host entries (the port's and JAX's: the same native legs) report
+    # the same as each other.  Under lagrange-gf256 that is the device
+    # path's verdict; under leopard-ff8 the native Leopard decoder writes
+    # only erased cells and the flip shows as inconsistent coding instead
     jax_host = _raised(jrs.repair_square, bad, avail)
+    assert _raised(rs.repair_square, bad, avail) == jax_host
     if codec_pair == gf256.CODEC_LAGRANGE:
         assert jax_host == want
     else:

@@ -285,18 +285,19 @@ def test_clients_and_servers_interoperate_over_127_0_0_1(fresh_nodes, server_sid
 
 
 def test_a_failed_launch_ends_the_producer_and_healthz_reports_it(fresh_nodes, monkeypatch):
-    """A launch error raised inside ``produce_block`` (the plane's extension,
-    as a CUDA error would raise) is not swallowed: the producer loop ends,
-    ``failed`` is set with the error, and /healthz answers 503 "failed"."""
+    """A launch error raised inside ``produce_block`` (the extension's leg:
+    on the CPU the host regime's native call, raising as a CUDA error would
+    on the card) is not swallowed: the producer loop ends, ``failed`` is
+    set with the error, and /healthz answers 503 "failed"."""
     import urllib.error
     import urllib.request
 
-    from celestia_tpu_torch.da import device_plane
+    from celestia_tpu_torch.da import dah
 
     def failed_launch(square):
         raise RuntimeError("CUDA error: an illegal memory access was encountered")
 
-    monkeypatch.setattr(device_plane, "_extend_levels", failed_launch)
+    monkeypatch.setattr(dah, "_native_extend", failed_launch)
     node = port_testnode.TestNode(auto_produce=False, device="cpu")
     height = node.height
     with port_server.NodeServer(node, block_interval_s=0.02, timeseries_interval_s=None,
