@@ -124,6 +124,21 @@ def cmd_init(args) -> int:
     return 0
 
 
+def apply_host_thread_budget() -> int:
+    """One host thread budget for a node on the CPU: the native pool
+    (``hostpool.cpu_threads``: ``--cpu-threads``,
+    ``CELESTIA_TPU_TORCH_CPU_THREADS``, else every core) and torch's
+    intra-op threads, so that several nodes on one host can split its
+    cores.  Returns the budget."""
+    import torch
+
+    from celestia_tpu_torch.utils import hostpool
+
+    n = hostpool.cpu_threads()
+    torch.set_num_threads(n)
+    return n
+
+
 def cmd_start(args) -> int:
     # the node's device: CELESTIA_TPU_TORCH_DEVICE (e.g. "cpu", the host
     # regime of da/dah.py that the tests run), else the card; without a
@@ -138,6 +153,9 @@ def cmd_start(args) -> int:
             f"start: no usable device ({e}); a node without a CUDA card runs "
             "only with CELESTIA_TPU_TORCH_DEVICE=cpu"
         )
+
+    if device.type == "cpu":
+        apply_host_thread_budget()
 
     from celestia_tpu_torch.node.config import load_config
     from celestia_tpu_torch.node.server import NodeServer

@@ -632,6 +632,7 @@ def data_roots_batched(squares, device=None) -> Tuple[np.ndarray, Tuple[bytes, .
     roots = nmt_ops.eds_nmt_roots(eds)  # (n, 2, 2k, 90)
     n, _, n2, _ = roots.shape
     data = nmt_ops.rfc6962_root_pow2(roots.reshape(n, 2 * n2, NMT_ROOT_SIZE))  # (n, 32)
+    # celint: allow(host-sync) — the catch-up's one copy of every root and data root, which the caller compares on the host; JAX's caller fetches the same batch unbracketed (node/network.py), and the devprof ledger stays equal to JAX's
     host = torch.cat([roots.reshape(-1), data.reshape(-1)]).cpu().numpy()
     split = roots.numel()
     return (

@@ -211,6 +211,7 @@ def detect_bad_encoding(eds_shares, device=None) -> Optional[Tuple[str, int]]:
         decoded = rs.decode_axes(scratch, D, known, axes, cols, codec)
         mismatch, _ = rs.repair_verdicts(decoded, eds, eds, none)
         flags.append(mismatch.to(torch.bool).any(dim=0 if cols else 1))
+    # celint: allow(host-sync) — one copy of the 2 x 2k axis verdicts decides which axis the BEFP proves; a fraud check is off the block path and needs the answer on the host
     flagged = torch.stack(flags).cpu().numpy()  # [orientation, axis]
     for axis, row in zip((AXIS_ROW, AXIS_COL), flagged):
         hit = np.nonzero(row)[0]

@@ -633,9 +633,13 @@ class GossipEngine:
         t = self._catch_up_thread
         if t is not None and t.is_alive():
             t.join(timeout=5)
-        for link in self._links.values():
+        # a link's worker may still evict its peer (_peer_failed) while
+        # the others are stopped: take the links out under the lock first
+        with self._lock:
+            links = list(self._links.values())
+            self._links.clear()
+        for link in links:
             link.stop()
-        self._links.clear()
         for addr in list(self._pull_clients):
             self._drop_pull_client(addr)
 

@@ -1,6 +1,6 @@
 """Runtime lock-order shadow checker: the dynamic half of celint R6.
 
-The static pass (celestia_tpu/lint/lockorder.py) derives a lock-
+The static pass (celestia_tpu_torch/lint/lockorder.py) derives a lock-
 acquisition graph from source; this module records the orders the
 process ACTUALLY acquires locks in, so the tier-1 concurrency hammers
 (tests/test_race.py, tests/test_lru.py — `make lockwatch`) validate the

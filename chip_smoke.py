@@ -171,6 +171,15 @@ default runs every phase and every check:
    TestNode on the card on the same transactions: one data root, both
    ``produce_block`` walls; the card legs' launches held to 5 an
    extension;
+4l. the tool gates on the card (``tools_phase``): each twin of the JAX
+   package's ``tools/*_smoke.py`` (``python -m celestia_tpu_torch.tools.
+   <name> --device cuda:0``: das, swarm, ingress, device_resident,
+   profile, trace, critpath, incident, multichip) as a process of its
+   own, three at a time, each exiting 0 with its summary lines; each
+   node's launches, from its Metrics exposition, held to 5 a cold
+   extension or rebuilt block and one K7b a streamed DAS chunk (and one a
+   direct DAS batch); multichip's to ``sharded_launches_per_call(k, 2)``
+   on a mesh that repeats the card; the phase's wall and each twin's;
 5. the kernels line (JSON: time, bound, plain time, library time, launches
    summed over every path) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -199,6 +208,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -271,7 +281,8 @@ SHARDED_RUNS = 5  # warm calls per (k, R) of the sharded extension
 REPAIR_RUNS = 5  # warm calls per mask at k = 128
 CLIENTS, SAMPLES = 64, 16  # light clients per block, samples per client (da/das.py:443)
 # the phases --phases selects from; 3-4f share the seeded blocks and run together
-PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "5")
+PHASES = ("1", "2", "3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "4i", "4j", "4k", "4l",
+          "5")
 PHASE_GROUPS = {name: "4" for name in ("3", "4b", "4c", "4d", "4e", "4f")}
 DEVNET_NET_HEIGHTS = 4  # ValidatorNetwork heights of phase 4h (validator 1 proposes at 5)
 # the devnet's queries: DAS from the plane entry (K7b's cell mode), namespace
@@ -1260,21 +1271,16 @@ def node_counts(text: str) -> dict:
     (its per-lane sample latency histograms' counts), the BFT proposals it
     validated, and the decided blocks it adopted on their certificates and
     the height of the last."""
+    from celestia_tpu_torch import tools
     from celestia_tpu_torch.node import cluster
 
-    out = {"launches": {}, "build_seconds": None, "misses": 0, "chunks": 0, "adopted_height": 0,
-           **dict.fromkeys(COUNTERS, 0)}
+    # launches, misses, rebuilt and chunks as the tool twins read them
+    out = {"build_seconds": None, "adopted_height": 0, **dict.fromkeys(COUNTERS, 0),
+           **tools.exposition_counts(text)}
     names = {metric: key for key, metric in COUNTERS.items()}
     for name, labels, value in cluster.parse_exposition(text):
-        if name == "celestia_tpu_kernel_launches_total":
-            out["launches"][labels["kernel"]] = int(value)
-        elif name == "celestia_tpu_kernel_build_seconds":
+        if name == "celestia_tpu_kernel_build_seconds":
             out["build_seconds"] = value
-        elif name.startswith("celestia_tpu_eds_cache_miss_") and name.endswith("_total"):
-            out["misses"] += int(value)
-        elif name.startswith("celestia_tpu_das_latency_") and name.endswith("_seconds_count"):
-            # one observation a served DAS sample or streamed chunk, per lane
-            out["chunks"] += int(value)
         elif name in names:
             out[names[name]] = int(value)
         elif name == "celestia_tpu_bft_adopted_height":
@@ -1952,6 +1958,105 @@ def memo_child(dev, k: int, seed: int) -> None:
                       "codec": gf256.active_codec(), "threads": host_threads()}))
 
 
+# phase 4l: the twins of the JAX package's tool gates, in the order they
+# run, with the summary key of each leg's line
+TOOL_TWINS = {
+    "das_smoke": ("das_smoke",),
+    "swarm_smoke": ("swarm_smoke",),
+    "ingress_smoke": ("ingress_smoke",),
+    "device_resident_smoke": ("device_resident_smoke",),
+    "profile_smoke": ("profile_smoke", "profile_smoke_node"),
+    "trace_smoke": ("trace_smoke", "trace_smoke_2node"),
+    "critpath_smoke": ("critpath_smoke_mesh", "critpath_smoke_slo"),
+    "incident_smoke": ("incident_smoke", "incident_smoke_disarmed"),
+    "multichip_smoke": ("multichip_smoke",),
+}
+TOOL_TIMEOUT_S = 300  # one twin, its node processes included
+TOOL_PARALLEL = 3  # twins at once (each with up to 3 node processes on 8 host cores)
+
+
+def twin_summaries(name: str, stdout: str) -> dict:
+    """The summary line of each of twin ``name``'s legs, by its key; each
+    must say "ok"."""
+    got = {}
+    for line in stdout.splitlines():
+        if line.startswith("{"):
+            doc = json.loads(line)
+            for key in TOOL_TWINS[name]:
+                if key in doc:
+                    got[key] = doc
+    for key in TOOL_TWINS[name]:
+        check(got.get(key, {}).get(key) == "ok", f"twin {name} printed no {key!r}: ok line")
+    return got
+
+
+def twin_predictions(name: str, summaries: dict) -> list:
+    """(what, launches, predicted) for every node of a twin's summaries: 5
+    launches (K5 twice, K2, K3, K4) for each cold extension and rebuilt
+    block, one K7b for each streamed DAS chunk and each direct DAS batch;
+    multichip's one sharded extension on its mesh of one repeated device."""
+    from celestia_tpu_torch import kernels
+
+    out = []
+    for key, doc in summaries.items():
+        if "mesh_devices" in doc:
+            got = {n: doc["launches"].get(n, 0) for n in kernels.KERNELS}
+            want = sharded_launches_per_call(doc["k"], len(doc["mesh_devices"]))
+            out.append((f"{key} (k={doc['k']}, R={len(doc['mesh_devices'])})", got, want))
+        for i, c in enumerate(doc.get("node_counts", ())):
+            got = {n: c["launches"].get(n, 0) for n in kernels.KERNELS}
+            want = block_launches(c["misses"] + c["rebuilt"])
+            want["das_proof_gather"] = c["chunks"] + doc.get("das_batches", 0)
+            out.append((f"{key} node {i} ({c['misses']} cold extensions, {c['rebuilt']} "
+                        f"rebuilt, {c['chunks']} chunks)", got, want))
+    return out
+
+
+def tools_phase(dev, twins=tuple(TOOL_TWINS), *, counted: bool) -> dict:
+    """Phase 4l: each twin of the JAX package's tool gates as a process on
+    ``dev`` (``python -m celestia_tpu_torch.tools.<name> --device <dev>``),
+    its summary lines parsed and every node's launches held to their
+    prediction (``counted=False`` on the CPU, where nothing launches: the
+    predictions are computed and not held).  Returns each twin's wall,
+    summaries and predictions, and the launches of all nodes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from celestia_tpu_torch import kernels
+
+    device = str(dev)
+
+    def run(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"celestia_tpu_torch.tools.{name}", "--device", device],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=TOOL_TIMEOUT_S,
+        )
+        return proc, time.perf_counter() - t0
+
+    # the twins are independent processes (their nodes bind port 0, their
+    # homes are temporary), so TOOL_PARALLEL run at once; each one's
+    # launches are its own processes'
+    with ThreadPoolExecutor(max_workers=TOOL_PARALLEL) as pool:
+        done = dict(zip(twins, pool.map(run, twins)))
+    out = {"twins": {}, "launches": {n: 0 for n in kernels.KERNELS}}
+    for name in twins:
+        proc, wall = done[name]
+        check(proc.returncode == 0, f"twin {name} exited {proc.returncode} on {device}:\n"
+              + "\n".join(proc.stderr.splitlines()[-15:]))
+        summaries = twin_summaries(name, proc.stdout)
+        preds = twin_predictions(name, summaries)
+        for what, got, want in preds:
+            if counted:
+                check(got == want, f"twin {name}, {what}: launched "
+                      f"{ {n: c for n, c in got.items() if c} }, predicted "
+                      f"{ {n: c for n, c in want.items() if c} }")
+            for n in kernels.KERNELS:
+                out["launches"][n] += got[n]
+        out["twins"][name] = {"wall_s": wall, "summaries": summaries, "predictions": preds}
+    return out
+
+
 def host_phase(dev, sizes, memo_k: int, seed: int, *, counted: bool) -> dict:
     """Phase 4k, the host regime (``device="cpu"`` at the block entry points
     of da/dah.py and ``ops/rs.py`` ``repair_square``: the native library's
@@ -2241,6 +2346,7 @@ def main() -> int:
     extend_launches = serve_launches = repair_launches = fraud_launches = {}
     catchup_launches = sharded_launches = app_launches = app_mesh_launches = {}
     devnet_launches = service_launches = network_launches = host_launches = {}
+    tools_launches = {}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         torch.cuda.synchronize()
@@ -3788,9 +3894,26 @@ def main() -> int:
             "threads", "host_ms", "card_ms", "breakdown", "host_breakdown", "repair_ms",
             "memo", "testnode_ms", "testnode_root", "launches")}
 
+    if "4l" in selected:
+        # --- 4l. the tool gates' twins on the card -----------------------------
+        t_tools = time.perf_counter()
+        tp = tools_phase(dev, counted=True)
+        tools_launches = tp["launches"]
+        for name, t in tp["twins"].items():
+            legs = ", ".join(f"{k}: ok" for k in t["summaries"])
+            print(f"tool twin {name}: {legs}; wall {t['wall_s']:.2f} s | {smi}")
+            for what, got, want in t["predictions"]:
+                print(f"tool twin {name} launches, {what}: "
+                      f"{json.dumps({n: c for n, c in got.items() if c})}, predicted "
+                      f"{json.dumps({n: c for n, c in want.items() if c})}")
+        print(f"tool twins: {len(tp['twins'])} on the card, {TOOL_PARALLEL} at a time, in "
+              f"{time.perf_counter() - t_tools:.2f} s, every node's launches as predicted | {smi}")
+        results["tools"] = {name: {"wall_s": t["wall_s"], "summaries": t["summaries"]}
+                            for name, t in tp["twins"].items()}
+
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
              sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches,
-             network_launches, host_launches)
+             network_launches, host_launches, tools_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in kernels.KERNELS}
 
     # --- 5. kernels line, device, result -------------------------------------

@@ -3,17 +3,83 @@ into a test module; pytest picks fixtures up from the module namespace),
 and the CPU twin of the CUDA kernels with its launch router."""
 
 import ctypes
+import os
 import shutil
+import socket
 import subprocess
 from contextlib import contextmanager
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from celestia_tpu.ops import gf256 as jgf256
 from celestia_tpu.ops import sha256 as jsha
 from celestia_tpu_torch.ops import gf256
+
+
+def build_jax_native_once() -> None:
+    """Build the JAX package's native library (native/celestia_native.so)
+    once per checkout, under a file lock, into a temporary name that is
+    then renamed into place.
+
+    The JAX loader (celestia_tpu/utils/native.py ``_load``) builds the
+    library in place at first use when it is missing; in a fresh checkout
+    the parallel workers of one run each find it missing, and a worker that
+    loads the half-written file of another finds no native library for the
+    rest of its life, so its host-regime comparisons take JAX's numpy legs.
+    Every worker imports this module while it collects, before any test
+    runs, so the library is whole before the first load."""
+    import fcntl
+
+    from celestia_tpu.utils import native as jax_native
+
+    src, so = jax_native._SRC, jax_native._SO
+    if jax_native._SO_OVERRIDE or not src.exists():
+        return  # an override owns its build; no source, nothing to build
+    lock_dir = Path(__file__).resolve().parents[1] / "build"
+    lock_dir.mkdir(exist_ok=True)
+    with open(lock_dir / ".jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+            return
+        tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+        # the JAX package's own build, pointed at the temporary name
+        jax_native._SO = tmp
+        try:
+            if jax_native._build():
+                os.replace(tmp, so)
+            # else the loader finds no library and says so, as it would
+        finally:
+            jax_native._SO = so
+            if tmp.exists():
+                tmp.unlink()
+
+
+build_jax_native_once()
+
+
+def jax_block_and_proofs(seed_key, blob_seed: int, namespace_id: bytes, coords):
+    """The JAX package's node with one funded key (``seed_key``) that
+    commits one 4,000-byte blob (bytes from ``blob_seed``) in namespace
+    ``namespace_id``: the block's data root and the batch proofs of
+    ``coords``, as dicts."""
+    from celestia_tpu.client.signer import Signer
+    from celestia_tpu.da import das
+    from celestia_tpu.da.blob import Blob
+    from celestia_tpu.da.namespace import Namespace
+    from celestia_tpu.node.testnode import TestNode
+    from celestia_tpu.utils.secp256k1 import PrivateKey
+
+    key = PrivateKey.from_seed(seed_key)
+    node = TestNode(funded_accounts=[(key, 10**12)])
+    data = bytes(np.random.default_rng(blob_seed).integers(0, 256, 4000, dtype=np.uint8))
+    res = Signer(node, key).submit_pay_for_blob([Blob(Namespace.v0(namespace_id), data)])
+    assert res.code == 0, res.log
+    art = node._block_artifacts(res.height)
+    proofs = das.sample_proofs_batch(art["eds"], art["dah"], coords)
+    return node.block(res.height).header.data_hash, [p.to_dict() for p in proofs]
 
 
 @contextmanager
@@ -175,3 +241,56 @@ def route_launches_to_twin(monkeypatch, twin) -> dict:
     monkeypatch.setattr(nmt, "_is_cpu", lambda t: False)
     monkeypatch.setattr(gather, "_is_cpu", lambda t: False)
     return launched
+
+
+class ReservedAddrs:
+    """``n`` loopback addresses held until the node processes bind them.
+
+    A port picked by binding port 0 and closing the socket is free for
+    anyone until the node that is told it binds it, which for a ``cli
+    start`` child is seconds later (an ``init``, the child's imports).  In a
+    parallel run another test's server or client can take it meanwhile,
+    and a gRPC server binds with ``SO_REUSEPORT``, so the child then shares
+    the port with a stranger without an error and the stranger answers
+    part of the calls.  Each port here stays bound by a placeholder with
+    ``SO_REUSEPORT`` (the kernel hands it to no ``bind(0)`` or ``connect``)
+    and never listens; the gRPC server of the child joins it, and
+    :meth:`release` closes the placeholders once the children have bound."""
+
+    def __init__(self, n: int):
+        self._socks = []
+        for _ in range(n):
+            s = socket.socket()
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            s.bind(("127.0.0.1", 0))
+            self._socks.append(s)
+        self.addrs = ["127.0.0.1:%d" % s.getsockname()[1] for s in self._socks]
+
+    def release(self) -> None:
+        for s in self._socks:
+            s.close()
+        self._socks = []
+
+
+def node_env(n_nodes: int, **extra) -> dict:
+    """The environment of one of ``n_nodes`` CPU node processes on this
+    host: the CPU device, and a share of the cores as the node's host
+    thread budget (the native pool and torch's intra-op threads), as a
+    deployment of ``n_nodes`` validators on one machine would set it."""
+    from celestia_tpu_torch import tools
+
+    return {**os.environ, "CELESTIA_TPU_TORCH_DEVICE": "cpu",
+            **tools.thread_share(n_nodes), **extra}
+
+
+@pytest.fixture(autouse=False)
+def fresh_port_faults():
+    """The port's fault stats (degradations, notes) empty before and after
+    a test: a twin that trips an alert on purpose (profile-smoke's
+    deliberate degradation) leaves it in the process, and the next twin
+    in that worker would see its stock ``degradations`` rule fire."""
+    from celestia_tpu_torch.utils import faults
+
+    faults.reset_stats()
+    yield
+    faults.reset_stats()

@@ -4,10 +4,12 @@ give without it (the row level stacks hashed once for the block, then
 sliced), a call on other rows or another EDS runs as it is, and
 ``nmt.row_level_stack`` is restored on exit."""
 
+import json
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 from celestia_tpu_torch.da import dah, namespace_data, proof
 from celestia_tpu_torch.da import square as square_mod
@@ -85,3 +87,43 @@ def test_host_phase_rehearses_on_the_cpu():
     assert out["memo"]["codec"] == "lagrange-gf256"
     assert out["repair_ms"]["k"] == 2 and len(out["repair_ms"]["host"]) == chip_smoke.HOST_RUNS
     assert all(set(c.values()) == {0} for c in out["launches"].values())
+
+
+def test_tools_phase_arithmetic_and_summary_parsing():
+    """Phase 4l's prediction on summaries of the twins' shape: 5 launches a
+    cold extension or rebuilt block, one K7b a chunk and a direct batch, the
+    sharded extension's on the repeated-device mesh; a missing or failed
+    leg line fails the phase."""
+    node = {"launches": {"rs_extend": 4, "nmt_leaf_digests": 2, "nmt_combine_level": 2,
+                         "rfc6962_root": 2, "das_proof_gather": 10},
+            "misses": 1, "rebuilt": 1, "chunks": 9}
+    stdout = "\n".join(["build noise", json.dumps({"das_smoke": "ok", "node_counts": [node],
+                                                   "das_batches": 1})])
+    summaries = chip_smoke.twin_summaries("das_smoke", stdout)
+    [(what, got, want)] = chip_smoke.twin_predictions("das_smoke", summaries)
+    assert got == want == {**chip_smoke.block_launches(2), "das_proof_gather": 10}
+    assert "1 cold extensions, 1 rebuilt, 9 chunks" in what
+    sharded = {"multichip_smoke": "ok", "k": 2, "mesh_devices": ["cuda:0"] * 2,
+               "launches": chip_smoke.sharded_launches_per_call(2, 2)}
+    [(_, got, want)] = chip_smoke.twin_predictions(
+        "multichip_smoke", chip_smoke.twin_summaries("multichip_smoke", json.dumps(sharded)))
+    assert got == want and want["xor_reduce_slabs"] == 1 and want["rs_extend"] == 2
+    with pytest.raises(AssertionError, match="trace_smoke_2node"):
+        chip_smoke.twin_summaries("trace_smoke", json.dumps({"trace_smoke": "ok"}))
+    with pytest.raises(AssertionError, match="das_smoke"):
+        chip_smoke.twin_summaries("das_smoke", json.dumps({"das_smoke": "failed"}))
+
+
+def test_tools_phase_rehearses_on_the_cpu():
+    """Phase 4l's control flow on the CPU with two twins run at once (each a
+    process of its own, its summary parsed, its prediction computed;
+    nothing launches on the CPU, so the predictions are not held)."""
+    out = chip_smoke.tools_phase("cpu", ["das_smoke", "multichip_smoke"], counted=False)
+    t = out["twins"]["das_smoke"]
+    assert t["summaries"]["das_smoke"]["device"] == "cpu" and t["wall_s"] > 0
+    [(_, got, want)] = t["predictions"]
+    assert set(got.values()) == {0} and want["das_proof_gather"] == 9
+    assert want["rs_extend"] == 2 * t["summaries"]["das_smoke"]["node_counts"][0]["misses"]
+    [(_, got, want)] = out["twins"]["multichip_smoke"]["predictions"]
+    assert set(got.values()) == {0} and want == chip_smoke.sharded_launches_per_call(2, 2)
+    assert set(out["launches"].values()) == {0}

@@ -216,3 +216,24 @@ def test_start_without_a_card_or_the_switch_exits_naming_the_card(tmp_path):
     assert "no CUDA device" in proc.stderr and "CELESTIA_TPU_TORCH_DEVICE=cpu" in proc.stderr
     assert time.perf_counter() - t0 < 30  # no wait for a backend
     assert proc.stdout == ""  # nothing served
+
+
+def test_start_on_the_cpu_gives_torch_the_host_thread_budget(monkeypatch):
+    """A node on the CPU runs the native pool and torch's intra-op threads
+    on one budget: CELESTIA_TPU_TORCH_CPU_THREADS (or --cpu-threads) bounds
+    both, so that three validators on one host can take a third each."""
+    import torch
+
+    from celestia_tpu_torch.utils import hostpool
+
+    before = torch.get_num_threads()
+    monkeypatch.setenv("CELESTIA_TPU_TORCH_CPU_THREADS", "2")
+    try:
+        assert port_cli.apply_host_thread_budget() == 2
+        assert torch.get_num_threads() == 2 and hostpool.cpu_threads() == 2
+        hostpool.set_cpu_threads(3)  # --cpu-threads wins over the env
+        assert port_cli.apply_host_thread_budget() == 3
+        assert torch.get_num_threads() == 3
+    finally:
+        hostpool.set_cpu_threads(None)
+        torch.set_num_threads(before)

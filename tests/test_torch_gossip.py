@@ -42,7 +42,7 @@ from celestia_tpu.node import server as jax_server
 from celestia_tpu.node import testnode as jax_testnode
 from celestia_tpu.state import tx as jax_tx
 from celestia_tpu.utils import secp256k1 as jax_secp
-from _torch_common import torch_one_thread  # noqa: F401 (fixture)
+from _torch_common import ReservedAddrs, node_env, torch_one_thread  # noqa: F401 (fixture)
 from celestia_tpu_torch.client import signer as port_signer
 from celestia_tpu_torch.da import blob as port_blob
 from celestia_tpu_torch.da import eds_cache
@@ -591,6 +591,27 @@ def test_a_peer_fault_opens_only_that_peers_breaker(decided):
     assert st.get("10.0.0.3:1", "closed") == "closed"
 
 
+def test_stop_while_a_link_evicts_its_peer(decided):
+    """A link's worker evicts its PEX-learned peer (``_peer_failed``) while
+    ``stop`` is stopping the other links: every link is stopped and none
+    is left behind (stop walked the live dict of links and raised
+    "dictionary changed size during iteration" under a parallel run)."""
+    eng = PORT.GossipEngine(laggard(decided), ["10.0.0.1:1"])
+    eng._merge_peers(["10.0.0.2:1", "10.0.0.3:1"])
+    eng._evict_after = 1
+    links = [eng._link(a) for a in ("10.0.0.1:1", "10.0.0.2:1", "10.0.0.3:1")]
+    first_stop = links[0].stop
+
+    def stop_while_a_peer_fails():
+        eng._peer_failed("10.0.0.3:1")
+        first_stop()
+
+    links[0].stop = stop_while_a_peer_fails
+    eng.stop()
+    assert eng._links == {} and "10.0.0.3:1" not in eng.peer_addrs
+    assert not any(link._thread.is_alive() for link in links)
+
+
 def test_a_failed_proposal_ends_the_node(monkeypatch):
     """The proposer's PrepareProposal raises when its height starts: the
     engine stops, ``NodeServer.fail`` reports the node failed on
@@ -651,7 +672,10 @@ def test_mesh_of_three_port_processes(tmp_path):
     shared.write_text(json.dumps(genesis(keys, "port-meshproc-3", [(alice, 10**12)])))
     valset_file = tmp_path / "valset.json"
     valset_file.write_text(json.dumps(valset(keys)))
-    addrs = free_addrs(3)
+    # held until each process has bound its own (a freed port can be taken
+    # by another test's server in a parallel run: ReservedAddrs)
+    reserved = ReservedAddrs(3)
+    addrs = reserved.addrs
     procs, remotes = [], []
     try:
         for i in range(3):
@@ -669,9 +693,11 @@ def test_mesh_of_three_port_processes(tmp_path):
                  "--warm-squares", "1,2", "--timeseries-interval", "0"]
                 + ["--peers", addrs[1] if i == 0 else addrs[0]],
                 stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, cwd=REPO,
-                env={**os.environ, "CELESTIA_TPU_TORCH_DEVICE": "cpu"}))
+                # three validators on one host: a third of the cores each
+                env=node_env(3)))
         for i, proc in enumerate(procs):
             assert json.loads(proc.stdout.readline())["grpc"] == addrs[i]
+        reserved.release()
         remotes = [PORT.RemoteNode(a, timeout_s=30.0) for a in addrs]
         deadline = time.time() + 60
         while time.time() < deadline and not all(r.height >= 3 for r in remotes):
@@ -695,6 +721,7 @@ def test_mesh_of_three_port_processes(tmp_path):
             proc.send_signal(signal.SIGTERM)
         assert [proc.wait(timeout=30) for proc in procs] == [0, 0, 0]
     finally:
+        reserved.release()
         for r in remotes:
             r.close()
         for proc in procs:
@@ -702,3 +729,29 @@ def test_mesh_of_three_port_processes(tmp_path):
                 proc.kill()
                 proc.wait()
             proc.stdout.close()
+
+
+def test_reserved_addrs_keep_their_ports_until_the_nodes_bind():
+    """The ports of the process meshes stay held until the nodes bind them:
+    while held, no bind(0) gets one (a freed port could, and a gRPC server
+    would then share it with the node through SO_REUSEPORT), and a node's
+    gRPC server still binds it."""
+    import grpc
+    from concurrent import futures
+
+    reserved = ReservedAddrs(2)
+    try:
+        ports = {int(a.rsplit(":", 1)[1]) for a in reserved.addrs}
+        taken = set()
+        for _ in range(2000):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                taken.add(s.getsockname()[1])
+        assert not ports & taken
+        server = grpc.server(futures.ThreadPoolExecutor(max_workers=1))
+        try:
+            assert server.add_insecure_port(reserved.addrs[0]) in ports
+        finally:
+            server.stop(None)
+    finally:
+        reserved.release()
