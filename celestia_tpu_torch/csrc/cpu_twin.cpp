@@ -1,5 +1,6 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
-// nmt.cuh, rs_extend.cuh, rs_decode.cuh, rs_sharded.cuh, das_gather.cuh),
+// nmt.cuh, rs_extend.cuh, rs_leopard.cuh, rs_decode.cuh, rs_sharded.cuh,
+// das_gather.cuh),
 // compiled by g++ and looped over the thread indices on the host; for the
 // block-cooperative NMT kernels (nmt.cuh) block by block, each step over
 // every thread between the barriers; for the tensor-core bit-GEMM
@@ -16,6 +17,7 @@
 #include "nmt.cuh"
 #include "rs_decode.cuh"
 #include "rs_extend.cuh"
+#include "rs_leopard.cuh"
 #include "rs_sharded.cuh"
 
 namespace {
@@ -121,6 +123,60 @@ void twin_encode(const TwinAxisSet* s, const uint8_t* E, const uint8_t* gexp, co
         twin_gf2_gemm(ax, na, n_in, nout,
                       [&](uint32_t o, uint32_t j) { return E[(i0 + o) * n_in + j]; }, prod.data());
       }
+}
+
+// The threads of one rs_leopard_kernel launch (rs_leopard.cu
+// launch_encode): every word column of n_axes axes of each of nz (square,
+// set) pairs, set = z % nsets of s[0..nsets), square z / nsets at ibs / obs
+// bytes on, each column's two halves (lanes l and l + 16) step by step:
+// both halves' IFFT layers, the cross step with the other half's words
+// (the kernel's shuffle), both halves' FFT layers.
+template <uint32_t LOG_K>
+void twin_leo_axes(const ctt::LeoAxisSet* s, const uint32_t* tab, uint32_t n_axes, uint32_t nsets,
+                   uint32_t nz, uint64_t ibs, uint64_t obs) {
+  constexpr uint32_t K = 1u << LOG_K;
+  for (uint32_t z = 0; z < nz; ++z)
+    for (uint32_t a = 0; a < n_axes; ++a)
+      for (uint32_t w = 0; w < ctt::kLeoWords; ++w) {
+        const ctt::LeoAxisSet& st = s[z % nsets];
+        const uint64_t b = z / nsets;
+        const uint8_t* in = st.in + b * ibs + a * st.as + 4 * w;
+        uint8_t* out = st.out + b * obs + a * st.oas + 4 * w;
+        if constexpr (LOG_K == 0) {
+          memcpy(out, in, 4);
+        } else {
+          uint32_t x[2][K / 2], t[5];
+          for (uint32_t h = 0; h < 2; ++h) {
+            ctt::leo_half_load<LOG_K>(in, st.ps, h, x[h]);
+            ctt::leo_half_ifft<LOG_K>(x[h], tab, h);
+          }
+          ctt::leo_load_group(ctt::leo_cross_group(tab, K), t);
+          for (uint32_t i = 0; i < K / 2; ++i) {
+            const uint32_t a0 = x[0][i], a1 = x[1][i];
+            x[0][i] = ctt::leo_cross_word(a0, a1, t);
+            x[1][i] = ctt::leo_cross_word(a1, a0, t);
+          }
+          for (uint32_t h = 0; h < 2; ++h) {
+            ctt::leo_half_fft<LOG_K>(x[h], tab, h);
+            ctt::leo_half_store<LOG_K>(out, st.ops, h, x[h]);
+          }
+        }
+      }
+}
+
+void twin_leo_encode(const ctt::LeoAxisSet* s, const uint32_t* tab, int k, uint32_t n_axes,
+                     uint32_t nsets, uint32_t nz, uint64_t ibs, uint64_t obs) {
+  switch (ctt::log2_exact(uint64_t(k))) {
+    case 0: return twin_leo_axes<0>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 1: return twin_leo_axes<1>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 2: return twin_leo_axes<2>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 3: return twin_leo_axes<3>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 4: return twin_leo_axes<4>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 5: return twin_leo_axes<5>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 6: return twin_leo_axes<6>(s, tab, n_axes, nsets, nz, ibs, obs);
+    case 7: return twin_leo_axes<7>(s, tab, n_axes, nsets, nz, ibs, obs);
+    default: return;
+  }
 }
 
 }  // namespace
@@ -521,6 +577,48 @@ void twin_rs_repair_verdicts(const uint8_t* repaired, const uint8_t* recomputed,
     mismatch[c] = (bits & 1u) ? 1 : 0;
     provided_mismatch[c] = (avail[c] && (bits & 2u)) ? 1 : 0;
   }
+}
+
+// The Leopard FFT extension (rs_leopard.cu).  The skew tables, as
+// ctt_rs_leopard_tables: 0, or 1 where the C entry refuses.
+int twin_rs_leopard_tables(const uint8_t* gexp, const uint8_t* glog, int k, uint32_t* out,
+                           long long out_bytes) {
+  if (k < 1 || ctt::log2_exact(uint64_t(k)) > ctt::kLeoMaxLogK ||
+      out_bytes < static_cast<long long>(ctt::leo_table_bytes(uint32_t(k))))
+    return 1;
+  ctt::leo_group_tables(gexp, glog, uint32_t(k), out);
+  return 0;
+}
+
+// squares uint8[n, k, k, 512] -> eds uint8[n, 2k, 2k, 512] in the order of
+// ctt_rs_leopard_extend_batched's launches: every square's Q0 copy, then Q1
+// and Q2 of each square (blockIdx.z = 2b + set), then Q3 of each.
+void twin_rs_leopard_extend_batched(const uint8_t* squares, uint8_t* eds, const uint32_t* tab, int k,
+                                    int n) {
+  const uint64_t S = 512, K = uint64_t(k), sq_bytes = K * K * S, eds_bytes = 4 * K * K * S;
+  for (int b = 0; b < n; ++b)
+    for (uint64_t r = 0; r < K; ++r)
+      memcpy(eds + b * eds_bytes + r * 2 * K * S, squares + b * sq_bytes + r * K * S, K * S);
+  uint8_t* q1 = eds + K * S;
+  uint8_t* q2 = eds + K * 2 * K * S;
+  const ctt::LeoAxisSet sets[2] = {{squares, q1, K * S, S, 2 * K * S, S},
+                                   {squares, q2, S, K * S, S, 2 * K * S}};
+  twin_leo_encode(sets, tab, k, uint32_t(k), 2, 2 * uint32_t(n), sq_bytes, eds_bytes);
+  const ctt::LeoAxisSet q1cols{q1, q2 + K * S, S, 2 * K * S, S, 2 * K * S};  // -> Q3
+  twin_leo_encode(&q1cols, tab, k, uint32_t(k), 1, uint32_t(n), eds_bytes, eds_bytes);
+}
+
+void twin_rs_leopard_extend(const uint8_t* square, uint8_t* eds, const uint32_t* tab, int k) {
+  twin_rs_leopard_extend_batched(square, eds, tab, k, 1);
+}
+
+// rows uint8[n, k, 512] -> out uint8[n, 2k, 512], as ctt_rs_leopard_extend_rows.
+void twin_rs_leopard_extend_rows(const uint8_t* rows, uint8_t* out, const uint32_t* tab, int k,
+                                 int n) {
+  const uint64_t S = 512, K = uint64_t(k);
+  for (int r = 0; r < n; ++r) memcpy(out + r * 2 * K * S, rows + r * K * S, K * S);
+  const ctt::LeoAxisSet set{rows, out + K * S, K * S, S, 2 * K * S, S};
+  twin_leo_encode(&set, tab, k, uint32_t(n), 1, 1, 0, 0);
 }
 
 }  // extern "C"

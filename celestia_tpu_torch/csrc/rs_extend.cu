@@ -1,5 +1,10 @@
 // K5 `rs_extend`: the 2D Reed-Solomon extension of a k x k square of
-// 512-byte shares into its 2k x 2k extended data square.
+// 512-byte shares into its 2k x 2k extended data square, in the JAX
+// package's bit-GEMM form.  Under the lagrange-gf256 codec K5, K5b and
+// K5's row pass run this file's kernel; under leopard-ff8 they run
+// Leopard's FFT (rs_leopard.cu), and this kernel given leopard's encode
+// matrix is the yardstick chip_smoke.py holds that one against.  K9a and
+// K8b (rs_decode.cu) run the bit-GEMM under both codecs.
 //
 // Replaces: celestia_tpu/ops/rs.py:64 `_extend` (with `unpack_bits` :36,
 // `pack_bits` :44, `matmul_gf2` :52, `_row_parity` :58; jit `_extend_fn`
@@ -9,8 +14,8 @@
 // Bound on the H100 at k = 128, for three forms of the work:
 // - bytes: ~40 MiB of HBM traffic a square (Q0 read, the EDS written),
 //   ~0.0125 ms at 3.35 TB/s -- the bound chip_smoke.py reports, since the
-//   least-work form (Leopard's O(k log k) IFFT/FFT, leopard-ff8 only) fits
-//   under it;
+//   least-work form (Leopard's O(k log k) IFFT/FFT, leopard-ff8 only,
+//   rs_leopard.cu) fits under it;
 // - the JAX package's bit-GEMM, the form computed here: 2 * 8k * 8k * 3k *
 //   512 = 412 G int8 operations, 0.208 ms at the 1,979 TOPS int8
 //   tensor-core peak (the "tensor-core floor").

@@ -1,0 +1,227 @@
+// K5 under leopard-ff8: Leopard's O(k log k) encode of one axis, as
+// per-thread code shared by the kernel (rs_leopard.cu) and the g++ CPU twin
+// (cpu_twin.cpp), and the function that builds its skew tables.
+//
+// The map, per axis of k data shares (Leopard's high-rate layout: data at
+// the coset k ^ [0, k), parity at the coset [0, k)):
+//   parity = FFT_coset0(IFFT_cosetk(data))
+// exactly as native/celestia_native.cpp `leo_encode` (:840) computes it,
+// with `leo_ifft` (:820) and `leo_fft` (:803).  Layer j (dist = 2^j) pairs
+// positions i and i + dist inside groups of 2 dist from b0; the group's
+// skew is LEO_SKEW[j][coset ^ b0] (`leo_init` :738-753):
+//   IFFT butterfly  b ^= a;  a ^= skew * b
+//   FFT butterfly   a ^= skew * b;  b ^= a
+// The FFT's group b0 = 0 has skew W_j(0) / W_j(2^j) = 0, so its butterflies
+// are b ^= a alone (`leo_mul_add` returns at c = 0).  Every byte position of
+// a share is its own codeword, so two threads own one 4-byte word column of
+// an axis -- the word at the same offset of each of the k shares -- k/2
+// words each in registers, for all 2 log2 k layers (see the cross step
+// below); the layers are unrolled (templated on log2 k), so every register
+// index is a constant.
+//
+// The multiply by a warp-uniform skew s, 4 bytes at once: split each byte
+// into bits 0-2, 3-5 and 6-7; by linearity s * x is
+//   Ta[x & 7] ^ Tb[(x >> 3) & 7] ^ Tc[x >> 6],
+// Ta[v] = s*v, Tb[v] = s*(v << 3) (8 entries, 2 words each), Tc[v] =
+// s*(v << 6) (4 entries, 1 word): three byte permutes (PRMT) whose
+// selector nibbles are the 4 bytes' fields.  The fields are brought to
+// nibbles 0-3 by one byte permute of the word (bytes 0, 2, 1, 3) and one
+// shift-add per field: (f + (f >> 12)) puts byte 0, 1, 2, 3's field at
+// nibble 0, 2, 1, 3 of the permuted word, i.e. at nibble 0, 1, 2, 3 of
+// the original.  A group's tables are 6 words (leo_group_tables), built
+// on the host from the codec's field tables and staged in shared memory.
+#pragma once
+
+#include <stdint.h>
+#include <string.h>
+
+#include "sha256.cuh"  // CTT_HD, prmt
+
+namespace ctt {
+
+constexpr uint32_t kLeoShare = 512;                // bytes of an axis position
+constexpr uint32_t kLeoWords = kLeoShare / 4;      // word columns of an axis
+constexpr uint32_t kLeoMaxLogK = 7;                // k <= 128
+constexpr uint32_t kLeoGroupWords = 6;             // Ta (2), Tb (2), Tc (1), pad
+
+// Skew groups of one axis's encode: k - 1 in the IFFT, k - 1 in the FFT.
+CTT_HD uint32_t leo_groups(uint32_t k) { return k > 1 ? 2 * (k - 1) : 0; }
+CTT_HD uint32_t leo_table_bytes(uint32_t k) { return leo_groups(k) * kLeoGroupWords * 4; }
+
+// Group g of layer j of transform `fft` (0: the IFFT at coset k, 1: the
+// FFT at coset 0): layer j has k >> (j + 1) groups, k - (k >> j) before it.
+CTT_HD uint32_t leo_group(uint32_t k, uint32_t fft, uint32_t j, uint32_t g) {
+  return fft * (k - 1) + (k - (k >> j)) + g;
+}
+
+// a * b in the codec's field (gexp uint8[512], glog uint8[256]).
+CTT_HD uint32_t leo_field_mul(uint32_t a, uint32_t b, const uint8_t* gexp, const uint8_t* glog) {
+  return a && b ? gexp[glog[a] + glog[b]] : 0u;
+}
+
+// skew[j][x] = W_j(x) / W_j(2^j) with the subspace vanishing polynomials
+// W_0(x) = x, W_{j+1}(x) = W_j(x) * W_j(x ^ 2^j), as `leo_init` builds them.
+CTT_HD void leo_skews(const uint8_t* gexp, const uint8_t* glog, uint8_t skew[8][256]) {
+  uint8_t W[256], Wn[256];
+  for (uint32_t x = 0; x < 256; ++x) W[x] = static_cast<uint8_t>(x);
+  for (uint32_t j = 0; j < 8; ++j) {
+    const uint32_t inv = gexp[255u - glog[W[1u << j]]];
+    for (uint32_t x = 0; x < 256; ++x)
+      skew[j][x] = static_cast<uint8_t>(leo_field_mul(W[x], inv, gexp, glog));
+    if (j < 7) {
+      for (uint32_t x = 0; x < 256; ++x)
+        Wn[x] = static_cast<uint8_t>(leo_field_mul(W[x], W[x ^ (1u << j)], gexp, glog));
+      memcpy(W, Wn, sizeof W);
+    }
+  }
+}
+
+// The 6 words of each group of a k-share encode (leo_group order): the
+// bytes Ta[0..7], Tb[0..7], Tc[0..3] of the group's skew, then a zero word.
+CTT_HD void leo_group_tables(const uint8_t* gexp, const uint8_t* glog, uint32_t k, uint32_t* out) {
+  uint8_t skew[8][256];
+  leo_skews(gexp, glog, skew);
+  const uint32_t log_k = log2_exact(k);
+  for (uint32_t fft = 0; fft < 2; ++fft)
+    for (uint32_t j = 0; j < log_k; ++j)
+      for (uint32_t g = 0; g < (k >> (j + 1)); ++g) {
+        const uint32_t s = skew[j][((fft ? 0u : k) ^ (g << (j + 1))) & 255u];
+        uint8_t t[kLeoGroupWords * 4] = {};
+        for (uint32_t v = 0; v < 8; ++v) {
+          t[v] = static_cast<uint8_t>(leo_field_mul(s, v, gexp, glog));
+          t[8 + v] = static_cast<uint8_t>(leo_field_mul(s, v << 3, gexp, glog));
+        }
+        for (uint32_t v = 0; v < 4; ++v)
+          t[16 + v] = static_cast<uint8_t>(leo_field_mul(s, v << 6, gexp, glog));
+        memcpy(out + kLeoGroupWords * leo_group(k, fft, j, g), t, sizeof t);
+      }
+}
+
+// A group's tables from `tab` (shared memory on the card): t[0..1] Ta,
+// t[2..3] Tb, t[4] Tc.
+CTT_HD void leo_load_group(const uint32_t* tab, uint32_t t[5]) {
+#ifdef __CUDA_ARCH__
+  const uint2 a = reinterpret_cast<const uint2*>(tab)[0];
+  const uint2 b = reinterpret_cast<const uint2*>(tab)[1];
+  t[0] = a.x, t[1] = a.y, t[2] = b.x, t[3] = b.y, t[4] = tab[4];
+#else
+  memcpy(t, tab, 5 * sizeof(uint32_t));
+#endif
+}
+
+// s * x for each of the 4 bytes of x, s the skew whose tables are t.
+CTT_HD uint32_t leo_mul_word(uint32_t x, const uint32_t t[5]) {
+  const uint32_t v = prmt(x, 0u, 0x3120u);  // bytes 0, 2, 1, 3
+  const uint32_t a = v & 0x07070707u;
+  const uint32_t b = (v >> 3) & 0x07070707u;
+  const uint32_t c = (v >> 6) & 0x03030303u;
+  // a + (a >> 12) == a | (a >> 12): the fields' bits do not meet, and the
+  // sum is one LEA.HI
+  return prmt(t[0], t[1], a + (a >> 12)) ^ prmt(t[2], t[3], b + (b >> 12)) ^
+         prmt(t[4], 0u, c + (c >> 12));
+}
+
+// Two threads share a word column (k >= 2): half h holds the words of
+// shares h * k/2 .. h * k/2 + k/2 - 1.  Every layer with dist < k/2 pairs
+// words of one half.  The two layers with dist = k/2 -- the IFFT's last,
+// group 0 with skew s = LEO_SKEW[log2 k - 1][k], and the FFT's first,
+// group 0 with skew 0 -- pair word i of half 0 (a) with word i of half 1
+// (b), and together they are
+//   b1 = b ^ a; a1 = a ^ s*b1; b2 = b1 ^ a1   =>   a2 = a ^ s*(a ^ b), b2 = b ^ s*(a ^ b),
+// one exchange of the two halves' words and the same step on each
+// (leo_cross_word).  So a half runs its IFFT layers, the cross step, then
+// its FFT layers, k/2 words in registers.  Half 0's first group of each of
+// its FFT layers has skew 0 too; it multiplies by that group's tables,
+// which are zero, so the two halves of a warp run one instruction stream.
+
+// Layer J < log2 k - 1 of the IFFT (FFT = false) or the FFT over half h's
+// H = k/2 words: its groups are the layer's groups h * H / (2 dist) on.
+template <uint32_t LOG_K, uint32_t J, bool FFT>
+CTT_HD void leo_half_layer(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
+  constexpr uint32_t K = 1u << LOG_K, dist = 1u << J, groups = K / 2 / (2 * dist);
+#pragma unroll
+  for (uint32_t g = 0; g < groups; ++g) {
+    uint32_t t[5];
+    leo_load_group(tab + kLeoGroupWords * leo_group(K, FFT, J, h * groups + g), t);
+#pragma unroll
+    for (uint32_t m = 0; m < dist; ++m) {
+      uint32_t& a = x[2 * dist * g + m];
+      uint32_t& b = x[2 * dist * g + m + dist];
+      if (FFT) {
+        a ^= leo_mul_word(b, t);
+        b ^= a;
+      } else {
+        b ^= a;
+        a ^= leo_mul_word(b, t);
+      }
+    }
+  }
+}
+
+// Half h's IFFT layers J = 0 .. log2 k - 2, and its FFT layers log2 k - 2 .. 0.
+template <uint32_t LOG_K, uint32_t J = 0>
+CTT_HD void leo_half_ifft(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
+  if constexpr (J + 1 < LOG_K) {
+    leo_half_layer<LOG_K, J, false>(x, tab, h);
+    leo_half_ifft<LOG_K, J + 1>(x, tab, h);
+  }
+}
+
+template <uint32_t LOG_K, uint32_t J = LOG_K - 1>
+CTT_HD void leo_half_fft(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
+  if constexpr (J > 0) {
+    leo_half_layer<LOG_K, J - 1, true>(x, tab, h);
+    leo_half_fft<LOG_K, J - 1>(x, tab, h);
+  }
+}
+
+// The tables of the cross step's skew (the IFFT's last layer, group 0).
+CTT_HD const uint32_t* leo_cross_group(const uint32_t* tab, uint32_t k) {
+  return tab + kLeoGroupWords * leo_group(k, 0, log2_exact(k) - 1, 0);
+}
+
+// The cross step on a word, given the other half's word i.
+CTT_HD uint32_t leo_cross_word(uint32_t x, uint32_t peer, const uint32_t t[5]) {
+  return x ^ leo_mul_word(x ^ peer, t);
+}
+
+// Half h's k/2 words of a word column: the 4 bytes at p + (h * k/2 + i) * stride.
+template <uint32_t LOG_K>
+CTT_HD void leo_half_load(const uint8_t* p, uint64_t stride, uint32_t h,
+                          uint32_t (&x)[1u << (LOG_K - 1)]) {
+  constexpr uint32_t H = 1u << (LOG_K - 1);
+#pragma unroll
+  for (uint32_t i = 0; i < H; ++i) {
+    const uint8_t* q = p + (h * H + i) * stride;
+#ifdef __CUDA_ARCH__
+    x[i] = *reinterpret_cast<const uint32_t*>(q);
+#else
+    memcpy(&x[i], q, 4);
+#endif
+  }
+}
+
+template <uint32_t LOG_K>
+CTT_HD void leo_half_store(uint8_t* p, uint64_t stride, uint32_t h,
+                           const uint32_t (&x)[1u << (LOG_K - 1)]) {
+  constexpr uint32_t H = 1u << (LOG_K - 1);
+#pragma unroll
+  for (uint32_t i = 0; i < H; ++i) {
+    uint8_t* q = p + (h * H + i) * stride;
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<uint32_t*>(q) = x[i];
+#else
+    memcpy(q, &x[i], 4);
+#endif
+  }
+}
+
+// The axes of one launch: axis a, data share i at in + a*as + i*ps; parity
+// share i written to out + a*oas + i*ops.
+struct LeoAxisSet {
+  const uint8_t* in;
+  uint8_t* out;
+  uint64_t as, ps, oas, ops;
+};
+
+}  // namespace ctt

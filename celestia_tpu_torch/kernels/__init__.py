@@ -12,7 +12,9 @@ changed source rebuilds and an unchanged one loads the library already
 built.  A failed build raises; nothing falls back.
 
 Every C entry launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`launch` raises when that is not 0.  Each
+``cudaGetLastError()``; :func:`launch` raises when that is not 0.  A host
+entry (``ctt_rs_leopard_tables``, K5's skew tables) runs on the CPU and
+launches nothing: :func:`host_call`.  Each
 kernel keeps a plain integer count of its launches (:func:`launch_counts`),
 which ``chip_smoke.py`` reads to show that the main path went through it.
 """
@@ -57,9 +59,16 @@ _SIGNATURES = {
     "ctt_xor_reduce_scatter": (_P, _I, _P, _P, _I, _LL, _I, _LL, _P),
     "ctt_das_cell_gather": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P),
     "ctt_dependent_load_probe": (_P, _P, _I, _P),
+    "ctt_rs_leopard_extend": (_P, _P, _P, _I, _P),
+    "ctt_rs_leopard_extend_batched": (_P, _P, _P, _I, _I, _P),
+    "ctt_rs_leopard_extend_rows": (_P, _P, _P, _I, _I, _P),
+    # host entries (no stream; :func:`host_call`)
+    "ctt_rs_leopard_tables": (_P, _P, _I, _P, _LL),
 }
 
-# kernel name -> C entry; the names chip_smoke.py and PERF.md report
+# kernel name -> C entry; the names chip_smoke.py and PERF.md report.  K5
+# and K5b launch ``ctt_rs_leopard_extend*`` under leopard-ff8 (ops/rs.py
+# picks the entry by codec); their launches count under these names.
 KERNELS = {
     "sha256_batch": "ctt_sha256_batch",
     "nmt_leaf_digests": "ctt_nmt_leaf_digests",
@@ -78,6 +87,7 @@ KERNELS = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_entry_launches: Dict[str, int] = {}  # C entry -> kernel launches, never reset
 build_seconds: Optional[float] = None  # wall time of this process's build (0.0: reused)
 
 
@@ -175,14 +185,33 @@ def launch(kernel: str, device: torch.device, *args, launches: int = 1,
     same kernel, e.g. K5's row pass ``ctt_rs_extend_rows``) with ``args``
     followed by the current stream of ``device``; count ``launches`` kernel
     launches of ``kernel``; raise on a CUDA error."""
-    call(entry or KERNELS[kernel], device, *args)
+    entry = entry or KERNELS[kernel]
+    call(entry, device, *args)
     with _lock:
         _launches[kernel] += launches
+        _entry_launches[entry] = _entry_launches.get(entry, 0) + launches
+
+
+def host_call(entry: str, *args) -> None:
+    """Call the host C entry ``entry`` (it runs on the CPU and launches
+    nothing, e.g. ``ctt_rs_leopard_tables``) with ``args``; raise when it
+    refuses them."""
+    rc = getattr(library(), entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"C entry {entry} refused its arguments: {rc}")
 
 
 def launch_counts() -> Dict[str, int]:
     with _lock:
         return dict(_launches)
+
+
+def entry_launch_counts() -> Dict[str, int]:
+    """Kernel launches by C entry since the process started (never reset):
+    which of a kernel's entries -- K5's FFT or its bit-GEMM -- a window
+    launched, read as the difference of two snapshots."""
+    with _lock:
+        return dict(_entry_launches)
 
 
 def reset_launch_counts() -> None:

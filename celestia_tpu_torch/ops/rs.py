@@ -12,16 +12,21 @@ Quadrant layout of the extended square (2k x 2k):
     -------        Q2 = column parity, Q3 = column parity of Q1
     Q2 | Q3
 
-* On a CUDA tensor :func:`extend_square` launches ``rs_extend``
-  (``csrc/rs_extend.cu``), the JAX package's formulation on the int8
-  tensor cores: the GF(256) map lifted to GF(2), ``(G @ bits) & 1``, with
-  G built in the kernel from the codec's encode matrix
-  E = ``gf256.encode_matrix(k, codec)`` and field tables
-  (``csrc/rs_extend.cuh``).
-* On a CPU tensor it runs :func:`_extend`, the same lift in PyTorch, with
+* On a CUDA tensor :func:`extend_square` launches K5 ``rs_extend``, whose
+  kernel the codec picks, and nothing else: under ``leopard-ff8`` (the
+  chain's codec) Leopard's O(k log k) IFFT/FFT (``csrc/rs_leopard.cu``,
+  the encode of ``native/celestia_native.cpp`` ``leo_encode``, with the
+  skew tables of :func:`_leopard_tables`); under ``lagrange-gf256`` the
+  JAX package's formulation on the int8 tensor cores
+  (``csrc/rs_extend.cu``): the GF(256) map lifted to GF(2),
+  ``(G @ bits) & 1``, with G built in the kernel from the codec's encode
+  matrix E = ``gf256.encode_matrix(k, codec)`` and field tables
+  (``csrc/rs_extend.cuh``).  K5b and K5's row pass follow the same rule.
+* On a CPU tensor it runs :func:`_extend`, the bit lift in PyTorch, with
   G = ``gf256.encode_matrix_bits(k, codec)`` (see :func:`matmul_gf2`).
-Both give the same bytes: G is E lifted bit by bit (gf256.py
-``bit_expand_matrix``) either way.
+All give the same bytes: a systematic MDS code's parity is fixed by its
+field, points and layout, whatever computes it (gf256.py "codec
+selection").
 
 :func:`extend_squares_batched` extends a batch of squares (K5b
 ``rs_extend_batched`` on the card).  The sharded extension
@@ -131,13 +136,52 @@ def encode_matrix_bits_tensor(k: int, codec: str, device: str) -> torch.Tensor:
 
 @lru_cache(maxsize=None)
 def _kernel_constants(k: int, codec: str, device: str):
-    """(E, exp, log) uint8 tensors on the card for K5."""
+    """(E, exp, log) uint8 tensors on the card for the bit-GEMM kernels."""
     exp, log = gf256.field_tables(codec)
     E = np.ascontiguousarray(gf256.encode_matrix(k, codec), dtype=np.uint8)
     return tuple(
         torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(device)
         for a in (E, exp, log)
     )
+
+
+# bytes of a group's skew tables (csrc/rs_leopard.cuh kLeoGroupWords words)
+_LEO_GROUP_BYTES = 24
+
+
+@lru_cache(maxsize=None)
+def _leopard_tables(k: int, device: str) -> torch.Tensor:
+    """The skew tables of the FFT kernel's k-share encode under
+    leopard-ff8 (``ctt_rs_leopard_tables``, whose function the g++ twin runs
+    too: 2(k - 1) groups of 24 bytes) as a uint8 tensor on ``device``,
+    built and uploaded once per (k, device)."""
+    exp, log = (np.ascontiguousarray(a, dtype=np.uint8)
+                for a in gf256.field_tables(gf256.CODEC_LEOPARD))
+    out = np.zeros(max(1, 2 * (k - 1) * _LEO_GROUP_BYTES), dtype=np.uint8)
+    kernels.host_call("ctt_rs_leopard_tables", exp.ctypes.data, log.ctypes.data, k,
+                      out.ctypes.data, out.nbytes)
+    return torch.from_numpy(out).to(device)
+
+
+def _fft_form(codec: str) -> bool:
+    """K5's kernel by codec: Leopard's FFT under leopard-ff8, the bit-GEMM
+    under lagrange-gf256."""
+    if codec not in gf256.CODECS:
+        raise ValueError(f"unknown codec {codec!r}; expected one of {gf256.CODECS}")
+    return codec == gf256.CODEC_LEOPARD
+
+
+# K5 and K5b: kernel name -> the FFT kernel's C entry
+_FFT_ENTRIES = {"rs_extend": "ctt_rs_leopard_extend",
+                "rs_extend_batched": "ctt_rs_leopard_extend_batched"}
+
+
+def _k5_tables(k: int, codec: str, device: torch.device, fft: bool) -> tuple:
+    """The table pointers K5's kernel takes after k's data: the FFT's skew
+    tables, or the bit-GEMM's (E, exp, log)."""
+    if fft:
+        return (_leopard_tables(k, str(device)).data_ptr(),)
+    return tuple(t.data_ptr() for t in _kernel_constants(k, codec, str(device)))
 
 
 def _check_square(square: torch.Tensor, share_size=None) -> int:
@@ -160,32 +204,48 @@ def _check_square(square: torch.Tensor, share_size=None) -> int:
 
 
 def _check_aligned(t: torch.Tensor, name: str) -> None:
-    """The bit-GEMM kernels move 8 and 16 bytes a lane: raise unless ``t``
-    starts on a 16-byte boundary."""
+    """The Reed-Solomon kernels move 4, 8 and 16 bytes a lane: raise unless
+    ``t`` starts on a 16-byte boundary."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _launch_extend(kernel: str, src: torch.Tensor, k: int, n: int, codec: str, *extra):
+def _launch_extend(kernel: str, src: torch.Tensor, k: int, n: int, codec: str, fft: bool,
+                   *extra):
     """uint8[n, 2k, 2k, 512] from ``kernel`` (K5 or K5b) on ``src``, the
-    checked square or batch; ``extra`` follows k in the C entry's arguments."""
-    E, exp, log = _kernel_constants(k, codec, str(src.device))
+    checked square or batch, by its FFT entry (``fft``, under leopard-ff8)
+    or its bit-GEMM entry; ``extra`` follows k in the C entry's arguments."""
     eds = torch.empty((n, 2 * k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=src.device)
-    if n:
-        kernels.launch(
-            kernel, src.device, src.data_ptr(), eds.data_ptr(),
-            E.data_ptr(), exp.data_ptr(), log.data_ptr(), k, *extra,
-            launches=2,  # Q1+Q2 of every square, then Q3 (Q0 is a 2D device copy)
-        )
+    if not n:
+        return eds
+    kernels.launch(
+        kernel, src.device, src.data_ptr(), eds.data_ptr(), *_k5_tables(k, codec, src.device, fft),
+        k, *extra,
+        launches=2,  # Q1+Q2 of every square, then Q3 (Q0 is a 2D device copy)
+        entry=_FFT_ENTRIES[kernel] if fft else None,
+    )
     return eds
 
 
 def extend_cuda(square: torch.Tensor, codec: str) -> torch.Tensor:
-    """Launch K5 ``rs_extend`` on a square on the card with ``codec``."""
+    """Launch K5 ``rs_extend`` on a square on the card with ``codec``: the
+    FFT kernel under leopard-ff8, the bit-GEMM under lagrange-gf256."""
+    return _extend_cuda(square, codec, _fft_form(codec))
+
+
+def extend_bit_gemm_cuda(square: torch.Tensor, codec: str) -> torch.Tensor:
+    """K5's bit-GEMM kernel (``ctt_rs_extend``) with ``codec``'s encode
+    matrix whatever the codec: what :func:`extend_cuda` runs under
+    lagrange-gf256, and under leopard-ff8 the yardstick ``chip_smoke.py``
+    holds the FFT kernel against.  No path calls it."""
+    return _extend_cuda(square, codec, False)
+
+
+def _extend_cuda(square: torch.Tensor, codec: str, fft: bool) -> torch.Tensor:
     k = _check_square(square, SHARE_SIZE)
     kernels.check_cuda_tensor(square, "square")
     _check_aligned(square, "square")
-    return _launch_extend("rs_extend", square, k, 1, codec)[0]
+    return _launch_extend("rs_extend", square, k, 1, codec, fft)[0]
 
 
 def extend_plain(square: torch.Tensor, codec: str) -> torch.Tensor:
@@ -225,12 +285,23 @@ def _check_batch(squares: torch.Tensor, share_size=None) -> int:
 
 
 def extend_batched_cuda(squares: torch.Tensor, codec: str) -> torch.Tensor:
-    """Launch K5b ``rs_extend_batched`` on a batch of squares on the card."""
+    """Launch K5b ``rs_extend_batched`` on a batch of squares on the card:
+    the FFT kernel under leopard-ff8, the bit-GEMM under lagrange-gf256."""
+    return _extend_batched_cuda(squares, codec, _fft_form(codec))
+
+
+def extend_batched_bit_gemm_cuda(squares: torch.Tensor, codec: str) -> torch.Tensor:
+    """K5b's bit-GEMM kernel whatever the codec (as
+    :func:`extend_bit_gemm_cuda`); no path calls it."""
+    return _extend_batched_cuda(squares, codec, False)
+
+
+def _extend_batched_cuda(squares: torch.Tensor, codec: str, fft: bool) -> torch.Tensor:
     k = _check_batch(squares, SHARE_SIZE)
     kernels.check_cuda_tensor(squares, "squares")
     _check_aligned(squares, "squares")
     n = squares.shape[0]
-    return _launch_extend("rs_extend_batched", squares, k, n, codec, n)
+    return _launch_extend("rs_extend_batched", squares, k, n, codec, fft, n)
 
 
 def extend_batched_plain(squares: torch.Tensor, codec: str) -> torch.Tensor:
@@ -296,8 +367,21 @@ def extend_rows_plain(rows: torch.Tensor, codec: str) -> torch.Tensor:
 
 
 def extend_rows_cuda(rows: torch.Tensor, codec: str, out: torch.Tensor = None) -> torch.Tensor:
-    """K5's row pass on the card (``ctt_rs_extend_rows``, counted as
-    ``rs_extend``): one 2D copy and one launch, into ``out`` when given."""
+    """K5's row pass on the card (counted as ``rs_extend``): one 2D copy and
+    one launch, into ``out`` when given; the FFT kernel
+    (``ctt_rs_leopard_extend_rows``) under leopard-ff8, the bit-GEMM
+    (``ctt_rs_extend_rows``) under lagrange-gf256."""
+    return _extend_rows_cuda(rows, codec, out, _fft_form(codec))
+
+
+def extend_rows_bit_gemm_cuda(rows: torch.Tensor, codec: str,
+                              out: torch.Tensor = None) -> torch.Tensor:
+    """K5's row pass by the bit-GEMM kernel whatever the codec (as
+    :func:`extend_bit_gemm_cuda`); no path calls it."""
+    return _extend_rows_cuda(rows, codec, out, False)
+
+
+def _extend_rows_cuda(rows: torch.Tensor, codec: str, out, fft: bool) -> torch.Tensor:
     k = _check_rows(rows, SHARE_SIZE)
     kernels.check_cuda_tensor(rows, "rows")
     n = rows.shape[0]
@@ -309,11 +393,11 @@ def extend_rows_cuda(rows: torch.Tensor, codec: str, out: torch.Tensor = None) -
     kernels.check_cuda_tensor(out, "out", shape)
     _check_aligned(rows, "rows")
     _check_aligned(out, "out")
-    E, exp, log = _kernel_constants(k, codec, str(rows.device))
     if n:
         kernels.launch(
-            "rs_extend", rows.device, rows.data_ptr(), out.data_ptr(), E.data_ptr(),
-            exp.data_ptr(), log.data_ptr(), k, n, entry="ctt_rs_extend_rows",
+            "rs_extend", rows.device, rows.data_ptr(), out.data_ptr(),
+            *_k5_tables(k, codec, rows.device, fft), k, n,
+            entry="ctt_rs_leopard_extend_rows" if fft else "ctt_rs_extend_rows",
         )
     return out
 

@@ -25,12 +25,16 @@ default runs every phase and every check:
    of a k = 128 EDS against the K1 path they replace, timed beside it step
    by step (gather, prefix build, K1, digest cat, K3) with their
    dependency floor; K3's column subtrees and finishing levels of K9 at
-   k/R = 8/8, 32/4, 128/8; the tensor-core bit-GEMM kernels K5 and K8b at
+   k/R = 8/8, 32/4, 128/8; K5 (its kernel by codec: Leopard's FFT under
+   leopard-ff8, the tensor-core bit-GEMM under lagrange-gf256) and K8b at
    every k = 1..128 and K5's row pass and K9a (n_in = k/R down to 1) for
-   both codecs; each kernel's
+   both codecs; under leopard-ff8 the FFT kernel of K5, K5b (3 squares) and
+   the row pass (k + 3 rows) at every k = 1..128 against the plain path and
+   against the bit-GEMM kernel given leopard's encode matrix; each kernel's
    time as the host issues it and its GPU time (queued behind a sleep)
-   beside its bound, plain and library times, the bit-GEMM kernels' share
-   of their tensor-core floor; K4's per-level latency, the slope of its GPU
+   beside its bound, plain and library times, K5's and K5b's two kernels
+   timed in turns, the bit-GEMM kernels' share of their tensor-core floor,
+   the FFT kernel's registers, spills and SASS opcode mix; K4's per-level latency, the slope of its GPU
    time at batch 1 over n = 2..1024 leaves and over n = 2..32 (warp 0
    alone: half of it is one compression's latency in the kernel), and K3's
    and K4's dependency floor (their levels' chain of compressions at that
@@ -244,15 +248,26 @@ SOURCES = {
     "nmt_leaf_digests": "celestia_tpu_torch/csrc/nmt.cu",
     "nmt_combine_level": "celestia_tpu_torch/csrc/nmt.cu",
     "rfc6962_root": "celestia_tpu_torch/csrc/rfc6962.cu",
-    "rs_extend": "celestia_tpu_torch/csrc/rs_extend.cu",
+    "rs_extend": "celestia_tpu_torch/csrc/rs_leopard.cu",
     "das_proof_gather": "celestia_tpu_torch/csrc/das_gather.cu",
-    "rs_extend_batched": "celestia_tpu_torch/csrc/rs_extend.cu",
+    "rs_extend_batched": "celestia_tpu_torch/csrc/rs_leopard.cu",
     "rs_decode_matrices": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_decode_axes": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_repair_verdicts": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_col_parity_partial": "celestia_tpu_torch/csrc/rs_extend.cu",
     "xor_reduce_slabs": "celestia_tpu_torch/csrc/rs_sharded.cu",
 }
+# K5 and K5b run Leopard's FFT kernel under leopard-ff8, the chain's codec
+# and the main path's, and the bit-GEMM kernel under lagrange-gf256: the
+# kernels line reports the FFT under the launch counters' names and the
+# bit-GEMM under these, each bit-GEMM entry's launches counted by C entry
+BIT_GEMM_K5 = {"rs_extend_bit_gemm": ("rs_extend", ("ctt_rs_extend", "ctt_rs_extend_rows")),
+               "rs_extend_batched_bit_gemm": ("rs_extend_batched", ("ctt_rs_extend_batched",))}
+for _name, (_k5, _) in BIT_GEMM_K5.items():
+    REPLACES[_name] = REPLACES[_k5]
+    SOURCES[_name] = "celestia_tpu_torch/csrc/rs_extend.cu"
+FFT_K5_ENTRIES = ("ctt_rs_leopard_extend", "ctt_rs_leopard_extend_batched",
+                  "ctt_rs_leopard_extend_rows")
 # the kernels each path must launch
 EXTEND_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "rs_extend")
 SERVE_KERNELS = ("das_proof_gather",)
@@ -2256,8 +2271,27 @@ def kernel_sass_mix(kernel: str) -> dict:
             return {"instructions": sum(ops.values()),
                     **{op: ops[op] for op in ("SHF", "LOP3", "IADD3", "PRMT", "LDS", "STS", "LDG",
                                               "STG", "LDL", "STL", "BAR")},
+                    "most_common": ops.most_common(10),
                     "longest_load_free_runs": runs[:3]}
     raise AssertionError(f"no kernel {kernel} in the built library's SASS")
+
+
+def kernel_resources(kernel: str) -> dict:
+    """Registers, stack, shared and local memory of the built library's
+    kernel whose mangled name holds ``kernel`` (``cuobjdump -res-usage``):
+    a spill shows as STACK and LOCAL bytes."""
+    import os
+    import re
+
+    from celestia_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    lines = subprocess.run([tool, "-res-usage", str(kernels.build())], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    for head, usage in zip(lines, lines[1:]):
+        if head.strip().startswith("Function") and kernel in head:
+            return {key: int(v) for key, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", usage)}
+    raise AssertionError(f"no kernel {kernel} in the built library's resource usage")
 
 
 def main() -> int:
@@ -2340,7 +2374,11 @@ def main() -> int:
         check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
         return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item()) if a.numel() else 0
 
-    errs = {name: 0 for name in kernels.KERNELS}
+    errs = {name: 0 for name in (*kernels.KERNELS, *BIT_GEMM_K5)}
+
+    def k5(name: str, codec: str) -> str:
+        """K5's or K5b's name in errs and perf for the kernel ``codec`` runs."""
+        return name if codec == gf256.CODEC_LEOPARD else f"{name}_bit_gemm"
     perf = {}
     # the launches of every path; a path of an unselected phase launched nothing
     extend_launches = serve_launches = repair_launches = fraud_launches = {}
@@ -2501,8 +2539,32 @@ def main() -> int:
         for codec in gf256.CODECS:
             for kk in (1, 2, 4, 8, 16, 32, 64, 128):
                 s = upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8))
-                compare("rs_extend", rs.extend_cuda(s, codec), rs.extend_plain(s, codec),
+                compare(k5("rs_extend", codec), rs.extend_cuda(s, codec), rs.extend_plain(s, codec),
                         f"k={kk} codec={codec}")
+        # the FFT kernel (leopard-ff8) of K5, K5b and the row pass against the
+        # plain path and against the bit-GEMM kernel given leopard's E, at every k
+        leo = gf256.CODEC_LEOPARD
+        for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+            s = upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8))
+            fft = rs.extend_cuda(s, leo)
+            gemm = rs.extend_bit_gemm_cuda(s, leo)
+            compare("rs_extend", fft, gemm, f"FFT against the bit-GEMM kernel, k={kk}")
+            compare("rs_extend_bit_gemm", gemm, rs.extend_plain(s, leo), f"k={kk} codec={leo}")
+            s3 = upload(rng.integers(0, 256, (3, kk, kk, 512), dtype=np.uint8))
+            fft = rs.extend_batched_cuda(s3, leo)
+            gemm = rs.extend_batched_bit_gemm_cuda(s3, leo)
+            compare("rs_extend_batched", fft, rs.extend_batched_plain(s3, leo),
+                    f"n=3 k={kk} codec={leo}")
+            compare("rs_extend_batched", fft, gemm, f"FFT against the bit-GEMM kernel, n=3 k={kk}")
+            rows = upload(rng.integers(0, 256, (kk + 3, kk, 512), dtype=np.uint8))
+            fft = rs.extend_rows_cuda(rows, leo)
+            compare("rs_extend", fft, rs.extend_rows_plain(rows, leo),
+                    f"row pass of {kk + 3} rows, k={kk} codec={leo}")
+            compare("rs_extend", fft, rs.extend_rows_bit_gemm_cuda(rows, leo),
+                    f"row pass of {kk + 3} rows against the bit-GEMM kernel, k={kk}")
+        del s, s3, rows, fft, gemm
+        print("K5 under leopard-ff8 (Leopard's FFT kernel): one square, a batch of 3 and the row "
+              "pass byte-equal to the plain path and to the bit-GEMM kernel at k=1..128")
         # the repair kernels and the batched extension (K8a at k = 4, 32, 128;
         # K8b at every k; K8c and K5b at k = 32), K5's row pass and K9a, and the
         # batched K2/K3, both codecs
@@ -2540,7 +2602,8 @@ def main() -> int:
                 parts = []
                 for d in range(R):
                     mine = ek[d * rows_r : (d + 1) * rows_r]
-                    compare("rs_extend", rs.extend_rows_cuda(mine[:, :kk].contiguous(), codec), mine,
+                    compare(k5("rs_extend", codec),
+                            rs.extend_rows_cuda(mine[:, :kk].contiguous(), codec), mine,
                             f"row pass of shard {d} of {R} at k={kk} codec={codec}")
                     top = mine[None]
                     parts.append(rs.col_parity_partial_cuda(
@@ -2583,7 +2646,7 @@ def main() -> int:
                 compare("rs_repair_verdicts", got, want, f"k={kk} {name} codec={codec}")
             sq2 = upload(rng.integers(0, 256, (2, kk, kk, 512), dtype=np.uint8))
             e2 = rs.extend_batched_cuda(sq2, codec)
-            compare("rs_extend_batched", e2, rs.extend_batched_plain(sq2, codec),
+            compare(k5("rs_extend_batched", codec), e2, rs.extend_batched_plain(sq2, codec),
                     f"n=2 k={kk} codec={codec}")
         compare("nmt_leaf_digests", nmt.eds_leaf_digests(e2), nmt.eds_leaf_digests_plain(e2),
                 "batch of 2 EDSs at k=32")
@@ -2757,6 +2820,13 @@ def main() -> int:
                 lambda: torch._int_mm(G, bits),
                 bound(k * k * 512 + n2 * n2 * 512, leopard_extend_ops(k), INT32_OPS_PER_S),
             ),
+            # the same function by the bit-GEMM kernel, given leopard's E
+            "rs_extend_bit_gemm": (
+                lambda: rs.extend_bit_gemm_cuda(sq, codec),
+                lambda: rs.extend_plain(sq, codec),
+                lambda: torch._int_mm(G, bits),
+                bound(k * k * 512 + n2 * n2 * 512, leopard_extend_ops(k), INT32_OPS_PER_S),
+            ),
             # the main path's cell mode
             "das_proof_gather": (
                 lambda: gather.launch_cells(g_sources, g_layout, g_cells_dev, g_out),
@@ -2767,6 +2837,12 @@ def main() -> int:
             ),
             "rs_extend_batched": (
                 lambda: rs.extend_batched_cuda(sq8, codec),
+                lambda: rs.extend_batched_plain(sq8, codec),
+                lambda: torch._int_mm(G, bits8),
+                bound(8 * (k * k * 512 + n2 * n2 * 512), 8 * leopard_extend_ops(k), INT32_OPS_PER_S),
+            ),
+            "rs_extend_batched_bit_gemm": (
+                lambda: rs.extend_batched_bit_gemm_cuda(sq8, codec),
                 lambda: rs.extend_batched_plain(sq8, codec),
                 lambda: torch._int_mm(G, bits8),
                 bound(8 * (k * k * 512 + n2 * n2 * 512), 8 * leopard_extend_ops(k), INT32_OPS_PER_S),
@@ -2827,6 +2903,32 @@ def main() -> int:
                   f"{perf[name]['gpu_ms']:.4f} ms, queued), plain {perf[name]['plain_ms']:.3f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), library "
                   f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
+        # K5's and K5b's two kernels at k = 64 and 128 (8 squares for K5b), the
+        # FFT (leopard-ff8) and the bit-GEMM given leopard's E, GPU time
+        # (queued), in turns: FFT, bit-GEMM, bit-GEMM, FFT, FFT, bit-GEMM
+        sq64 = upload(rng.integers(0, 256, (64, 64, 512), dtype=np.uint8))
+        sq8_64 = upload(rng.integers(0, 256, (8, 64, 64, 512), dtype=np.uint8))
+        turn_pairs = {
+            "rs_extend k=64": (lambda: rs.extend_cuda(sq64, codec),
+                               lambda: rs.extend_bit_gemm_cuda(sq64, codec)),
+            "rs_extend k=128": (lambda: rs.extend_cuda(sq, codec),
+                                lambda: rs.extend_bit_gemm_cuda(sq, codec)),
+            "rs_extend_batched n=8 k=64": (lambda: rs.extend_batched_cuda(sq8_64, codec),
+                                           lambda: rs.extend_batched_bit_gemm_cuda(sq8_64, codec)),
+            "rs_extend_batched n=8 k=128": (lambda: rs.extend_batched_cuda(sq8, codec),
+                                            lambda: rs.extend_batched_bit_gemm_cuda(sq8, codec)),
+        }
+        results["k5_in_turns"] = {}
+        for what, fns in turn_pairs.items():
+            got = {"fft": [], "bit_gemm": []}
+            for turn in ("fft", "bit_gemm", "bit_gemm", "fft", "fft", "bit_gemm"):
+                got[turn].append(time_ms(fns[turn == "bit_gemm"], queued=True))
+            results["k5_in_turns"][what] = got
+            ratio = statistics.median(got["bit_gemm"]) / statistics.median(got["fft"])
+            print(f"{what}, GPU time in turns: FFT {', '.join(f'{v:.4f}' for v in got['fft'])} ms, "
+                  f"bit-GEMM {', '.join(f'{v:.4f}' for v in got['bit_gemm'])} ms (bit-GEMM / FFT "
+                  f"{ratio:.2f}x) | {smi}")
+        del sq64, sq8_64, turn_pairs
         # K7b's table mode on the same 1,024 cells (the range proofs' mode), and
         # its latency floor: an empty launch and a launch with one load that the
         # store waits on (gather.dependent_load_probe), timed as gpu_ms is
@@ -2932,13 +3034,14 @@ def main() -> int:
         sass = kernel_sass_mix("rfc6962_tree_kernel")
         results["rfc6962_root_sass"] = sass
         print(f"rfc6962_root SASS (cuobjdump -sass of the built library): {sass}")
-        # the bit-GEMM kernels against the tensor-core floor of their form: K5 the
+        # the bit-GEMM kernels against the tensor-core floor of their form (K5
+        # and K5b by their bit-GEMM kernel, which lagrange-gf256 runs): K5 the
         # three quadrants' 8k x 8k GEMMs over k axes of 512 bytes, K5b 8 squares of
         # it, K8b the 25 % mask's 2k rows (8k unknown bit rows, 8k deep each), K9a
         # the 8 shards' 8k x 8(k/R) GEMMs over 2k columns
         floors = {
-            "rs_extend": bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
-            "rs_extend_batched": 8 * bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
+            "rs_extend_bit_gemm": bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
+            "rs_extend_batched_bit_gemm": 8 * bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
             "rs_decode_axes": N25 * bit_gemm_ops(8 * k, 8 * k, 512),
             "rs_col_parity_partial": R9 * bit_gemm_ops(8 * k, 8 * rows9, n2 * 512),
         }
@@ -2951,6 +3054,17 @@ def main() -> int:
                   f"1,979 TOPS), achieved {100 * share:.1f} % of it in {perf[name]['ms']:.4f} ms "
                   f"(bound {perf[name]['bound_ms']:.4f} ms, plain {perf[name]['plain_ms']:.3f} ms, "
                   f"library {perf[name]['library_ms']:.4f} ms) | {smi}")
+        # the FFT kernel's k = 128 instance: registers and spills (STACK, LOCAL)
+        # and its SASS; a column's two threads compute 4 bytes of each of k
+        # parity shares in k log2 k butterflies on a word
+        fft_res = kernel_resources("rs_leopard_kernelILj7E")
+        fft_sass = kernel_sass_mix("rs_leopard_kernelILj7E")
+        results["rs_extend_fft_kernel"] = {"resources": fft_res, "sass": fft_sass}
+        print(f"rs_extend FFT kernel, k=128 instance (cuobjdump): resources {fft_res}; SASS "
+              f"{fft_sass['instructions']} instructions a thread, "
+              f"{2 * fft_sass['instructions'] / (4 * k):.2f} a parity byte, "
+              f"{2 * fft_sass['instructions'] / (k * (k.bit_length() - 1)):.2f} a butterfly word; "
+              f"opcodes {fft_sass['most_common']}; LDL {fft_sass['LDL']} STL {fft_sass['STL']}")
         # the row level stacks behind proofs, namespace data, BEFPs and DAS misses
         # (ops/nmt.py eds_row_level_stack: K2's row-set mode, then K3) at R = 1, 5
         # and 2k rows of the k = 128 EDS, as issued and GPU time.  Beside them,
@@ -3056,6 +3170,14 @@ def main() -> int:
         del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
         del tops, coeffs9, g_cols9, partials9, slabs9, outs9, bits9
 
+    # K5's launches by C entry over the paths run in this process (phases 3
+    # to 4l): the chain's codec runs the FFT kernel, never the bit-GEMM
+    entries_before = kernels.entry_launch_counts()
+
+    def entries_since(before: dict) -> dict:
+        now = kernels.entry_launch_counts()
+        return {e: now.get(e, 0) - before.get(e, 0) for e in now}
+
     if "4" in selected:
         # --- 3. Go-pinned goldens through the port's entry points on the card ---
         check(dah.min_data_availability_header().hash == golden.MIN_DAH_HASH, "MIN_DAH_HASH")
@@ -3085,6 +3207,7 @@ def main() -> int:
         blocks = [DEFAULT_GOV_MAX_SQUARE_SIZE] * 4 + [128] * 4
         streams = [tx_stream(m * m * 478) for m in blocks]
         kernels.reset_launch_counts()
+        ext_entries0 = kernels.entry_launch_counts()
         t_main = time.perf_counter()
         main_out = []
         for max_size, txs in zip(blocks, streams):
@@ -3102,6 +3225,10 @@ def main() -> int:
             check(extend_launches[name] > 0, f"kernel {name} was not launched on the extension path")
         check(extend_launches == block_launches(2 * len(blocks)),
               f"extension launches {extend_launches} != {block_launches(2 * len(blocks))}")
+        ext_entries = {e: c for e, c in entries_since(ext_entries0).items() if c}
+        check(ext_entries.get("ctt_rs_leopard_extend") == extend_launches["rs_extend"]
+              and not any(ext_entries.get(e) for _, es in BIT_GEMM_K5.values() for e in es),
+              f"the extension path's K5 launches by C entry {ext_entries}: not all the FFT's")
 
         plain_out = []
         for max_size, sq_p, block_txs, txs_v, eds_p, dah_p, dah_v in main_out:
@@ -3911,10 +4038,20 @@ def main() -> int:
         results["tools"] = {name: {"wall_s": t["wall_s"], "summaries": t["summaries"]}
                             for name, t in tp["twins"].items()}
 
+    # every K5 launch of the paths in this process went to the FFT kernel
+    path_entries = entries_since(entries_before)
+    bit_gemm_launches = {name: sum(path_entries.get(e, 0) for e in es)
+                         for name, (_, es) in BIT_GEMM_K5.items()}
+    check(not any(bit_gemm_launches.values()),
+          f"a path launched K5's bit-GEMM kernel under leopard-ff8: {path_entries}")
+    print(f"K5's launches by C entry over the paths in this process: "
+          f"{json.dumps({e: path_entries.get(e, 0) for e in FFT_K5_ENTRIES})} (the FFT kernel), "
+          f"{json.dumps(bit_gemm_launches)} (the bit-GEMM kernel)")
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
              sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches,
              network_launches, host_launches, tools_launches)
     launches = {name: sum(p.get(name, 0) for p in paths) for name in kernels.KERNELS}
+    launches.update(bit_gemm_launches)
 
     # --- 5. kernels line, device, result -------------------------------------
     if "2" in selected:
@@ -3928,7 +4065,7 @@ def main() -> int:
                 "max_abs_err": errs[name],
                 **perf[name],
             }
-            for name in kernels.KERNELS
+            for name in (*kernels.KERNELS, *BIT_GEMM_K5)
         ]}
         results.update(line)
     else:

@@ -199,6 +199,10 @@ def twin(tmp_path_factory):
     t.twin_rs_extend_rows.argtypes = [_P, _P, _P, _P, _P, I, I]
     t.twin_rs_col_parity_partial.argtypes = [_P, _P, _P, _P, _P, I, I, I]
     t.twin_xor_reduce_scatter.argtypes = [_P, I, _P, _P, I, LL, I, LL]
+    t.twin_rs_leopard_tables.argtypes = [_P, _P, I, _P, LL]
+    t.twin_rs_leopard_extend.argtypes = [_P, _P, _P, I]
+    t.twin_rs_leopard_extend_batched.argtypes = [_P, _P, _P, I, I]
+    t.twin_rs_leopard_extend_rows.argtypes = [_P, _P, _P, I, I]
     return t
 
 
@@ -211,16 +215,25 @@ _CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_leaf_digests_rows",
                   "twin_das_proof_gather", "twin_das_cell_gather", "twin_xor_reduce_scatter")
 
 
+class _Launched(dict):
+    """Launch counts by kernel name; ``entries``: by C entry."""
+
+    def __init__(self):
+        super().__init__()
+        self.entries = {}
+
+
 def route_launches_to_twin(monkeypatch, twin) -> dict:
     """Run the wrappers' CUDA branches on CPU tensors: ops/nmt.py and
     ops/gather.py take them as the card's, and every ``kernels.launch``
-    goes to the g++ twin of its C entry (raising where the entry would
-    refuse).  Returns the launch counts, kept as ``kernels.launch`` keeps
-    them."""
+    (and ``kernels.host_call``) goes to the g++ twin of its C entry
+    (raising where the entry would refuse).  Returns the launch counts,
+    kept as ``kernels.launch`` keeps them, and by C entry in their
+    ``entries`` attribute."""
     from celestia_tpu_torch import kernels
     from celestia_tpu_torch.ops import gather, nmt
 
-    launched = {}
+    launched = _Launched()
 
     def launch(kernel, device, *args, launches=1, entry=None):
         c_entry = entry or kernels.KERNELS[kernel]
@@ -231,12 +244,20 @@ def route_launches_to_twin(monkeypatch, twin) -> dict:
         if name in _CHECKED_TWINS and rc != 0:
             raise RuntimeError(f"{c_entry} refused its arguments")
         launched[kernel] = launched.get(kernel, 0) + launches
+        launched.entries[c_entry] = launched.entries.get(c_entry, 0) + launches
+
+    def host_call(entry, *args):
+        fn = getattr(twin, entry.replace("ctt_", "twin_"))
+        fn.argtypes = list(kernels._SIGNATURES[entry])
+        if fn(*args) != 0:
+            raise RuntimeError(f"{entry} refused its arguments")
 
     def check_tensor(t, name, shape=None):
         assert t.dtype == torch.uint8 and t.is_contiguous(), name
         assert shape is None or tuple(t.shape) == tuple(shape), (name, tuple(t.shape), shape)
 
     monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(kernels, "host_call", host_call)
     monkeypatch.setattr(kernels, "check_cuda_tensor", check_tensor)
     monkeypatch.setattr(nmt, "_is_cpu", lambda t: False)
     monkeypatch.setattr(gather, "_is_cpu", lambda t: False)
