@@ -253,9 +253,18 @@ int twin_nmt_leaf_digests(const uint8_t* eds, uint8_t* out, int n2) {
   return twin_nmt_leaf_digests_batched(eds, out, n2, 1);
 }
 
-// K3 as ctt_nmt_reduce_levels launches it: every block (x, then the group
-// y) one after another, each step of nmt_reduce_kernel run for its 256
-// threads before the next.  Returns 0, or 1 where the C entry refuses.
+// The SM count K3's tile is chosen for (the H100's 132 unless a test sets
+// another).
+static uint32_t twin_sms = 132;
+
+void twin_nmt_set_sm_count(int sms) { twin_sms = sms > 0 ? uint32_t(sms) : 132u; }
+
+// K3 as ctt_nmt_reduce_levels launches it on a card of twin_sms SMs: every
+// block (x, then the group y) one after another, each step of
+// nmt_reduce_kernel run for its 128, 256 or 512 threads before the next
+// (the levels warp 0 runs alone over its 32 lanes, the other warps' write
+// of the level before them after those).  Returns 0, or 1 where the C
+// entry refuses.
 int twin_nmt_reduce_levels(const uint8_t* in, uint8_t* out, long long ntrees, int m,
                            int n_levels, long long split, long long ts0, long long ns0,
                            long long ts1, long long ns1, long long tpb, long long bs) {
@@ -264,23 +273,33 @@ int twin_nmt_reduce_levels(const uint8_t* in, uint8_t* out, long long ntrees, in
   const uint32_t per_group = nmt_reduce_setup(&a, in, out, uint64_t(ntrees), uint32_t(m),
                                               uint32_t(n_levels), uint64_t(split), uint64_t(ts0),
                                               uint64_t(ns0), uint64_t(ts1), uint64_t(ns1),
-                                              uint64_t(tpb), uint64_t(bs));
+                                              uint64_t(tpb), uint64_t(bs), twin_sms);
   const uint64_t groups = per_group ? uint64_t(ntrees / tpb) : 0;
   if (per_group == 0 || groups > 65535) return 1;
-  std::vector<uint8_t> smem(kNmtSmemBytes);
-  uint8_t* const buf_a = smem.data();
-  uint8_t* const buf_b = smem.data() + kNmtTileLeaves * kDigest;
+  std::vector<Word16> smem((a.smem + 15) / 16);  // 16-byte aligned, as the kernel's
+  const NmtPlanes p = nmt_planes(smem.data(), a.lg_tile);
+  const uint32_t nt = 1u << (a.lg_tile - 1);  // the block's threads
+  const auto each = [](uint32_t n, auto step) {
+    for (uint32_t tid = 0; tid < n; ++tid) step(tid);
+  };
   for (uint32_t g = 0; g < groups; ++g)
     for (uint32_t bx = 0; bx < per_group; ++bx) {
       const NmtTile t = nmt_tile(a, bx, g);
-      for (uint32_t tid = 0; tid < kNmtThreads; ++tid) nmt_stage(t, buf_a, tid, kNmtThreads);
+      each(nt, [&](uint32_t tid) { nmt_stage(t, p.stage(), tid, nt); });
+      each(nt, [&](uint32_t tid) { nmt_unpack(a, t, p, tid, nt); });
+      const uint32_t tail = nmt_tail(a, t);
       for (uint32_t j = 1; j <= a.n_levels; ++j) {
-        const uint8_t* lin = (j & 1u) ? buf_a : buf_b;
-        uint8_t* lout = (j & 1u) ? buf_b : buf_a;
-        for (uint32_t p = 0; p < kNmtThreads; ++p) nmt_level_step(a, t, j, lin, lout, p);
-        for (uint32_t tid = 0; tid < kNmtThreads; ++tid)
-          nmt_store_level(a, t, j, lout, tid, kNmtThreads);
+        const uint32_t step = j < tail ? nt : 32u;  // the block, or one warp's lanes
+        each(step, [&](uint32_t tid) { nmt_level_step(a, t, p, j, tid, step, j < tail); });
       }
+      if (tail > a.n_levels) {
+        each(nt, [&](uint32_t tid) { nmt_store_level(a, t, p, a.n_levels, tid, nt); });
+        continue;
+      }
+      if (tail > 1)
+        each(nt - 32, [&](uint32_t tid) { nmt_store_level(a, t, p, tail - 1, tid, nt - 32); });
+      for (uint32_t j = tail; j <= a.n_levels; ++j)
+        each(nt, [&](uint32_t tid) { nmt_store_level(a, t, p, j, tid, nt); });
     }
   return 0;
 }

@@ -24,4 +24,17 @@ cudaError_t raise_smem_once(int bytes) {
   return err;
 }
 
+// The current device's SM count, read once a device (one slot a device
+// ordinal below 64; others read it every call).
+inline cudaError_t sm_count(int* sms) {
+  static std::atomic<int> known[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (*sms = known[dev].load()) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) known[dev] = *sms;
+  return err;
+}
+
 }  // namespace ctt

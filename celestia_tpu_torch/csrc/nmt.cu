@@ -30,18 +30,35 @@
 // for the purpose (celestia_tpu/ops/nmt.py:326 `nmt_level_stack` over the
 // rows' prefixed leaves).
 //
-// K3 design: one launch runs every level of a set of trees.  A block stages
-// up to 512 level-0 nodes -- one tree of 512 leaves, two rows or two
-// columns of a k = 128 leaf grid, 512 / m trees of m leaves -- into shared
-// memory with wide coalesced copies (by rows: one run of 16-byte loads; by
-// columns: the block's adjacent columns are one run of each grid row), then
-// reduces them level by level in shared memory, one thread a parent, with a
-// barrier between levels, and writes each level to the packed output with
-// coalesced stores as soon as it has it.  No level crosses a launch.  The
-// first level reads the leaf grid through two stride sets (rows for trees
-// 0..2k, columns for 2k..4k), and groups of trees take a batch of grids (the
-// catch-up path, JAX `jax.vmap(eds_nmt_roots)` at celestia_tpu/node/
-// network.py:407).
+// K3 design: one launch runs every level of a set of trees on K4's
+// word-plane node path (nmt.cuh):
+// - a block takes a tile of 256, 512 or 1,024 level-0 nodes (whole trees),
+//   the smallest that gives the launch about one block an SM: a k = 128
+//   grid's 512 trees four a block, a k = 64 grid's two, a row stack's one.
+//   two blocks sharing an SM ran their one-warp last levels one after the
+//   other (measured on the card), and one block's first levels are
+//   issue-bound on their own;
+// - level 0 is staged with 16-byte loads from each run's aligned cover (by
+//   rows one run; by columns one run of the block's adjacent columns a grid
+//   row, 256 runs of 360 bytes at k = 128) and unpacked once into word
+//   planes, 23 big-endian words a node, in tree order (each thread from
+//   its own word on: the column runs' words would share a bank);
+// - one thread a parent: its children are one 8-byte load a plane pair,
+//   made just before the message block that needs them, the message
+//   `0x01 || l || r` is built by PRMTs in registers, IgnoreMaxNamespace is
+//   tested on words, and the parent's 23 words go to the planes; every
+//   level stays there, so the threads with no parent write the finished
+//   level out as 16-byte stores while the others compute the next;
+// - once a block has at most 32 parents left, warp 0 runs the remaining
+//   levels alone with __syncwarp; the other warps write the level before,
+//   and after one barrier every thread writes warp 0's levels;
+// - at most 128 registers a thread, no spill.
+// No level crosses a launch.  The first level reads the leaf grid through
+// two stride sets (rows for trees 0..2k, columns for 2k..4k), and groups of
+// trees take a batch of grids (the catch-up path, JAX
+// `jax.vmap(eds_nmt_roots)` at celestia_tpu/node/network.py:407).  Its
+// level floor at k = 128, each level the longer of its compressions at the
+// int32 issue rate and three compressions one after another: ~0.054 ms.
 #include <cuda_runtime.h>
 
 #include "nmt.cuh"
@@ -84,22 +101,50 @@ __global__ void __launch_bounds__(ctt::kLeafCells)
   ctt::nmt_leaf_store(a.out, cell0, n, rows, t, blockDim.x);
 }
 
-__global__ void __launch_bounds__(ctt::kNmtThreads)
+// A tile of 2^LG_TILE level-0 nodes, a thread a level-1 parent, at most
+// 128 registers a thread (512 threads fill an SM's registers).
+template <uint32_t LG_TILE>
+__global__ void __launch_bounds__(ctt::kNmtThreads, 1)
     nmt_reduce_kernel(const ctt::NmtReduceArgs a) {
+  constexpr uint32_t kThreads = 1u << (LG_TILE - 1);
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* const buf_a = smem;
-  uint8_t* const buf_b = smem + ctt::kNmtTileLeaves * ctt::kDigest;
+  const ctt::NmtPlanes p = ctt::nmt_planes(smem, LG_TILE);
+  const uint32_t tid = threadIdx.x;
   const ctt::NmtTile t = ctt::nmt_tile(a, blockIdx.x, blockIdx.y);
-  ctt::nmt_stage(t, buf_a, threadIdx.x, blockDim.x);
+  ctt::nmt_stage(t, p.stage(), tid, kThreads);  // where set B will be
   __syncthreads();
+  ctt::nmt_unpack(a, t, p, tid, kThreads);
+  __syncthreads();
+  const uint32_t tail = ctt::nmt_tail(a, t);
+  // one loop, so the node's three compressions are one copy of code (as in
+  // K4): block-wide levels end at a barrier, warp 0's at __syncwarp
   for (uint32_t j = 1; j <= a.n_levels; ++j) {
-    const uint8_t* in = (j & 1u) ? buf_a : buf_b;
-    uint8_t* out = (j & 1u) ? buf_b : buf_a;
-    ctt::nmt_level_step(a, t, j, in, out, threadIdx.x);
-    __syncthreads();
-    // `out` is read-only until level j + 2 writes it, two barriers on
-    ctt::nmt_store_level(a, t, j, out, threadIdx.x, blockDim.x);
+    const bool wide = j < tail;  // uniform over the block
+    if (!wide && tid >= 32) break;
+    ctt::nmt_level_step(a, t, p, j, tid, wide ? kThreads : 32u, wide);
+    if (wide)
+      __syncthreads();
+    else
+      __syncwarp();
   }
+  if (tail > a.n_levels) {  // every level block-wide: the last one goes out
+    ctt::nmt_store_level(a, t, p, a.n_levels, tid, kThreads);
+    return;
+  }
+  // the other warps write the level before warp 0's first while warp 0
+  // runs its levels; then every thread writes warp 0's levels
+  if (tid >= 32 && tail > 1) ctt::nmt_store_level(a, t, p, tail - 1, tid - 32, kThreads - 32);
+  __syncthreads();
+  for (uint32_t j = tail; j <= a.n_levels; ++j) ctt::nmt_store_level(a, t, p, j, tid, kThreads);
+}
+
+template <uint32_t LG_TILE>
+cudaError_t launch_reduce(const ctt::NmtReduceArgs& a, uint32_t per_group, uint32_t groups,
+                          cudaStream_t stream) {
+  const cudaError_t err = ctt::raise_smem_once<nmt_reduce_kernel<LG_TILE>>(ctt::kNmtMaxSmem);
+  if (err != cudaSuccess) return err;
+  nmt_reduce_kernel<LG_TILE><<<dim3(per_group, groups), 1u << (LG_TILE - 1), a.smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -143,23 +188,29 @@ extern "C" int ctt_nmt_leaf_digests_rows(const void* src, void* out, int n2, int
 // Levels 1 .. n_levels of ntrees trees of m leaves (strides as
 // ctt::NmtReduceArgs describes) into the packed out: level j is uint8[ntrees,
 // m >> j, 90] from byte ntrees * (m - (m >> (j - 1))) * 90 on; m <= 512
-// (one block's tree), 1 <= n_levels <= log2 m.
+// (one block's tree), 1 <= n_levels <= log2 m.  The tile follows the
+// current device's SM count.
 extern "C" int ctt_nmt_reduce_levels(const void* in, void* out, long long ntrees, int m,
                                      int n_levels, long long split, long long ts0, long long ns0,
                                      long long ts1, long long ns1, long long tpb, long long bs,
                                      void* stream) {
+  int sms = 0;
+  const cudaError_t err = ctt::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   ctt::NmtReduceArgs a{};
   const uint32_t per_group = ctt::nmt_reduce_setup(
       &a, static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
       static_cast<uint64_t>(ntrees), static_cast<uint32_t>(m), static_cast<uint32_t>(n_levels),
       static_cast<uint64_t>(split), static_cast<uint64_t>(ts0), static_cast<uint64_t>(ns0),
       static_cast<uint64_t>(ts1), static_cast<uint64_t>(ns1), static_cast<uint64_t>(tpb),
-      static_cast<uint64_t>(bs));
+      static_cast<uint64_t>(bs), static_cast<uint32_t>(sms));
   const uint64_t groups = per_group ? static_cast<uint64_t>(ntrees / tpb) : 0;
   if (per_group == 0 || groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = ctt::raise_smem_once<nmt_reduce_kernel>(ctt::kNmtSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nmt_reduce_kernel<<<dim3(per_group, static_cast<unsigned>(groups)), ctt::kNmtThreads,
-                      ctt::kNmtSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t g = static_cast<uint32_t>(groups);
+  switch (a.lg_tile) {
+    case 8: return static_cast<int>(launch_reduce<8>(a, per_group, g, st));
+    case 9: return static_cast<int>(launch_reduce<9>(a, per_group, g, st));
+    default: return static_cast<int>(launch_reduce<10>(a, per_group, g, st));
+  }
 }

@@ -9,9 +9,13 @@
 // between them, and the twin runs a block by looping each step over every
 // thread index, so the CPU tests run the kernels' own index maps.
 //
-// K4 (the RFC-6962 tree) is a block-cooperative kernel of the same kind:
-// the leaves staged, one thread a leaf hash, the levels reduced in shared
-// memory (the 65-byte inner node is sha256.cuh's sha256_inner65).
+// K3 and K4 (the RFC-6962 tree) keep their nodes in shared memory as
+// big-endian word planes: a parent's thread reads its two children as one
+// 8-byte load a plane, builds its message by PRMTs in registers and writes
+// its words to the planes; every level stays there, so a finished level
+// goes out to device memory while the next computes, and warp 0 runs the
+// last levels alone (K4's 65-byte inner node is sha256.cuh's
+// sha256_inner65).
 //
 // Digest layout (ops/nmt.py): leaf = ns || ns || sha256(0x00 || ns || share),
 // node = l.min || max || sha256(0x01 || l || r) with max = l.max when r.min
@@ -74,18 +78,74 @@ CTT_HD void copy_bytes(uint8_t* d, const uint8_t* s, uint32_t n, uint32_t unit, 
   }
 }
 
+// Big-endian words of a 2-byte-aligned node's bytes from `first` on: word
+// i is bytes first + 4i .. first + 4i + 3, one PRMT of two aligned 4-byte
+// loads at a fixed base (neighbouring words share a load).  Word i reads up
+// to 8 bytes from the base, which lies at most 3 bytes before the node's
+// byte `first`.
+struct NodeWords {
+  const uint8_t* base;
+  uint32_t sel;
+  CTT_HD NodeWords(const uint8_t* node, uint32_t first) {
+    const uint32_t o = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(node + first) & 3u);
+    base = node + first - o;
+    sel = (o << 12) | ((o + 1u) << 8) | ((o + 2u) << 4) | (o + 3u);
+  }
+  CTT_HD uint32_t operator()(uint32_t i) const {
+    return prmt(ld32(base + 4 * i), ld32(base + 4 * i + 4), sel);
+  }
+};
+
 // --- K3: the level reduction -------------------------------------------
 
-// A block reduces up to kNmtTileLeaves level-0 nodes: one tree of 512
-// leaves, or 512 / m trees of m leaves (no tree is taller: an EDS axis has
-// at most 256 leaves).  Level 0 is staged in buffer A, level 1 written to
-// B, level 2 to A, ...; every level goes out to the packed output as soon
-// as the block has it.
-constexpr uint32_t kNmtLgTile = 9;
-constexpr uint32_t kNmtTileLeaves = 1u << kNmtLgTile;
-constexpr uint32_t kNmtThreads = kNmtTileLeaves / 2;  // one thread a level-1 parent
-// both buffers, and 16 bytes after them that a node's word loads may touch
-constexpr uint32_t kNmtSmemBytes = (kNmtTileLeaves + kNmtTileLeaves / 2) * kDigest + 16;
+// A block reduces a tile of 256, 512 or 1,024 level-0 nodes -- whole trees,
+// tile / m of them -- one thread a level-1 parent.  The launch picks the
+// smallest tile that holds a tree and gives about one block an SM (its
+// trees' leaves over the card's SMs): a k = 128 grid's 512 trees go four a
+// block, one block an SM; a k = 64 grid's two a block; a row stack's one.
+// Two blocks sharing an SM were measured to run their one-warp last levels
+// one after the other; with one block an SM each level's warps spread over
+// the SM's four schedulers.  The nodes live in shared memory
+// as word planes, as K4's do: word q of the node in row x of a plane set is
+// set[q * plane + x], the big-endian bytes 4q .. 4q + 3 of its 90 (word
+// 22: bytes 88, 89 and two zero bytes).  Set A holds level 0, set B every
+// level above it, level j from row tile - (tile >> (j - 1)) on, so no level
+// overwrites another.  Node (w, i) of the block's tree w is row
+// w * (m >> j) + i of level j: the order of the packed output.  Level 0 is
+// staged as bytes where set B lies, and unpacked into set A before level 1
+// is written over the staged bytes.
+constexpr uint32_t kNmtLgTree = 9;      // the tallest tree: 512 leaves (an EDS axis has 256)
+constexpr uint32_t kNmtLgTileMin = 8;   // the tiles: 2^8 .. 2^10 level-0 nodes
+constexpr uint32_t kNmtLgTileMax = 10;
+constexpr uint32_t kNmtThreads = 1u << (kNmtLgTileMax - 1);  // the most threads a block
+constexpr uint32_t kNmtWords = 23;                           // plane words a node
+constexpr uint32_t kNmtPad = 4;  // plane = tile + 4 words: a plane 4 banks from the next
+constexpr uint32_t kNmtWarpNodes = 32;   // levels of at most this many parents: one warp
+constexpr uint32_t kNmtStageBatch = 12;  // 16-byte loads a thread has in flight while staging
+constexpr uint32_t kNmtStageSlack = 16;  // readable bytes after the staged runs
+// the largest tile's plane set, and its largest stage: at most 512 runs, each
+// staged from an aligned cover at most 30 bytes longer than the run
+constexpr uint32_t kNmtMaxSetBytes = kNmtWords * ((1u << kNmtLgTileMax) + kNmtPad) * 4;
+constexpr uint32_t kNmtMaxStage = (1u << kNmtLgTileMax) * kDigest + 512u * 30u + kNmtStageSlack;
+constexpr uint32_t kNmtMaxSmem = kNmtMaxSetBytes + kNmtMaxStage;  // 202,112
+
+// A tile's plane sets in shared memory.  The kernel builds it from its
+// template's tile, so every stride below is a constant there.
+struct NmtPlanes {
+  uint32_t* base;  // set A; set B follows it
+  uint32_t tile, plane;
+  CTT_HD uint32_t set_words() const { return kNmtWords * plane; }
+  // level j's first row: set A's row 0 for level 0, set B's rows above
+  CTT_HD uint32_t* level(uint32_t j) const {
+    return j ? base + set_words() + tile - (tile >> (j - 1)) : base;
+  }
+  // the staged level 0: set B's bytes
+  CTT_HD uint8_t* stage() const { return reinterpret_cast<uint8_t*>(base + set_words()); }
+};
+
+CTT_HD NmtPlanes nmt_planes(void* smem, uint32_t lg_tile) {
+  return NmtPlanes{static_cast<uint32_t*>(smem), 1u << lg_tile, (1u << lg_tile) + kNmtPad};
+}
 
 // One launch.  Trees come in groups of tpb whose inputs lie bs bytes
 // apart; tree u of a group has node i at u*ts + i*ns with (ts, ns) = set
@@ -106,20 +166,56 @@ struct NmtReduceArgs {
   uint32_t per_block;     // trees a block
   uint32_t blocks0;       // blocks of set 0 in a group
   uint32_t n_levels;      // levels written, 1 .. lg_m
+  uint32_t lg_tile;       // log2 of a block's level-0 nodes, 8 .. 10
+  uint32_t smem;          // dynamic shared memory bytes of a block
 };
 
-// Fill `a` for one launch; returns the blocks of a group (the grid's x;
-// the groups, ntrees / tpb, are its y), or 0 for what the kernel does not
-// take: m not a power of two in 2..512, n_levels outside 1..log2 m, groups
-// that do not divide the trees, odd addresses or strides (a node loads 2
-// bytes at a time at least), or several trees a block whose nodes
-// interleave neither by rows (ns = 90) nor by columns (ts = 90).
+// How a block's n trees of m leaves lie in the input, staged as `runs` runs
+// of `len` bytes, `stride` bytes apart, from src.  By rows (ns = 90) a
+// tree's nodes are one run (all the block's trees one run when they are
+// adjacent); by columns (ts = 90) leaf i of the block's trees is run i, n
+// adjacent columns of a grid row.  Each run is staged from the 16-byte
+// word that holds its first byte, rs bytes after the run before it.
+struct NmtTile {
+  const uint8_t* src;
+  uint64_t stride;
+  uint64_t t0;  // the block's first tree, counted over the launch
+  uint32_t runs, len, n, rs;
+  bool cols;
+};
+
+CTT_HD void nmt_shape(NmtTile* t, uint32_t m, uint32_t n, uint64_t ts, uint64_t ns) {
+  t->n = n;
+  t->cols = ns != kDigest;
+  if (t->cols) {
+    t->runs = m;
+    t->len = n * kDigest;
+    t->stride = ns;
+  } else if (n == 1 || ts == uint64_t(m) * kDigest) {
+    t->runs = 1;
+    t->len = n * m * kDigest;
+    t->stride = 0;
+  } else {
+    t->runs = n;
+    t->len = m * kDigest;
+    t->stride = ts;
+  }
+  t->rs = (t->len + 14u + 15u) / 16u * 16u;  // the widest cover: the run 14 bytes into a word
+}
+
+// Fill `a` for one launch on a card of `sms` SMs; returns the blocks of a
+// group (the grid's x; the groups, ntrees / tpb, are its y), or 0 for what
+// the kernel does not take: m not a power of two in 2..512, n_levels
+// outside 1..log2 m, groups that do not divide the trees, odd addresses or
+// strides (nodes are staged from 2-byte boundaries), or trees of fewer than
+// 512 leaves whose nodes interleave neither by rows (ns = 90) nor by
+// columns (ts = 90) -- several such trees cannot share a block.
 CTT_HD uint32_t nmt_reduce_setup(NmtReduceArgs* a, const uint8_t* in, uint8_t* out,
                                  uint64_t ntrees, uint32_t m, uint32_t n_levels, uint64_t split,
                                  uint64_t ts0, uint64_t ns0, uint64_t ts1, uint64_t ns1,
-                                 uint64_t tpb, uint64_t bs) {
+                                 uint64_t tpb, uint64_t bs, uint32_t sms) {
   const uint32_t lg_m = log2_exact(m);
-  if (lg_m == 0 || lg_m > kNmtLgTile || tpb == 0 || ntrees == 0 || ntrees % tpb ||
+  if (lg_m == 0 || lg_m > kNmtLgTree || tpb == 0 || ntrees == 0 || ntrees % tpb ||
       split > tpb || tpb > 0xFFFFFFFFull)
     return 0;
   if (n_levels < 1 || n_levels > lg_m) return 0;
@@ -137,103 +233,144 @@ CTT_HD uint32_t nmt_reduce_setup(NmtReduceArgs* a, const uint8_t* in, uint8_t* o
   a->lg_m = lg_m;
   a->split = static_cast<uint32_t>(split);
   a->tpb = static_cast<uint32_t>(tpb);
-  a->per_block = kNmtTileLeaves >> lg_m;
   a->n_levels = n_levels;
-  uint64_t blocks[2];
+  // the tile: one tree at least, the launch's leaves over the SMs at most
+  // (up to 1,024); one tree a block where a set's trees interleave neither way
+  const uint64_t per_sm = (ntrees * m + (sms ? sms : 1u) - 1u) / (sms ? sms : 1u);
+  a->lg_tile = lg_m > kNmtLgTileMin ? lg_m : kNmtLgTileMin;
+  while (a->lg_tile < kNmtLgTileMax && (uint64_t(1) << a->lg_tile) < per_sm) ++a->lg_tile;
   for (uint32_t set = 0; set < 2; ++set) {
     const uint64_t trees = set ? tpb - split : split;
     const uint64_t ts = set ? ts1 : ts0, ns = set ? ns1 : ns0;
-    if (trees && a->per_block > 1 && ns != kDigest && ts != kDigest) return 0;
+    if (trees && ns != kDigest && ts != kDigest) {
+      if (lg_m < kNmtLgTree) return 0;
+      a->lg_tile = lg_m;
+    }
+  }
+  a->per_block = 1u << (a->lg_tile - lg_m);
+  uint64_t blocks[2];
+  uint32_t stage = 0;
+  for (uint32_t set = 0; set < 2; ++set) {
+    const uint64_t trees = set ? tpb - split : split;
+    const uint64_t ts = set ? ts1 : ts0, ns = set ? ns1 : ns0;
     blocks[set] = (trees + a->per_block - 1) / a->per_block;
+    if (trees == 0) continue;
+    NmtTile t;
+    nmt_shape(&t, m, static_cast<uint32_t>(trees < a->per_block ? trees : a->per_block), ts, ns);
+    stage = t.runs * t.rs > stage ? t.runs * t.rs : stage;
   }
   if (blocks[0] + blocks[1] > 0x7FFFFFFFull) return 0;
   a->blocks0 = static_cast<uint32_t>(blocks[0]);
+  stage += kNmtStageSlack;
+  const uint32_t set = kNmtWords * ((1u << a->lg_tile) + kNmtPad) * 4;
+  a->smem = set + (stage > set ? stage : set);
   return static_cast<uint32_t>(blocks[0] + blocks[1]);
 }
 
-// What block (bx, group g) reduces: n trees from t0 on (t0 counted over
-// the launch), staged as `runs` runs of `len` bytes, `stride` bytes apart,
-// from src.  By rows (ns = 90) a tree's nodes are one run (all the block's
-// trees one run when they are adjacent) and node (w, i) of the block's
-// tree w lands at (w*m + i)*90; by columns (ts = 90) leaf i of the block's
-// trees is one run -- n adjacent columns of a grid row -- and node (w, i)
-// lands at (i*n + w)*90.
-struct NmtTile {
-  const uint8_t* src;
-  uint64_t stride;
-  uint64_t t0;
-  uint32_t runs, len, n;
-  bool cols;
-};
-
+// What block (bx, group g) reduces.
 CTT_HD NmtTile nmt_tile(const NmtReduceArgs& a, uint32_t bx, uint32_t g) {
   const uint32_t set = bx >= a.blocks0 ? 1u : 0u;
   const uint64_t u = uint64_t(set ? bx - a.blocks0 : bx) * a.per_block;
   const uint64_t left = (set ? a.tpb - a.split : a.split) - u;
-  const uint32_t m = 1u << a.lg_m;
   const uint64_t ts = set ? a.ts1 : a.ts0, ns = set ? a.ns1 : a.ns0;
   NmtTile t;
-  t.n = static_cast<uint32_t>(left < a.per_block ? left : a.per_block);
+  nmt_shape(&t, 1u << a.lg_m, static_cast<uint32_t>(left < a.per_block ? left : a.per_block), ts,
+            ns);
   t.src = a.in + g * a.bs + u * ts;
   t.t0 = uint64_t(g) * a.tpb + (set ? a.split : 0u) + u;
-  t.cols = ns != kDigest;
-  if (t.cols) {
-    t.runs = m;
-    t.len = t.n * kDigest;
-    t.stride = ns;
-  } else if (t.n == 1 || ts == uint64_t(m) * kDigest) {
-    t.runs = 1;
-    t.len = t.n * m * kDigest;
-    t.stride = 0;
-  } else {
-    t.runs = t.n;
-    t.len = m * kDigest;
-    t.stride = ts;
-  }
   return t;
 }
 
-// Stage the tile's level 0 into `a_buf` (16-byte aligned): one run by all
-// threads, several runs a warp each, in the widest unit their addresses,
-// stride and length allow (16 bytes for the grid rows at k >= 4 and for 8
-// adjacent columns or more; 8 bytes for 4 columns at k = 64, 4 bytes for
-// 2 columns at k = 128).
-CTT_HD void nmt_stage(const NmtTile& t, uint8_t* a_buf, uint32_t tid, uint32_t nthreads) {
-  if (t.runs == 1) {
-    copy_bytes(a_buf, t.src, t.len, copy_unit(reinterpret_cast<uintptr_t>(t.src) | t.len), tid,
-               nthreads);
-    return;
-  }
-  const uint32_t unit = copy_unit(reinterpret_cast<uintptr_t>(t.src) | t.stride | t.len);
-  for (uint32_t r = tid / 32u; r < t.runs; r += nthreads / 32u)
-    copy_bytes(a_buf + r * t.len, t.src + r * t.stride, t.len, unit, tid % 32u, 32u);
+// Bytes from run r's first byte back to the 16-byte boundary below it.
+CTT_HD uint32_t nmt_skew(const NmtTile& t, uint32_t r) {
+  return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(t.src + r * t.stride) & 15u);
 }
 
-// Big-endian words of a 2-byte-aligned node's bytes from `first` on: word
-// i is bytes first + 4i .. first + 4i + 3, one PRMT of two aligned 4-byte
-// loads at a fixed base (neighbouring words share a load).  Word i reads up
-// to 8 bytes from the base, which lies at most 3 bytes before the node's
-// byte `first`.
-struct NodeWords {
-  const uint8_t* base;
-  uint32_t sel;
-  CTT_HD NodeWords(const uint8_t* node, uint32_t first) {
-    const uint32_t o = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(node + first) & 3u);
-    base = node + first - o;
-    sel = (o << 12) | ((o + 1u) << 8) | ((o + 2u) << 4) | (o + 3u);
+// Thread tid of nthreads stages level 0: the 16-byte words of each run's
+// aligned cover, word c of run r to stage + r*rs + 16c (the run's byte b at
+// stage + r*rs + skew + b), kNmtStageBatch loads in flight before their
+// stores; neighbouring threads take neighbouring words, so a warp reads 512
+// contiguous bytes of a run at a time.  The cover's bytes outside the run
+// lie in a 16-byte granule that holds a byte of the tensor (inside its
+// allocation) and are never read as node bytes; the host copies only the
+// run's own bytes.
+CTT_HD void nmt_stage(const NmtTile& t, uint8_t* stage, uint32_t tid, uint32_t nthreads) {
+  const uint32_t cpr = t.rs / 16u, total = t.runs * cpr;
+  for (uint32_t c0 = tid; c0 < total; c0 += kNmtStageBatch * nthreads) {
+    Word16 v[kNmtStageBatch];
+    uint32_t at[kNmtStageBatch];  // the word's place in the stage, or ~0u for none
+#pragma unroll
+    for (uint32_t b = 0; b < kNmtStageBatch; ++b) {
+      const uint32_t idx = c0 + b * nthreads;
+      const uint32_t r = t.runs == 1 ? 0u : idx / cpr, c = idx - r * cpr;
+      const uint32_t skew = nmt_skew(t, r);
+      at[b] = ~0u;
+      if (idx >= total || 16u * c >= skew + t.len) continue;
+      at[b] = r * t.rs + 16u * c;
+      const uint8_t* run = t.src + uint64_t(r) * t.stride;
+#ifdef __CUDA_ARCH__
+      v[b] = reinterpret_cast<const uint4*>(run - skew)[c];
+#else
+      uint8_t bytes[16] = {};
+      for (uint32_t p = 16u * c; p < 16u * c + 16u; ++p)
+        if (p >= skew && p < skew + t.len) bytes[p - 16u * c] = run[p - skew];
+      memcpy(&v[b], bytes, 16);
+#endif
+    }
+#pragma unroll
+    for (uint32_t b = 0; b < kNmtStageBatch; ++b)
+      if (at[b] != ~0u) *reinterpret_cast<Word16*>(stage + at[b]) = v[b];
   }
-  CTT_HD uint32_t operator()(uint32_t i) const {
-    return prmt(ld32(base + 4 * i), ld32(base + 4 * i + 4), sel);
-  }
-};
+}
 
-// The parent of children l and r (90 bytes each, 2-byte aligned, in shared
-// memory on the card, with at least 4 readable bytes after r) into o: the
-// message `0x01 || l || r` (181 bytes, three blocks) is read word by word
-// where it lies, the IgnoreMaxNamespace test is word compares on the
-// message words that hold r.min, and the node goes out in 2-byte stores.
-CTT_HD void nmt_node(const uint8_t* l, const uint8_t* r, uint8_t* o) {
-  const NodeWords lw(l, 3), rw(r, 1);  // message words 1.. (l[4q-1..]) and 23.. (r[4q-91..])
+// Thread tid of nthreads unpacks its level-0 nodes from the stage into set
+// A: node (w, i) -- by rows part of run w, or of run 0 from w*m*90 on; by
+// columns node w of run i -- to row w*m + i, its 23 words one PRMT of two
+// aligned stage words each.  Thread tid takes the words from word tid % 23
+// on, round: the staged column runs of a warp's nodes often lie a multiple
+// of 128 bytes apart, and a word read by all its lanes at once would fall
+// in one bank 32 times.
+CTT_HD void nmt_unpack(const NmtReduceArgs& a, const NmtTile& t, const NmtPlanes& p,
+                       uint32_t tid, uint32_t nthreads) {
+  const uint8_t* stage = p.stage();
+  const uint32_t lg_m = a.lg_m, nodes = t.n << lg_m;
+  for (uint32_t x = tid; x < nodes; x += nthreads) {
+    const uint32_t w = x >> lg_m, i = x & ((1u << lg_m) - 1u);
+    const uint32_t r = t.cols ? i : (t.runs == 1 ? 0u : w);
+    const uint32_t node = t.cols ? w : (t.runs == 1 ? x : i);
+    const NodeWords nw(stage + r * t.rs + nmt_skew(t, r), node * kDigest);
+    uint32_t q = tid % kNmtWords, lo = ld32(nw.base + 4u * q);
+    for (uint32_t k = 0; k < kNmtWords; ++k) {  // word q is stage words q and q + 1
+      const uint32_t hi = ld32(nw.base + 4u * q + 4u), v = prmt(lo, hi, nw.sel);
+      p.base[q * p.plane + x] = q == kNmtWords - 1 ? v & 0xFFFF0000u : v;
+      q = q == kNmtWords - 1 ? 0u : q + 1u;
+      lo = q ? hi : ld32(nw.base);
+    }
+  }
+}
+
+CTT_HD uint32_t nmt_parents(const NmtReduceArgs& a, const NmtTile& t, uint32_t j) {
+  return t.n << (a.lg_m - j);
+}
+
+// The first level warp 0 computes alone (at most kNmtWarpNodes parents),
+// or n_levels + 1 when every level has more.
+CTT_HD uint32_t nmt_tail(const NmtReduceArgs& a, const NmtTile& t) {
+  uint32_t j = 1;
+  while (j <= a.n_levels && nmt_parents(a, t, j) > kNmtWarpNodes) ++j;
+  return j;
+}
+
+// The parent of the nodes at `in` and in + 1 (two neighbouring rows of a
+// plane set) into row `out`.  Each plane's pair of children is one 8-byte
+// load, made just before the block that needs it; the message `0x01 || l
+// || r` (181 bytes, three blocks) is one PRMT of two neighbouring words a
+// message word (the 0x01 shifts l by a byte, l's 90 bytes shift r by 91),
+// the IgnoreMaxNamespace test is word compares on r.min's words, and the
+// parent's words are l.min's, the chosen max's (both reread after the
+// hash) and the hash shifted by two bytes.
+CTT_HD void nmt_node(const uint32_t* in, uint32_t* out, uint32_t plane) {
+  uint32_t L[kNmtWords], R[kNmtWords];
   uint32_t st[8];
   sha256_init(st);
   bool r_parity = false;
@@ -241,70 +378,131 @@ CTT_HD void nmt_node(const uint8_t* l, const uint8_t* r, uint8_t* o) {
   for (uint32_t blk = 0; blk < 3; ++blk) {
     uint32_t w[16];
     if (blk == 0) {  // message bytes 0..63: 0x01, l[0..63)
-      w[0] = 0x01000000u | prmt(ld16(l), ld16(l + 2), 0x7014u);
 #pragma unroll
-      for (uint32_t i = 1; i < 16; ++i) w[i] = lw(i - 1);
+      for (uint32_t q = 0; q < 16; ++q) {
+#ifdef __CUDA_ARCH__
+        const uint2 lr = *reinterpret_cast<const uint2*>(in + q * plane);
+        L[q] = lr.x;
+        R[q] = lr.y;
+#else
+        L[q] = in[q * plane];
+        R[q] = in[q * plane + 1];
+#endif
+      }
+      w[0] = prmt(L[0], 0x01u, 0x4321u);  // (prev << 24) | (cur >> 8)
+#pragma unroll
+      for (uint32_t q = 1; q < 16; ++q) w[q] = prmt(L[q], L[q - 1], 0x4321u);
+      // r.min = r[0..29): words 0..6 and the top byte of word 7
+      uint32_t all = R[7] | 0x00FFFFFFu;
+#pragma unroll
+      for (uint32_t q = 0; q < 7; ++q) all &= R[q];
+      r_parity = all == 0xFFFFFFFFu;
     } else if (blk == 1) {  // 64..127: l[63..90), r[0..37)
 #pragma unroll
-      for (uint32_t i = 0; i < 6; ++i) w[i] = lw(15 + i);
-      w[6] = (lw(21) & 0xFFFFFF00u) | r[0];
+      for (uint32_t q = 16; q < kNmtWords; ++q) {
+#ifdef __CUDA_ARCH__
+        const uint2 lr = *reinterpret_cast<const uint2*>(in + q * plane);
+        L[q] = lr.x;
+        R[q] = lr.y;
+#else
+        L[q] = in[q * plane];
+        R[q] = in[q * plane + 1];
+#endif
+      }
 #pragma unroll
-      for (uint32_t i = 7; i < 16; ++i) w[i] = rw(i - 7);
-      // r.min = r[0..29) = the low byte of word 22 and words 23..29
-      uint32_t all = w[6] | 0xFFFFFF00u;
+      for (uint32_t q = 16; q < 22; ++q) w[q - 16] = prmt(L[q], L[q - 1], 0x4321u);
+      w[6] = prmt(prmt(L[22], L[21], 0x4321u), R[0], 0x3217u);  // l[87..90), r[0]
 #pragma unroll
-      for (uint32_t i = 7; i < 14; ++i) all &= w[i];
-      r_parity = all == 0xFFFFFFFFu;
+      for (uint32_t s = 0; s < 9; ++s) w[7 + s] = prmt(R[s + 1], R[s], 0x6543u);  // (cur << 8) | (next >> 24)
     } else {  // 128..191: r[37..90), 0x80, zeros, the bit length 1448
 #pragma unroll
-      for (uint32_t i = 0; i < 13; ++i) w[i] = rw(9 + i);
-      w[13] = (uint32_t(r[89]) << 24) | 0x00800000u;
+      for (uint32_t s = 9; s < 22; ++s) w[s - 9] = prmt(R[s + 1], R[s], 0x6543u);
+      w[13] = prmt(R[22], 0x00800000u, 0x2644u);  // r[89], 0x80, 0, 0
       w[14] = 0u;
       w[15] = (1u + 2u * kDigest) * 8u;
     }
     sha256_compress(st, w);
   }
-  const uint8_t* mx = r_parity ? l : r;
+  const uint32_t* mx = in + (r_parity ? 0u : 1u);
 #pragma unroll
-  for (uint32_t q = 0; q < 14; ++q) st16(o + 2 * q, ld16(l + 2 * q));
-  st16(o + 28, prmt(ld16(l + 28), ld16(mx + 28), 0x0050u));  // l.min[28], max[0]
+  for (uint32_t q = 0; q < 7; ++q) out[q * plane] = in[q * plane];
+  out[7 * plane] = prmt(mx[7 * plane], in[7 * plane], 0x7210u);  // l.min[28], max[0..3)
 #pragma unroll
-  for (uint32_t q = 15; q < 29; ++q) st16(o + 2 * q, ld16(mx + 2 * q));
+  for (uint32_t q = 8; q < 14; ++q) out[q * plane] = mx[q * plane];
+  out[14 * plane] = prmt(st[0], mx[14 * plane], 0x7632u);  // max[27..29), hash[0..2)
 #pragma unroll
-  for (uint32_t i = 0; i < 8; ++i) {  // the hash, big-endian words
-    st16(o + 2 * kNs + 4 * i, prmt(st[i], 0u, 0x0023u));
-    st16(o + 2 * kNs + 4 * i + 2, prmt(st[i], 0u, 0x0001u));
-  }
+  for (uint32_t q = 15; q < 22; ++q) out[q * plane] = prmt(st[q - 14], st[q - 15], 0x5432u);
+  out[22 * plane] = st[7] << 16;
 }
 
-// Thread p's parent at level j >= 1 of the tile's trees, read from level
-// j - 1 in `in` and written to level j in `out` (node (w, i) at
-// (w*(m >> j) + i)*90, the order of the packed output).
-CTT_HD void nmt_level_step(const NmtReduceArgs& a, const NmtTile& t, uint32_t j,
-                           const uint8_t* in, uint8_t* out, uint32_t p) {
-  const uint32_t lg_mo = a.lg_m - j;
-  if (p >= (t.n << lg_mo)) return;
-  const uint8_t* l;
-  const uint8_t* r;
-  if (j == 1 && t.cols) {
-    const uint32_t w = p >> lg_mo, i = p & ((1u << lg_mo) - 1u);
-    l = in + (2u * i * t.n + w) * kDigest;
-    r = l + t.n * kDigest;
-  } else {
-    l = in + 2u * p * kDigest;
-    r = l + kDigest;
-  }
-  nmt_node(l, r, out + p * kDigest);
+// Little-endian 4 bytes of a level's packed bytes, from its plane rows `lv`:
+// node x's bytes q .. q + 3 (q even), or at q = 88 its last two and the
+// next node's first two -- one PRMT of two words.
+CTT_HD uint32_t nmt_out_word(const uint32_t* lv, uint32_t x, uint32_t q, uint32_t plane) {
+  const uint32_t* word = lv + (q >> 2) * plane + x;
+  // selects, not branches: a warp's lanes take every case at once
+  const uint32_t* next = (q & 2u) ? word + plane : (q == 88u ? lv + x + 1u : word);
+  return prmt(word[0], *next, (q & 2u) ? 0x6701u : (q == 88u ? 0x6723u : 0x0123u));
 }
 
-// Thread tid's share of writing level j (now in `buf`) to its place in the
-// packed output: the tile's trees are adjacent there, so one run.
-CTT_HD void nmt_store_level(const NmtReduceArgs& a, const NmtTile& t, uint32_t j,
-                            const uint8_t* buf, uint32_t tid, uint32_t nthreads) {
+// Little-endian 2 bytes from byte o (even) of a level's packed bytes.
+CTT_HD uint32_t nmt_out_half(const uint32_t* lv, uint32_t o, uint32_t plane) {
+  const uint32_t x = o / kDigest, q = o - x * kDigest;
+  return prmt(lv[(q >> 2) * plane + x], 0u, (q & 2u) ? 0x0001u : 0x0023u);
+}
+
+// Thread i0 of `step`'s share of writing level j of the tile (its rows of
+// set B) to its place in the packed output, where the tile's trees are one
+// run of n bytes: the 16-byte words of the run's aligned cover,
+// neighbouring threads on neighbouring words, each word's 4 lanes from the
+// plane words of at most two nodes; the cover's first and last words,
+// which other tiles' bytes may share, as 2-byte stores of the run's own
+// bytes.
+CTT_HD void nmt_store_level(const NmtReduceArgs& a, const NmtTile& t, const NmtPlanes& p,
+                            uint32_t j, uint32_t i0, uint32_t step) {
   const uint32_t m = 1u << a.lg_m, mo = m >> j;
-  uint8_t* dst = a.out + (a.ntrees * (m - (m >> (j - 1))) + t.t0 * mo) * kDigest;
+  uint8_t* const dst = a.out + (a.ntrees * (m - (m >> (j - 1))) + t.t0 * mo) * kDigest;
   const uint32_t n = t.n * mo * kDigest;
-  copy_bytes(dst, buf, n, copy_unit(reinterpret_cast<uintptr_t>(dst) | n), tid, nthreads);
+  const uint32_t skew = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(dst) & 15u);
+  const uint32_t words = (skew + n + 15u) / 16u;
+  const uint32_t* lv = p.level(j);
+  for (uint32_t c = i0; c < words; c += step) {
+    const uint32_t c0 = 16u * c;  // the word's first byte, counted from the cover's
+    if (c0 >= skew && c0 + 16u <= skew + n) {
+      const uint32_t o = c0 - skew;
+      uint32_t v[4], x = o / kDigest, q = o - x * kDigest;
+#pragma unroll
+      for (uint32_t e = 0; e < 4; ++e) {
+        v[e] = nmt_out_word(lv, x, q, p.plane);
+        q += 4u;
+        if (q >= kDigest) {
+          q -= kDigest;
+          ++x;
+        }
+      }
+#ifdef __CUDA_ARCH__
+      *reinterpret_cast<uint4*>(dst + o) = make_uint4(v[0], v[1], v[2], v[3]);
+#else
+      for (uint32_t e = 0; e < 4; ++e) st32(dst + o + 4u * e, v[e]);
+#endif
+      continue;
+    }
+    for (uint32_t b = c0; b < c0 + 16u; b += 2u)
+      if (b >= skew && b < skew + n) st16(dst + (b - skew), nmt_out_half(lv, b - skew, p.plane));
+  }
+}
+
+// Thread tid of nthreads at level j: below the level's parents, its parent
+// from level j - 1; the others, when `store` is set, write level j - 1 out
+// (level 0 is the input and is never written).
+CTT_HD void nmt_level_step(const NmtReduceArgs& a, const NmtTile& t, const NmtPlanes& p,
+                           uint32_t j, uint32_t tid, uint32_t nthreads, bool store) {
+  const uint32_t parents = nmt_parents(a, t, j);
+  if (tid < parents) {
+    nmt_node(p.level(j - 1) + 2u * tid, p.level(j) + tid, p.plane);
+  } else if (store && j > 1) {
+    nmt_store_level(a, t, p, j - 1, tid - parents, nthreads - parents);
+  }
 }
 
 // --- K2: leaf digests ------------------------------------------------------

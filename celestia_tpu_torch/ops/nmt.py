@@ -111,7 +111,7 @@ def combine_level_plain(nodes: torch.Tensor) -> torch.Tensor:
 
 
 # one K3 block holds a whole tree in shared memory (csrc/nmt.cuh
-# kNmtTileLeaves); an EDS axis has at most 256 leaves
+# kNmtLgTree); an EDS axis has at most 256 leaves
 NMT_MAX_LEAVES = 512
 
 

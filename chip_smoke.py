@@ -39,7 +39,13 @@ default runs every phase and every check:
    alone: half of it is one compression's latency in the kernel), and K3's
    and K4's dependency floor (their levels' chain of compressions at that
    latency), beside the same chain at K1's time per block on one long
-   message (a compression fed from L2); the SASS opcode mix of K4; K7b's
+   message (a compression fed from L2); the SASS opcode mix of K4; K3's
+   level floor (each level the longer of its compressions at the int32
+   rate and three at that latency) beside its GPU time at k = 64 and 128,
+   on the catch-up batch and on the row stacks' levels, and its registers,
+   spills and SASS opcode mix, one instance a tile size (more than 128
+   registers or a spill fails the phase: 512 threads fill an SM's
+   registers); K7b's
    table mode beside its cell mode, and its latency floor (the GPU time of
    a launch with one load its store waits on, and of an empty launch);
 3. the Go-pinned DAH hashes (``da/golden.py``) through the port's entry
@@ -2240,6 +2246,20 @@ def host_phase(dev, sizes, memo_k: int, seed: int, *, counted: bool) -> dict:
     return out
 
 
+def tree_parents(trees: int, m: int) -> list:
+    """Parents of each level 1 .. log2 m of ``trees`` trees of ``m`` leaves."""
+    return [trees * (m >> j) for j in range(1, m.bit_length())]
+
+
+def level_floor_ms(parents: list, compression_ms: float) -> float:
+    """K3's level floor: over its levels, the longer of the level's
+    compressions (3 a 181-byte node) at the int32 issue rate and three
+    compressions one after another at the in-kernel latency."""
+    per = compressions(181)
+    return sum(max(n * per * SHA_OPS_PER_COMPRESSION / INT32_OPS_PER_S * 1e3, per * compression_ms)
+               for n in parents)
+
+
 def kernel_sass_mix(kernel: str) -> dict:
     """Opcode counts of the built library's SASS for the kernel whose mangled
     name holds ``kernel`` (``cuobjdump -sass``, beside nvcc): how its rounds
@@ -2420,6 +2440,8 @@ def main() -> int:
             compare("nmt_leaf_digests", grid, nmt.eds_leaf_digests_plain(eds), f"k={kk} EDS")
             levels = nmt.grid_levels(grid)
             check(len(levels) == (2 * kk).bit_length() - 1, f"K3 gave {len(levels)} levels at k={kk}")
+            if kk == 64:
+                grid64 = grid  # K3's time at k = 64 below
             for j, (got, want) in enumerate(zip(levels, nmt.grid_levels_plain(grid)), 1):
                 compare("nmt_combine_level", got, want, f"k={kk} level {j} of the 4k trees")
             compare("nmt_combine_level", levels[-1][:, 0].reshape(2, 2 * kk, 90),
@@ -3034,6 +3056,40 @@ def main() -> int:
         sass = kernel_sass_mix("rfc6962_tree_kernel")
         results["rfc6962_root_sass"] = sass
         print(f"rfc6962_root SASS (cuobjdump -sass of the built library): {sass}")
+        # K3's level floor (level_floor_ms) beside its GPU time: one grid's 4k
+        # trees at k = 64 and 128 here, the catch-up batch and the row stacks'
+        # levels below
+        k3_floor = results["k3_level_floor"] = {}
+
+        def k3_against_floor(case: str, gpu_ms: float, parents: list) -> None:
+            floor_ms = level_floor_ms(parents, compression_ms)
+            k3_floor[case] = {"gpu_ms": gpu_ms, "level_floor_ms": floor_ms,
+                              "share": floor_ms / gpu_ms}
+            print(f"nmt_combine_level {case}: GPU time {gpu_ms:.4f} ms, level floor "
+                  f"{floor_ms:.4f} ms ({len(parents)} levels, each the longer of its "
+                  f"compressions at the int32 rate and 3 at {compression_ms * 1e3:.4f} us), "
+                  f"{100 * floor_ms / gpu_ms:.1f} % of it | {smi}")
+
+        k3_against_floor("grid k=64", time_ms(lambda: nmt.grid_levels(grid64), queued=True),
+                         tree_parents(4 * 64, 128))
+        k3_against_floor("grid k=128", perf["nmt_combine_level"]["gpu_ms"],
+                         tree_parents(4 * k, n2))
+        del grid64
+        # K3's instances, one a tile of 2^8, 2^9, 2^10 level-0 nodes: registers and
+        # spills (STACK, LOCAL) and their SASS
+        results["nmt_combine_level_kernel"] = {}
+        for lg_tile in (8, 9, 10):
+            name = f"nmt_reduce_kernelILj{lg_tile}E"
+            k3_res, k3_sass = kernel_resources(name), kernel_sass_mix(name)
+            results["nmt_combine_level_kernel"][lg_tile] = {"resources": k3_res, "sass": k3_sass}
+            print(f"nmt_combine_level kernel, tile of {1 << lg_tile} (cuobjdump): resources "
+                  f"{k3_res}; SASS {k3_sass['instructions']} instructions; opcodes "
+                  f"{k3_sass['most_common']}; LDS {k3_sass['LDS']} STS {k3_sass['STS']} LDG "
+                  f"{k3_sass['LDG']} STG {k3_sass['STG']} BAR {k3_sass['BAR']} LDL {k3_sass['LDL']} "
+                  f"STL {k3_sass['STL']}; longest load-free runs {k3_sass['longest_load_free_runs']}")
+            check(k3_res.get("REG", 256) <= 128 and not k3_res.get("STACK")
+                  and not k3_res.get("LOCAL") and not k3_sass["LDL"] and not k3_sass["STL"],
+                  f"K3's tile of {1 << lg_tile} needs at most 128 registers and no spill: {k3_res}")
         # the bit-GEMM kernels against the tensor-core floor of their form (K5
         # and K5b by their bit-GEMM kernel, which lagrange-gf256 runs): K5 the
         # three quadrants' 8k x 8k GEMMs over k axes of 512 bytes, K5b 8 squares of
@@ -3104,6 +3160,7 @@ def main() -> int:
             ab = {name: {"ms": time_ms(fn), "gpu_ms": time_ms(fn, queued=True)}
                   for name, fn in steps.items()}
             results["row_stacks"][R] = ab
+            k3_against_floor(f"row stack R={R}", ab["k3"]["gpu_ms"], tree_parents(R, n2))
             print(f"row level stack, {R} rows at k=128 (floor {row_floor_ms:.4f} ms), ms as issued "
                   "[GPU]: " + ", ".join(f"{n} {v['ms']:.4f} [{v['gpu_ms']:.4f}]" for n, v in ab.items())
                   + f" | {smi}")
@@ -3147,6 +3204,8 @@ def main() -> int:
             compare("nmt_combine_level", got, want, f"batch of 8 EDSs at k=128, level {j}")
         compare("nmt_combine_level", nmt.eds_nmt_roots(e8), nmt.eds_nmt_roots_plain(e8),
                 "batched roots of 8 EDSs at k=128")
+        k3_against_floor("catch-up batch of 8 grids k=128",
+                         time_ms(lambda: nmt.grid_levels(g8), queued=True), tree_parents(8 * 4 * k, n2))
         del g8
         print("kernels at the main path's k=128 shapes: K8a (25 % mask's schedule), K8b (its rows, "
               "unknown cells garbage), K8c (flipped cells), K5b and batched K2/K3 (n=8) byte-equal "
