@@ -1,6 +1,6 @@
 // CPU twin of the CUDA kernels: the same per-thread bodies (sha256.cuh,
-// nmt.cuh, rs_extend.cuh, rs_leopard.cuh, rs_decode.cuh, rs_sharded.cuh,
-// das_gather.cuh),
+// nmt.cuh, rs_extend.cuh, rs_leopard.cuh, rs_leopard_decode.cuh,
+// rs_decode.cuh, rs_sharded.cuh, das_gather.cuh),
 // compiled by g++ and looped over the thread indices on the host; for the
 // block-cooperative NMT kernels (nmt.cuh) block by block, each step over
 // every thread between the barriers; for the tensor-core bit-GEMM
@@ -18,6 +18,7 @@
 #include "rs_decode.cuh"
 #include "rs_extend.cuh"
 #include "rs_leopard.cuh"
+#include "rs_leopard_decode.cuh"
 #include "rs_sharded.cuh"
 
 namespace {
@@ -177,6 +178,106 @@ void twin_leo_encode(const ctt::LeoAxisSet* s, const uint32_t* tab, int k, uint3
     case 7: return twin_leo_axes<7>(s, tab, n_axes, nsets, nz, ibs, obs);
     default: return;
   }
+}
+
+// The derivative of rs_leopard_decode_kernel over a column's 2^C threads
+// in lockstep: at each word M every thread's partners' word M is taken
+// before any thread overwrites its own (the kernel's shuffles).
+template <uint32_t LOG_N, uint32_t C, uint32_t M = 0>
+void twin_leo_dec_deriv(uint32_t (&x)[1u << C][ctt::LeoDec<LOG_N, C>::W], const uint32_t* tab) {
+  if constexpr (M < ctt::LeoDec<LOG_N, C>::W) {
+    constexpr uint32_t T = 1u << C;
+    uint32_t v[T];
+    for (uint32_t t = 0; t < T; ++t) v[t] = x[t][M];
+    for (uint32_t t = 0; t < T; ++t) {
+      uint32_t peer[C];
+      for (uint32_t b = 0; b < C; ++b) peer[b] = v[t ^ (1u << b)];
+      x[t][M] = ctt::leo_dec_deriv_word<LOG_N, C, M>(x[t], tab, peer, t);
+    }
+    twin_leo_dec_deriv<LOG_N, C, M + 1>(x, tab);
+  }
+}
+
+// One word column of rs_leopard_decode_kernel: its 2^C threads step by
+// step, each exchange (a shuffle in the kernel) reading the partners'
+// words from before the step.
+template <uint32_t LOG_N, uint32_t C>
+void twin_leo_dec_column(uint8_t* col, uint64_t ps, const ctt::LeoDecSmem& sh) {
+  using D = ctt::LeoDec<LOG_N, C>;
+  uint32_t x[D::T][D::W];
+  // layer log2 W + b of the IFFT (fft false) or the FFT over all threads
+  auto cross = [&](uint32_t b, bool fft) {
+    uint32_t y[D::T][D::W];
+    memcpy(y, x, sizeof y);
+    for (uint32_t t = 0; t < D::T; ++t) {
+      const bool b_side = (t >> b) & 1u;
+      uint32_t tt[5];
+      if (b + 1 < C) ctt::leo_load_group_fresh(ctt::leo_dec_cross_group<LOG_N, C>(sh.tab, b, t), tt);
+      for (uint32_t i = 0; i < D::W; ++i) {
+        const uint32_t peer = y[t ^ (1u << b)][i];
+        x[t][i] = b + 1 == C ? ctt::leo_dec_top(y[t][i], peer, b_side)
+                  : fft      ? ctt::leo_dec_fft_cross(y[t][i], peer, tt, b_side)
+                             : ctt::leo_dec_ifft_cross(y[t][i], peer, tt, b_side);
+      }
+    }
+  };
+  for (uint32_t t = 0; t < D::T; ++t) {
+    ctt::leo_dec_load<LOG_N, C>(col, ps, sh.pos, t, x[t]);
+    ctt::leo_dec_ifft_local<LOG_N, C>(x[t], sh.tab, t);
+  }
+  for (uint32_t b = 0; b < C; ++b) cross(b, false);
+  twin_leo_dec_deriv<LOG_N, C>(x, sh.tab);
+  for (uint32_t b = C; b-- > 0;) cross(b, true);
+  for (uint32_t t = 0; t < D::T; ++t) {
+    ctt::leo_dec_fft_local<LOG_N, C>(x[t], sh.tab, t);
+    ctt::leo_dec_store<LOG_N, C>(col, ps, sh.pos, t, x[t]);
+  }
+}
+
+// The blocks of one rs_leopard_decode_kernel launch one after another:
+// each block's prologue step by step over its threads, then its columns.
+template <uint32_t LOG_N, uint32_t C>
+void twin_leo_decode_n(uint8_t* eds, const uint8_t* known, const int32_t* axes,
+                       const uint32_t* tab, const uint8_t* gexp, const uint8_t* glog, uint32_t n,
+                       uint64_t as, uint64_t ps) {
+  constexpr uint32_t K = (1u << LOG_N) / 2;
+  const uint32_t nt = ctt::leo_dec_warps(n) * 32, columns = nt >> C;
+  std::vector<ctt::LeoDecSmem> smem(1);
+  ctt::LeoDecSmem& sh = smem[0];
+  for (uint32_t a = 0; a < n; ++a)
+    for (uint32_t bx = 0; bx < ctt::kLeoWords / columns; ++bx) {
+      for (uint32_t tid = 0; tid < nt; ++tid)
+        ctt::leo_dec_stage(sh, tab, gexp, glog, K, C, axes[a], tid, nt);
+      for (uint32_t tid = 0; tid < nt; ++tid)
+        ctt::leo_dec_mark(sh, known + size_t(a) * K, K, tid, nt);
+      for (uint32_t tid = 0; tid < nt; ++tid) ctt::leo_dec_list(sh, K, tid, nt);
+      if (ctt::leo_dec_skip(sh, K)) continue;
+      for (uint32_t tid = 0; tid < nt; ++tid) ctt::leo_dec_scales(sh, K, C, tid, nt);
+      for (uint32_t c = 0; c < columns; ++c) {
+        uint8_t* col = eds + uint32_t(axes[a]) * as + 4ull * (bx * columns + c);
+        if constexpr (LOG_N == 1)
+          ctt::leo_dec_one(col, ps, sh);
+        else
+          twin_leo_dec_column<LOG_N, C>(col, ps, sh);
+      }
+    }
+}
+
+// 2^C threads a column as the kernel's launch picks them.
+template <uint32_t LOG_N>
+void twin_leo_decode_k(uint8_t* eds, const uint8_t* known, const int32_t* axes,
+                       const uint32_t* tab, const uint8_t* gexp, const uint8_t* glog, uint32_t n,
+                       uint64_t as, uint64_t ps) {
+  constexpr uint32_t many = ctt::leo_dec_log_threads(ctt::kLeoDecManyAxes, LOG_N);
+  constexpr uint32_t some = ctt::leo_dec_log_threads(ctt::kLeoDecFewAxes + 1, LOG_N);
+  constexpr uint32_t few = ctt::leo_dec_log_threads(1, LOG_N);
+  const uint32_t c = ctt::leo_dec_log_threads(n, LOG_N);
+  if (c == many)
+    twin_leo_decode_n<LOG_N, many>(eds, known, axes, tab, gexp, glog, n, as, ps);
+  else if (c == some)
+    twin_leo_decode_n<LOG_N, some>(eds, known, axes, tab, gexp, glog, n, as, ps);
+  else
+    twin_leo_decode_n<LOG_N, few>(eds, known, axes, tab, gexp, glog, n, as, ps);
 }
 
 }  // namespace
@@ -638,6 +739,40 @@ void twin_rs_leopard_extend_rows(const uint8_t* rows, uint8_t* out, const uint32
   for (int r = 0; r < n; ++r) memcpy(out + r * 2 * K * S, rows + r * K * S, K * S);
   const ctt::LeoAxisSet set{rows, out + K * S, K * S, S, 2 * K * S, S};
   twin_leo_encode(&set, tab, k, uint32_t(n), 1, 1, 0, 0);
+}
+
+// K8b under leopard-ff8 (rs_leopard_decode.cu).  The tables, as
+// ctt_rs_leopard_decode_tables: 0, or 1 where the C entry refuses.
+int twin_rs_leopard_decode_tables(const uint8_t* gexp, const uint8_t* glog, int k, uint32_t* out,
+                                  long long out_bytes) {
+  if (k < 1 || ctt::log2_exact(uint64_t(k)) > ctt::kLeoMaxLogK ||
+      out_bytes < static_cast<long long>(ctt::leo_dec_table_bytes(uint32_t(k))))
+    return 1;
+  ctt::leo_decode_tables(gexp, glog, uint32_t(k), out);
+  return 0;
+}
+
+// As ctt_rs_leopard_decode_axes launches it: 0, or 1 where it refuses.
+int twin_rs_leopard_decode_axes(uint8_t* eds, const uint8_t* known, const int32_t* axes,
+                                const uint32_t* tab, const uint8_t* gexp, const uint8_t* glog,
+                                int n, int k, int cols) {
+  if (k < 1 || ctt::log2_exact(uint64_t(k)) > ctt::kLeoMaxLogK || n > 65535) return 1;
+  if (n <= 0) return 0;
+  const uint64_t S = 512, n2 = 2 * uint64_t(k);
+  const uint64_t as = cols ? S : n2 * S, ps = cols ? n2 * S : S;
+  const uint32_t na = uint32_t(n);
+  switch (ctt::log2_exact(n2)) {
+    case 1: twin_leo_decode_k<1>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 2: twin_leo_decode_k<2>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 3: twin_leo_decode_k<3>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 4: twin_leo_decode_k<4>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 5: twin_leo_decode_k<5>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 6: twin_leo_decode_k<6>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 7: twin_leo_decode_k<7>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    case 8: twin_leo_decode_k<8>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    default: return 1;
+  }
+  return 0;
 }
 
 }  // extern "C"

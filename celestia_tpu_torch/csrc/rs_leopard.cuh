@@ -76,25 +76,39 @@ CTT_HD void leo_skews(const uint8_t* gexp, const uint8_t* glog, uint8_t skew[8][
   }
 }
 
+// The 6 words of the multiply by s = gexp[e] (s != 0, e < 256): the bytes
+// Ta[0..7] = s*v, Tb[0..7] = s*(v << 3), Tc[0..3] = s*(v << 6), then a
+// zero word (glog[0] is never read: its entry differs between tables).
+CTT_HD void leo_mul_tables_log(uint32_t e, const uint8_t* gexp, const uint8_t* glog,
+                               uint32_t* out) {
+  uint32_t w[kLeoGroupWords] = {};
+  for (uint32_t i = 0; i < 20; ++i) {
+    const uint32_t v = i < 8 ? i : (i < 16 ? (i - 8) << 3 : (i - 16) << 6);
+    if (v) w[i / 4] |= static_cast<uint32_t>(gexp[e + glog[v]]) << (8 * (i % 4));
+  }
+  for (uint32_t i = 0; i < kLeoGroupWords; ++i) out[i] = w[i];
+}
+
+// The same for any s, zero included (all six words zero).
+CTT_HD void leo_mul_tables(uint32_t s, const uint8_t* gexp, const uint8_t* glog, uint32_t* out) {
+  if (s) {
+    leo_mul_tables_log(glog[s], gexp, glog, out);
+  } else {
+    for (uint32_t i = 0; i < kLeoGroupWords; ++i) out[i] = 0;
+  }
+}
+
 // The 6 words of each group of a k-share encode (leo_group order): the
-// bytes Ta[0..7], Tb[0..7], Tc[0..3] of the group's skew, then a zero word.
+// tables of the group's skew.
 CTT_HD void leo_group_tables(const uint8_t* gexp, const uint8_t* glog, uint32_t k, uint32_t* out) {
   uint8_t skew[8][256];
   leo_skews(gexp, glog, skew);
   const uint32_t log_k = log2_exact(k);
   for (uint32_t fft = 0; fft < 2; ++fft)
     for (uint32_t j = 0; j < log_k; ++j)
-      for (uint32_t g = 0; g < (k >> (j + 1)); ++g) {
-        const uint32_t s = skew[j][((fft ? 0u : k) ^ (g << (j + 1))) & 255u];
-        uint8_t t[kLeoGroupWords * 4] = {};
-        for (uint32_t v = 0; v < 8; ++v) {
-          t[v] = static_cast<uint8_t>(leo_field_mul(s, v, gexp, glog));
-          t[8 + v] = static_cast<uint8_t>(leo_field_mul(s, v << 3, gexp, glog));
-        }
-        for (uint32_t v = 0; v < 4; ++v)
-          t[16 + v] = static_cast<uint8_t>(leo_field_mul(s, v << 6, gexp, glog));
-        memcpy(out + kLeoGroupWords * leo_group(k, fft, j, g), t, sizeof t);
-      }
+      for (uint32_t g = 0; g < (k >> (j + 1)); ++g)
+        leo_mul_tables(skew[j][((fft ? 0u : k) ^ (g << (j + 1))) & 255u], gexp, glog,
+                       out + kLeoGroupWords * leo_group(k, fft, j, g));
 }
 
 // A group's tables from `tab` (shared memory on the card): t[0..1] Ta,
@@ -107,6 +121,16 @@ CTT_HD void leo_load_group(const uint32_t* tab, uint32_t t[5]) {
 #else
   memcpy(t, tab, 5 * sizeof(uint32_t));
 #endif
+}
+
+// A group's tables, read anew at each use (volatile loads):
+// the same words are not kept in registers across a thread's other words
+// (K8b's Leopard decode, rs_leopard_decode.cuh: at 64 words a thread that
+// was the difference between a spill and none).
+CTT_HD void leo_load_group_fresh(const uint32_t* tab, uint32_t t[5]) {
+  const volatile uint32_t* v = tab;
+#pragma unroll
+  for (uint32_t i = 0; i < 5; ++i) t[i] = v[i];
 }
 
 // s * x for each of the 4 bytes of x, s the skew whose tables are t.
@@ -134,15 +158,22 @@ CTT_HD uint32_t leo_mul_word(uint32_t x, const uint32_t t[5]) {
 // its FFT layers has skew 0 too; it multiplies by that group's tables,
 // which are zero, so the two halves of a warp run one instruction stream.
 
-// Layer J < log2 k - 1 of the IFFT (FFT = false) or the FFT over half h's
-// H = k/2 words: its groups are the layer's groups h * H / (2 dist) on.
-template <uint32_t LOG_K, uint32_t J, bool FFT>
-CTT_HD void leo_half_layer(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
-  constexpr uint32_t K = 1u << LOG_K, dist = 1u << J, groups = K / 2 / (2 * dist);
+// Layer J of the IFFT (FFT = false) or the FFT over part p's W = 2^LOG_W
+// words of a column, J < LOG_W: its groups are the layer's groups p * W /
+// (2 dist) on, whose tables start at `layer` (the layer's group 0), one
+// part's after another; or, with PARTS > 0, group g of every part's side
+// by side (part p's at g * PARTS + p: the parts' loads in distinct banks),
+// read anew at each use.
+template <uint32_t LOG_W, uint32_t J, bool FFT, uint32_t PARTS = 0>
+CTT_HD void leo_part_layer(uint32_t (&x)[1u << LOG_W], const uint32_t* layer, uint32_t p) {
+  constexpr uint32_t dist = 1u << J, groups = (1u << LOG_W) / (2 * dist);
 #pragma unroll
   for (uint32_t g = 0; g < groups; ++g) {
     uint32_t t[5];
-    leo_load_group(tab + kLeoGroupWords * leo_group(K, FFT, J, h * groups + g), t);
+    if constexpr (PARTS > 0)
+      leo_load_group_fresh(layer + kLeoGroupWords * (g * PARTS + p), t);
+    else
+      leo_load_group(layer + kLeoGroupWords * (p * groups + g), t);
 #pragma unroll
     for (uint32_t m = 0; m < dist; ++m) {
       uint32_t& a = x[2 * dist * g + m];
@@ -156,6 +187,12 @@ CTT_HD void leo_half_layer(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab
       }
     }
   }
+}
+
+// Layer J < log2 k - 1 of the encode's IFFT or FFT over half h's k/2 words.
+template <uint32_t LOG_K, uint32_t J, bool FFT>
+CTT_HD void leo_half_layer(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
+  leo_part_layer<LOG_K - 1, J, FFT>(x, tab + kLeoGroupWords * leo_group(1u << LOG_K, FFT, J, 0), h);
 }
 
 // Half h's IFFT layers J = 0 .. log2 k - 2, and its FFT layers log2 k - 2 .. 0.

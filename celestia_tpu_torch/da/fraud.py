@@ -18,7 +18,8 @@ Re-homed from ``celestia_tpu/da/fraud.py``.  :class:`BadEncodingProof`
 and its ``verify`` (a light client's check of k shares off the wire) stay
 on the host, as there.  :func:`detect_bad_encoding` and :func:`build_befp`
 run on the EDS's device: detection decodes every axis of both orientations
-from its first k cells (K8a once, K8b per orientation into a scratch copy)
+from its first k cells (K8b per orientation into a scratch copy: Leopard's
+decode under leopard-ff8; under lagrange-gf256 K8a's matrices first, once)
 and flags the cells that differ from the committed ones (K8c); the proof's
 orthogonal trees are built and read there (``proof.row_range_proofs``:
 K2's row-set mode + K3 over the k trees, one K7b gather).  On the CPU the
@@ -189,11 +190,11 @@ def detect_bad_encoding(eds_shares, device=None) -> Optional[Tuple[str, int]]:
 
     Operates on the shares alone — codeword-ness is a property of the
     square; the DAH only enters when a BEFP is VERIFIED against it.  Runs
-    on the EDS's device: one decode-matrix launch (known = the first k
-    positions of every axis), then per orientation a decode of every axis
-    into one scratch copy and a per-cell comparison with the committed
-    square; the answer is the first flagged row, else the first flagged
-    column, the order of the JAX loop."""
+    on the EDS's device: per orientation a decode of every axis from the
+    first k positions into one scratch copy (under lagrange-gf256 with the
+    decode matrices of one launch before them) and a per-cell comparison
+    with the committed square; the answer is the first flagged row, else
+    the first flagged column, the order of the JAX loop."""
     eds = _eds_tensor(eds_shares, device).contiguous()
     n = eds.shape[0]
     k = n // 2
@@ -201,7 +202,7 @@ def detect_bad_encoding(eds_shares, device=None) -> Optional[Tuple[str, int]]:
     dev = eds.device
     known = torch.arange(k, dtype=torch.uint8, device=dev).expand(n, k).contiguous()
     axes = torch.arange(n, dtype=torch.int32, device=dev)
-    D = rs.decode_matrices(known, k, codec)
+    D = None if codec == gf256.CODEC_LEOPARD else rs.decode_matrices(known, k, codec)
     none = torch.zeros((n, n), dtype=torch.uint8, device=dev)
     scratch = eds.clone()
     flags = []

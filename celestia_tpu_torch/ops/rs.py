@@ -37,13 +37,17 @@ partials' slabs, read where they lie (K9b ``xor_reduce_slabs``,
 :func:`xor_reduce_scatter`).  The repair half (``rsmt2d.Repair``,
 :func:`repair_square_device`) peels the availability mask on the host
 (:func:`_simulate_schedule`, bools only), then on the square's device
-builds every Lagrange decode matrix in one launch (K8a
-``rs_decode_matrices``), decodes the solvable axes of each phase and
-orientation in place (K8b ``rs_decode_axes``), re-extends Q0 (K5), flags
-the cells that disagree (K8c ``rs_repair_verdicts``) and hashes the axis
-roots (K2 + K3), then fetches the verdicts once.  On CPU tensors the same
-host loop runs the plain versions, which keep the JAX package's GF(2)
-lift (:func:`_bit_expand_dev`).  :func:`repair_square` is the JAX
+decodes the solvable axes of each phase and orientation in place (K8b
+``rs_decode_axes``), re-extends Q0 (K5), flags the cells that disagree
+(K8c ``rs_repair_verdicts``) and hashes the axis roots (K2 + K3), then
+fetches the verdicts once.  K8b's kernel is the codec's, as K5's: under
+``leopard-ff8`` Leopard's O(k log k) erasure decode from each axis's k
+known positions (``csrc/rs_leopard_decode.cu``, its plain version
+:func:`decode_axes_fft_plain`); under ``lagrange-gf256`` every Lagrange
+decode matrix built in one launch first (K8a ``rs_decode_matrices``) and
+the bit-GEMM (``csrc/rs_decode.cu``, its plain version the JAX package's
+GF(2) lift, :func:`_bit_expand_dev`).  On CPU tensors the same host loop
+runs the plain versions.  :func:`repair_square` is the JAX
 package's host repair on the native library: Leopard's erasure decoder
 under ``leopard-ff8``, the Lagrange matrices and a GF matmul under
 ``lagrange-gf256``, a native re-extension and root pass to check.
@@ -135,14 +139,17 @@ def encode_matrix_bits_tensor(k: int, codec: str, device: str) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def _field_tensors(codec: str, device: str):
+    """The codec's (exp uint8[512], log uint8[256]) tables on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(device)
+                 for a in gf256.field_tables(codec))
+
+
+@lru_cache(maxsize=None)
 def _kernel_constants(k: int, codec: str, device: str):
     """(E, exp, log) uint8 tensors on the card for the bit-GEMM kernels."""
-    exp, log = gf256.field_tables(codec)
     E = np.ascontiguousarray(gf256.encode_matrix(k, codec), dtype=np.uint8)
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(device)
-        for a in (E, exp, log)
-    )
+    return (torch.from_numpy(E).to(device), *_field_tensors(codec, device))
 
 
 # bytes of a group's skew tables (csrc/rs_leopard.cuh kLeoGroupWords words)
@@ -164,8 +171,8 @@ def _leopard_tables(k: int, device: str) -> torch.Tensor:
 
 
 def _fft_form(codec: str) -> bool:
-    """K5's kernel by codec: Leopard's FFT under leopard-ff8, the bit-GEMM
-    under lagrange-gf256."""
+    """K5's and K8b's kernel by codec: Leopard's FFT form under leopard-ff8,
+    the bit-GEMM under lagrange-gf256."""
     if codec not in gf256.CODECS:
         raise ValueError(f"unknown codec {codec!r}; expected one of {gf256.CODECS}")
     return codec == gf256.CODEC_LEOPARD
@@ -583,10 +590,12 @@ def xor_reduce_scatter(partials: Sequence[torch.Tensor], dests: Sequence[int],
 # Which axes become solvable in which order depends only on the boolean
 # availability mask, never on share values, so the host simulates the
 # peeling schedule on bools and ships only the solvable axes' known
-# positions.  The plain versions below mirror the JAX program
-# (celestia_tpu/ops/rs.py:138-284): decode matrices in the log domain, the
-# GF(2) lift, bit products.  K8b runs the same lift on the tensor cores
-# (K5's kernel with per-axis coefficients); both give the same bytes.
+# positions.  Under lagrange-gf256 the plain versions below mirror the JAX
+# program (celestia_tpu/ops/rs.py:138-284): decode matrices in the log
+# domain, the GF(2) lift, bit products, and K8b runs the same lift on the
+# tensor cores (K5's kernel with per-axis coefficients).  Under leopard-ff8
+# K8b is Leopard's erasure decode, which needs no matrix.  All give the
+# same bytes: the unique polynomial of degree < k through the known cells.
 # ---------------------------------------------------------------------------
 
 
@@ -699,20 +708,21 @@ def decode_matrices(known: torch.Tensor, k: int, codec: str) -> torch.Tensor:
 
 
 def _check_decode_args(eds, D, known, axes) -> int:
+    """k of a decode's arguments; D (n, 2k, k) is checked unless None."""
     n2 = eds.shape[0]
     k = n2 // 2
     n = axes.shape[0]
     if (
         eds.dim() != 3
         or eds.shape[1] != n2
-        or tuple(D.shape) != (n, n2, k)
+        or (D is not None and tuple(D.shape) != (n, n2, k))
         or tuple(known.shape) != (n, k)
         or axes.dim() != 1
     ):
         raise ValueError(
-            f"decode_axes takes eds (2k, 2k, B), D (n, 2k, k), known (n, k), axes (n,); "
-            f"got {tuple(eds.shape)}, {tuple(D.shape)}, {tuple(known.shape)}, "
-            f"{tuple(axes.shape)}"
+            f"decode_axes takes eds (2k, 2k, B), D (n, 2k, k) or none, known (n, k), axes (n,); "
+            f"got {tuple(eds.shape)}, {None if D is None else tuple(D.shape)}, "
+            f"{tuple(known.shape)}, {tuple(axes.shape)}"
         )
     return k
 
@@ -721,11 +731,12 @@ def decode_axes_plain(
     eds: torch.Tensor, D: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
     cols: bool, codec: str,
 ) -> torch.Tensor:
-    """Plain twin of K8b: decode axes ``axes`` of one orientation of ``eds``
-    (rows, or columns when ``cols``) from their known positions with D, as
-    JAX ``_decode_axes_dev`` (:206) does for every axis, and write each
-    whole axis back, as JAX ``_repair_phases`` (:249, :252) does for the
-    solvable ones.  In place, chunked over axes; returns ``eds``."""
+    """Plain twin of K8b's bit-GEMM form: decode axes ``axes`` of one
+    orientation of ``eds`` (rows, or columns when ``cols``) from their known
+    positions with D, as JAX ``_decode_axes_dev`` (:206) does for every
+    axis, and write each whole axis back, as JAX ``_repair_phases`` (:249,
+    :252) does for the solvable ones.  In place, chunked over axes; returns
+    ``eds``."""
     k = _check_decode_args(eds, D, known, axes)
     view = eds.transpose(0, 1) if cols else eds
     idx = axes.to(torch.int64)
@@ -738,24 +749,182 @@ def decode_axes_plain(
     return eds
 
 
-def decode_axes_cuda(
-    eds: torch.Tensor, D: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
-    cols: bool, codec: str,
-) -> torch.Tensor:
-    """Launch K8b ``rs_decode_axes``: decode axes ``axes`` (int32) of one
-    orientation of an EDS on the card in place, writing only the positions
-    that are not known.  ``known`` holds k distinct positions per axis (the
-    schedule's); an axis whose index or positions lie past 2k is left
-    unwritten by the kernel rather than read or written out of bounds."""
-    k = _check_decode_args(eds, D, known, axes)
+@lru_cache(maxsize=None)
+def _leopard_decode_consts(k: int):
+    """The constants of the plain Leopard decode over n = 2k points, as
+    numpy arrays: the skew of each group of each transform layer (coset 0:
+    LEO_SKEW[j][2^(j+1) g]), the derivative's constants c_i = W_i'(0) /
+    W_i(v_i), the codec's product table, and log(x_p ^ x_m) for every
+    point pair with a point's own term 0."""
+    codec = gf256.CODEC_LEOPARD
+    n = 2 * k
+    log_n = n.bit_length() - 1
+    W = np.arange(256, dtype=np.uint8)
+    skews = []
+    for j in range(log_n):
+        skew = gf256.gf_mul(W, gf256.gf_inv(W[1 << j], codec), codec)
+        skews.append(skew[(np.arange(n >> (j + 1)) << (j + 1)) & 255])
+        W = gf256.gf_mul(W, W[np.arange(256) ^ (1 << j)], codec)
+    derivs = []
+    for i in range(log_n):
+        num = den = np.uint8(1)
+        for v in range(1, 1 << i):
+            num = gf256.gf_mul(num, v, codec)
+        for v in range(1 << i):
+            den = gf256.gf_mul(den, (1 << i) ^ v, codec)
+        derivs.append(int(gf256.gf_div(num, den, codec)))
+    _, log = gf256.field_tables(codec)
+    diff = np.arange(n)[:, None] ^ np.arange(n)[None, :]
+    log_diff = np.where(diff == 0, 0, log[diff])
+    return skews, derivs, gf256.mul_table(codec), log_diff
+
+
+def _leopard_layer(w: torch.Tensor, j: int, skew: torch.Tensor, fft: bool, mul) -> None:
+    """Layer j of the IFFT (``fft`` False) or the FFT over w [c, n, B] in
+    place: group g pairs points 2^(j+1) g + m and that + 2^j, skew[g]."""
+    c, n, B = w.shape
+    d = 1 << j
+    v = w.view(c, n // (2 * d), 2, d, B)
+    a, b = v[:, :, 0], v[:, :, 1]
+    s = skew.view(1, -1, 1, 1)
+    if fft:
+        a ^= mul[s, b.long()]
+        b ^= a
+    else:
+        b ^= a
+        a ^= mul[s, b.long()]
+
+
+def _leopard_decode_block(X: torch.Tensor, known: torch.Tensor, k: int) -> torch.Tensor:
+    """Leopard's erasure decode of c axes X uint8[c, 2k, B] (positions)
+    whose known positions are the True ones of ``known`` bool[c, 2k]
+    (exactly k an axis): the axes with every unknown position decoded."""
+    skews, derivs, mul_np, log_diff = _leopard_decode_consts(k)
+    dev = X.device
+    n = 2 * k
+    exp, _ = _gf_tables_dev(gf256.CODEC_LEOPARD, dev)
+    mul = torch.from_numpy(mul_np).to(dev)
+    perm = torch.arange(n, device=dev) ^ k  # point j is position j ^ k
+    Xp, kp = X[:, perm], known[:, perm]
+    # the locator in the log domain: L[j] = sum over erased m of log(x_j ^ x_m)
+    L = (~kp).double() @ torch.from_numpy(log_diff).to(dev, torch.float64)
+    L = L.round().long() % 255
+    scale = exp[torch.where(kp, L, (255 - L) % 255)][:, :, None]  # E(x_j), or 1 / E'(x_j)
+    w = torch.where(kp[:, :, None], mul[scale, Xp.long()], torch.zeros_like(Xp))
+    for j, skew in enumerate(skews):
+        _leopard_layer(w, j, torch.from_numpy(skew).to(dev, torch.long), False, mul)
+    deriv = torch.zeros_like(w)
+    m = torch.arange(n, device=dev)
+    for i, c in enumerate(derivs):
+        lo = m[(m & (1 << i)) == 0]
+        deriv[:, lo] ^= mul[c, w[:, lo | (1 << i)].long()]
+    for j in reversed(range(len(skews))):
+        _leopard_layer(deriv, j, torch.from_numpy(skews[j]).to(dev, torch.long), True, mul)
+    out = torch.where(kp[:, :, None], Xp, mul[scale, deriv.long()])
+    return out[:, perm]
+
+
+def _check_fft_decode_args(eds, known, axes) -> int:
+    k = _check_decode_args(eds, None, known, axes)
+    if not is_power_of_two(k) or k > 128:
+        raise ValueError(f"k must be a power of two <= 128, got {k}")
+    return k
+
+
+def decode_axes_fft_plain(eds: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
+                          cols: bool) -> torch.Tensor:
+    """Plain twin of K8b's leopard-ff8 form: Leopard's erasure decode
+    (csrc/rs_leopard_decode.cuh's steps on tensors) of axes ``axes`` of one
+    orientation of ``eds`` (rows, or columns when ``cols``), each from its k
+    known positions ``known``.  Every other position is written with the
+    unique polynomial of degree < k through the k known cells (those that
+    were provided but not chosen too); the known cells are left.  An axis
+    whose index or a known position lies past 2k, or whose known positions
+    repeat, is left as it is, as the kernel leaves it.  In place, chunked
+    over axes; returns ``eds``."""
+    k = _check_fft_decode_args(eds, known, axes)
+    n = 2 * k
+    if not axes.numel():
+        return eds
+    dev = eds.device
+    pos = known.to(torch.int64)
+    ax = axes.to(torch.int64)
+    mask = torch.zeros((len(ax), n + 1), dtype=torch.bool, device=dev)
+    mask.scatter_(1, pos.clamp(max=n), True)
+    mask = mask[:, :n]
+    ok = (ax >= 0) & (ax < n) & (pos < n).all(dim=1) & (mask.sum(dim=1) == k)
+    view = eds.transpose(0, 1) if cols else eds
+    # bounds the long index tensors of the product-table lookups
+    chunk = max(1, (1 << 22) // (n * eds.shape[2]))
+    for sel in torch.nonzero(ok).flatten().split(chunk):
+        rows = ax[sel]
+        view[rows] = _leopard_decode_block(view[rows], mask[sel], k)
+    return eds
+
+
+@lru_cache(maxsize=None)
+def _leopard_decode_tables(k: int, device: str) -> torch.Tensor:
+    """The Leopard decode kernel's tables for k (``ctt_rs_leopard_decode_tables``,
+    whose function the g++ twin runs too: the 2k - 1 skew groups of the
+    transform at coset 0 and the log2 2k derivative constants, 24 bytes
+    each) as a uint8 tensor on ``device``, built and uploaded once per (k,
+    device)."""
+    exp, log = (np.ascontiguousarray(a, dtype=np.uint8)
+                for a in gf256.field_tables(gf256.CODEC_LEOPARD))
+    n = 2 * k
+    out = np.zeros((n - 1 + n.bit_length() - 1) * _LEO_GROUP_BYTES, dtype=np.uint8)
+    kernels.host_call("ctt_rs_leopard_decode_tables", exp.ctypes.data, log.ctypes.data, k,
+                      out.ctypes.data, out.nbytes)
+    return torch.from_numpy(out).to(device)
+
+
+def _check_decode_launch(eds, known, axes, k) -> None:
     kernels.check_cuda_tensor(eds, "eds", (2 * k, 2 * k, SHARE_SIZE))
     _check_aligned(eds, "eds")
-    kernels.check_cuda_tensor(D, "D")
     kernels.check_cuda_tensor(known, "known")
     if axes.dtype != torch.int32 or axes.device != eds.device or not axes.is_contiguous():
         raise ValueError("axes must be a contiguous int32 tensor on the EDS's device")
     if not is_power_of_two(k) or k > 128:
         raise ValueError(f"k must be a power of two <= 128, got {k}")
+
+
+def decode_axes_fft_cuda(eds: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
+                         cols: bool) -> torch.Tensor:
+    """Launch K8b ``rs_decode_axes`` in its leopard-ff8 form, Leopard's
+    O(k log k) erasure decode (``ctt_rs_leopard_decode_axes``,
+    csrc/rs_leopard_decode.cu): decode axes ``axes`` (int32) of one
+    orientation of an EDS on the card in place from their k known positions,
+    writing every other position.  No decode matrix is read.  An axis whose
+    index or positions lie past 2k, or whose positions repeat, is left
+    unwritten by the kernel rather than read or written out of bounds."""
+    k = _check_decode_args(eds, None, known, axes)
+    _check_decode_launch(eds, known, axes, k)
+    if axes.numel():
+        exp, log = _field_tensors(gf256.CODEC_LEOPARD, str(eds.device))
+        kernels.launch(
+            "rs_decode_axes", eds.device, eds.data_ptr(), known.data_ptr(), axes.data_ptr(),
+            _leopard_decode_tables(k, str(eds.device)).data_ptr(), exp.data_ptr(),
+            log.data_ptr(), axes.numel(), k, int(cols), entry="ctt_rs_leopard_decode_axes",
+        )
+    return eds
+
+
+def decode_axes_bit_gemm_cuda(
+    eds: torch.Tensor, D: torch.Tensor, known: torch.Tensor, axes: torch.Tensor,
+    cols: bool, codec: str,
+) -> torch.Tensor:
+    """Launch K8b ``rs_decode_axes`` in its bit-GEMM form
+    (``ctt_rs_decode_axes``, csrc/rs_decode.cu) whatever the codec: decode
+    axes ``axes`` (int32) of one orientation of an EDS on the card in place
+    with K8a's matrices D, writing only the positions that are not known.
+    What :func:`decode_axes_cuda` runs under lagrange-gf256; under
+    leopard-ff8 the yardstick ``chip_smoke.py`` times the Leopard kernel
+    against, on no path.  ``known`` holds k distinct positions per axis (the
+    schedule's); an axis whose index or positions lie past 2k is left
+    unwritten by the kernel rather than read or written out of bounds."""
+    k = _check_decode_args(eds, D, known, axes)
+    _check_decode_launch(eds, known, axes, k)
+    kernels.check_cuda_tensor(D, "D")
     _, exp, log = _kernel_constants(k, codec, str(eds.device))
     if axes.numel():
         kernels.launch(
@@ -765,10 +934,23 @@ def decode_axes_cuda(
     return eds
 
 
+def decode_axes_cuda(eds, D, known, axes, cols: bool, codec: str) -> torch.Tensor:
+    """Launch K8b ``rs_decode_axes`` in ``codec``'s form: Leopard's decode
+    under leopard-ff8 (D is not read and may be None), the bit-GEMM with
+    K8a's matrices D under lagrange-gf256."""
+    if _fft_form(codec):
+        return decode_axes_fft_cuda(eds, known, axes, cols)
+    return decode_axes_bit_gemm_cuda(eds, D, known, axes, cols, codec)
+
+
 def decode_axes(eds, D, known, axes, cols: bool, codec: str) -> torch.Tensor:
-    """Decode axes of one orientation in place: K8b on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    """Decode axes of one orientation in place in ``codec``'s form: K8b on a
+    CUDA tensor, the plain version of the same form on a CPU tensor
+    (:func:`decode_axes_fft_plain` under leopard-ff8, which takes no D;
+    :func:`decode_axes_plain` with D under lagrange-gf256)."""
     if eds.device.type == "cpu":
+        if _fft_form(codec):
+            return decode_axes_fft_plain(eds, known, axes, cols)
         return decode_axes_plain(eds, D, known, axes, cols, codec)
     return decode_axes_cuda(eds, D, known, axes, cols, codec)
 
@@ -868,17 +1050,19 @@ def _schedule_tensors(schedule, device):
 
 def _repair_phases(eds: torch.Tensor, schedule, k: int, codec: str) -> torch.Tensor:
     """The P peeling phases (rows then columns each) on ``eds`` in place,
-    as a host loop of launches: one decode-matrix launch (K8a) for every
-    phase and orientation (D depends only on the schedule), then one
-    decode launch (K8b) per (phase, orientation) with solvable axes.  On a
-    CPU tensor the plain versions run."""
+    as a host loop of launches: one decode launch (K8b) per (phase,
+    orientation) with solvable axes.  Under leopard-ff8 K8b is Leopard's
+    decode and takes the known positions alone; under lagrange-gf256 one
+    decode-matrix launch (K8a) for every phase and orientation (D depends
+    only on the schedule) comes first.  On a CPU tensor the plain versions
+    run."""
     if schedule is None:
         return eds
     known, axes, segments = _schedule_tensors(schedule, eds.device)
-    D = decode_matrices(known, k, codec)
+    D = None if _fft_form(codec) else decode_matrices(known, k, codec)
     for off, count, cols in segments:
         sl = slice(off, off + count)
-        decode_axes(eds, D[sl], known[sl], axes[sl], cols, codec)
+        decode_axes(eds, None if D is None else D[sl], known[sl], axes[sl], cols, codec)
     return eds
 
 

@@ -26,15 +26,20 @@ default runs every phase and every check:
    by step (gather, prefix build, K1, digest cat, K3) with their
    dependency floor; K3's column subtrees and finishing levels of K9 at
    k/R = 8/8, 32/4, 128/8; K5 (its kernel by codec: Leopard's FFT under
-   leopard-ff8, the tensor-core bit-GEMM under lagrange-gf256) and K8b at
-   every k = 1..128 and K5's row pass and K9a (n_in = k/R down to 1) for
-   both codecs; under leopard-ff8 the FFT kernel of K5, K5b (3 squares) and
+   leopard-ff8, the tensor-core bit-GEMM under lagrange-gf256) at every k =
+   1..128 and K5's row pass and K9a (n_in = k/R down to 1) for both
+   codecs; under leopard-ff8 the FFT kernel of K5, K5b (3 squares) and
    the row pass (k + 3 rows) at every k = 1..128 against the plain path and
-   against the bit-GEMM kernel given leopard's encode matrix; each kernel's
+   against the bit-GEMM kernel given leopard's encode matrix; K8b's
+   bit-GEMM (K8a's matrices) at every k = 1..128 for both codecs and,
+   under leopard-ff8, its Leopard decode against its plain version and the
+   bit-GEMM, on k + 3, 20 and 2 axes a k (its three launch shapes), rows
+   and columns, the unknown cells garbage; each kernel's
    time as the host issues it and its GPU time (queued behind a sleep)
-   beside its bound, plain and library times, K5's and K5b's two kernels
-   timed in turns, the bit-GEMM kernels' share of their tensor-core floor,
-   the FFT kernel's registers, spills and SASS opcode mix; K4's per-level latency, the slope of its GPU
+   beside its bound, plain and library times, K5's, K5b's and K8b's two
+   kernels timed in turns, the bit-GEMM kernels' share of their
+   tensor-core floor, the FFT kernel's and the Leopard decode's registers,
+   spills and SASS opcode mix; K4's per-level latency, the slope of its GPU
    time at batch 1 over n = 2..1024 leaves and over n = 2..32 (warp 0
    alone: half of it is one compression's latency in the kernel), and K3's
    and K4's dependency floor (their levels' chain of compressions at that
@@ -78,15 +83,16 @@ default runs every phase and every check:
    ``return_device=True``, under three masks: 25 % of cells withheld at
    random, k rows and k columns withheld, and the deep-peel chain mask of
    tests/test_torch_repair.py built at k (P = k phases); the result must be
-   the plane's EDS, with no repair on the host.  Medians of 5 warm calls per
+   the plane's EDS, with no repair on the host and, under leopard-ff8, no
+   K8a launch (K8b is Leopard's decode).  Medians of 5 warm calls per
    mask at k = 128 (wall, breakdown, kernels by CUDA events).  The
    byzantine cases (a provided cell the decode overwrites, a Q1 cell off
    the codeword, zeroed roots, too few cells) raise on the card with the
    messages of the ``device="cpu"`` path at k = 32;
 4d. fraud: a Q1 cell of a k = 128 block flipped and its DAH recommitted on
    the card; ``fraud.detect_bad_encoding`` finds the row, the BEFP built on
-   the card verifies against the bad DAH and not the honest one; at k = 32
-   the card's BEFP equals the ``device="cpu"`` path's;
+   the card verifies against the bad DAH and not the honest one (no K8a
+   launch); at k = 32 the card's BEFP equals the ``device="cpu"`` path's;
 4e. catch-up (BASELINE config 5): the 8 blocks grouped by size through
    ``dah.data_roots_batched`` (K5b, batched K2/K3, one K4 for the batch),
    each data root equal to the block's DAH hash, the launches exactly 5 a
@@ -258,33 +264,43 @@ SOURCES = {
     "das_proof_gather": "celestia_tpu_torch/csrc/das_gather.cu",
     "rs_extend_batched": "celestia_tpu_torch/csrc/rs_leopard.cu",
     "rs_decode_matrices": "celestia_tpu_torch/csrc/rs_decode.cu",
-    "rs_decode_axes": "celestia_tpu_torch/csrc/rs_decode.cu",
+    "rs_decode_axes": "celestia_tpu_torch/csrc/rs_leopard_decode.cu",
     "rs_repair_verdicts": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_col_parity_partial": "celestia_tpu_torch/csrc/rs_extend.cu",
     "xor_reduce_slabs": "celestia_tpu_torch/csrc/rs_sharded.cu",
 }
-# K5 and K5b run Leopard's FFT kernel under leopard-ff8, the chain's codec
-# and the main path's, and the bit-GEMM kernel under lagrange-gf256: the
-# kernels line reports the FFT under the launch counters' names and the
-# bit-GEMM under these, each bit-GEMM entry's launches counted by C entry
-BIT_GEMM_K5 = {"rs_extend_bit_gemm": ("rs_extend", ("ctt_rs_extend", "ctt_rs_extend_rows")),
-               "rs_extend_batched_bit_gemm": ("rs_extend_batched", ("ctt_rs_extend_batched",))}
-for _name, (_k5, _) in BIT_GEMM_K5.items():
-    REPLACES[_name] = REPLACES[_k5]
-    SOURCES[_name] = "celestia_tpu_torch/csrc/rs_extend.cu"
-FFT_K5_ENTRIES = ("ctt_rs_leopard_extend", "ctt_rs_leopard_extend_batched",
-                  "ctt_rs_leopard_extend_rows")
+# K5, K5b and K8b run Leopard's kernels (the FFT, the erasure decode) under
+# leopard-ff8, the chain's codec and the main path's, and the bit-GEMM
+# kernels under lagrange-gf256: the kernels line reports the Leopard forms
+# under the launch counters' names and the bit-GEMM ones under these, each
+# bit-GEMM entry's launches counted by C entry
+BIT_GEMM_FORMS = {
+    "rs_extend_bit_gemm": ("rs_extend", ("ctt_rs_extend", "ctt_rs_extend_rows"),
+                           "celestia_tpu_torch/csrc/rs_extend.cu"),
+    "rs_extend_batched_bit_gemm": ("rs_extend_batched", ("ctt_rs_extend_batched",),
+                                   "celestia_tpu_torch/csrc/rs_extend.cu"),
+    "rs_decode_axes_bit_gemm": ("rs_decode_axes", ("ctt_rs_decode_axes",),
+                                "celestia_tpu_torch/csrc/rs_decode.cu"),
+}
+for _name, (_kernel, _, _source) in BIT_GEMM_FORMS.items():
+    REPLACES[_name] = REPLACES[_kernel]
+    SOURCES[_name] = _source
+LEOPARD_ENTRIES = ("ctt_rs_leopard_extend", "ctt_rs_leopard_extend_batched",
+                   "ctt_rs_leopard_extend_rows", "ctt_rs_leopard_decode_axes")
 # the kernels each path must launch
 EXTEND_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "rs_extend")
 SERVE_KERNELS = ("das_proof_gather",)
 # a block on the card with no cached entry (da/device_plane.py sample_proofs_from_eds)
 MISS_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "das_proof_gather")
 # repair: decode, re-extension, verdicts, axis roots
-REPAIR_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_extend", "rs_repair_verdicts",
-                  "nmt_leaf_digests", "nmt_combine_level")
+REPAIR_KERNELS = ("rs_decode_axes", "rs_extend", "rs_repair_verdicts", "nmt_leaf_digests",
+                  "nmt_combine_level")
 # fraud: detection (decode + verdicts), then the BEFP's orthogonal trees and gather
-FRAUD_KERNELS = ("rs_decode_matrices", "rs_decode_axes", "rs_repair_verdicts",
-                 "nmt_leaf_digests", "nmt_combine_level", "das_proof_gather")
+FRAUD_KERNELS = ("rs_decode_axes", "rs_repair_verdicts", "nmt_leaf_digests", "nmt_combine_level",
+                 "das_proof_gather")
+# K8a builds the Lagrange matrices of K8b's bit-GEMM form: under leopard-ff8
+# (Leopard's decode) no repair or fraud path launches it
+LAGRANGE_ONLY_KERNELS = ("rs_decode_matrices",)
 # the row level stacks of serving, a miss and fraud are K2's row-set mode + K3
 OFF_PATH_KERNELS = ("sha256_batch",)
 CATCHUP_KERNELS = ("rs_extend_batched", "nmt_leaf_digests", "nmt_combine_level", "rfc6962_root")
@@ -2260,6 +2276,19 @@ def level_floor_ms(parents: list, compression_ms: float) -> float:
                for n in parents)
 
 
+@functools.lru_cache(maxsize=None)
+def cuobjdump(flag: str) -> str:
+    """``cuobjdump <flag>`` of the built library (beside nvcc), run once a
+    flag: the library does not change within a run."""
+    import os
+
+    from celestia_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    return subprocess.run([tool, flag, str(kernels.build())], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def kernel_sass_mix(kernel: str) -> dict:
     """Opcode counts of the built library's SASS for the kernel whose mangled
     name holds ``kernel`` (``cuobjdump -sass``, beside nvcc): how its rounds
@@ -2267,16 +2296,10 @@ def kernel_sass_mix(kernel: str) -> dict:
     spill (LDL / STL), and its longest runs of instructions with no load
     between them (in code order, with their SHF counts): a run that holds
     the rounds of two compressions took every message word from registers."""
-    import os
     import re
     from collections import Counter
 
-    from celestia_tpu_torch import kernels
-
-    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(kernels.build())], capture_output=True, text=True,
-                          check=True).stdout
-    for func in re.split(r"\n\s*Function : ", sass):
+    for func in re.split(r"\n\s*Function : ", cuobjdump("-sass")):
         if kernel in func.split("\n", 1)[0]:
             code = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", func)
             ops = Counter(code)
@@ -2300,14 +2323,9 @@ def kernel_resources(kernel: str) -> dict:
     """Registers, stack, shared and local memory of the built library's
     kernel whose mangled name holds ``kernel`` (``cuobjdump -res-usage``):
     a spill shows as STACK and LOCAL bytes."""
-    import os
     import re
 
-    from celestia_tpu_torch import kernels
-
-    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    lines = subprocess.run([tool, "-res-usage", str(kernels.build())], capture_output=True,
-                           text=True, check=True).stdout.splitlines()
+    lines = cuobjdump("-res-usage").splitlines()
     for head, usage in zip(lines, lines[1:]):
         if head.strip().startswith("Function") and kernel in head:
             return {key: int(v) for key, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", usage)}
@@ -2394,7 +2412,7 @@ def main() -> int:
         check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
         return int((a.to(torch.int16) - b.to(torch.int16)).abs().max().item()) if a.numel() else 0
 
-    errs = {name: 0 for name in (*kernels.KERNELS, *BIT_GEMM_K5)}
+    errs = {name: 0 for name in (*kernels.KERNELS, *BIT_GEMM_FORMS)}
 
     def k5(name: str, codec: str) -> str:
         """K5's or K5b's name in errs and perf for the kernel ``codec`` runs."""
@@ -2602,18 +2620,37 @@ def main() -> int:
                             rs._decode_matrices_dev(known, kk, codec),
                             f"k={kk}, {n_ax} axes, codec={codec}")
             for kk in (1, 2, 4, 8, 16, 32, 64, 128):
-                n_ax = min(2 * kk, kk + 3)
-                known_np = known_sets(kk, n_ax)
-                known_np[0] = np.arange(kk)  # the first k positions, as fraud detection asks
-                known = upload(known_np)
-                Dk = rs.decode_matrices_cuda(known, kk, codec)
                 ek = rs.extend_cuda(upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)), codec)
-                for cols in (False, True):
-                    axes = upload(np.sort(rng.permutation(2 * kk)[:n_ax]).astype(np.int32))
-                    compare("rs_decode_axes",
-                            rs.decode_axes_cuda(ek.clone(), Dk, known, axes, cols, codec),
-                            rs.decode_axes_plain(ek.clone(), Dk, known, axes, cols, codec),
-                            f"k={kk} {'columns' if cols else 'rows'} codec={codec}")
+                # k + 3 axes, 20 and 2: the Leopard kernel's three launch shapes
+                # (66 axes or more, 9-65, at most 8: the deep peel's); the
+                # unknown cells of each decoded axis garbage
+                for n_ax in sorted({min(2 * kk, kk + 3), min(2 * kk, 20), min(2 * kk, 2)}):
+                    known_np = known_sets(kk, n_ax)
+                    known_np[0] = np.arange(kk)  # the first k positions, as fraud detection asks
+                    known = upload(known_np)
+                    Dk = rs.decode_matrices_cuda(known, kk, codec)
+                    for cols in (False, True):
+                        axes_np = np.sort(rng.permutation(2 * kk)[:n_ax]).astype(np.int32)
+                        axes = upload(axes_np)
+                        unknown = np.zeros((2 * kk, 2 * kk), dtype=bool)
+                        unknown[axes_np] = True
+                        unknown[axes_np[:, None], known_np.astype(np.int64)] = False
+                        start = ek.clone()
+                        view = start.transpose(0, 1) if cols else start
+                        view[upload(unknown)] = upload(rng.integers(
+                            0, 256, (int(unknown.sum()), 512), dtype=np.uint8))
+                        what = f"k={kk} {n_ax} {'columns' if cols else 'rows'} codec={codec}"
+                        gemm = rs.decode_axes_bit_gemm_cuda(start.clone(), Dk, known, axes, cols,
+                                                            codec)
+                        compare("rs_decode_axes_bit_gemm", gemm,
+                                rs.decode_axes_plain(start.clone(), Dk, known, axes, cols, codec),
+                                what)
+                        check(torch.equal(gemm, ek), f"K8b's bit-GEMM did not restore ({what})")
+                        if codec == gf256.CODEC_LEOPARD:
+                            got = rs.decode_axes_cuda(start.clone(), None, known, axes, cols, codec)
+                            compare("rs_decode_axes", got,
+                                    rs.decode_axes_fft_plain(start.clone(), known, axes, cols), what)
+                            compare("rs_decode_axes", got, gemm, f"against the bit-GEMM, {what}")
                 if kk == 32:
                     e32 = ek
             # K5's row pass and K9a on every shard, down to one input a shard
@@ -2674,9 +2711,10 @@ def main() -> int:
                 "batch of 2 EDSs at k=32")
         compare("nmt_combine_level", nmt.eds_nmt_roots(e2), nmt.eds_nmt_roots_plain(e2),
                 "batched roots of 2 EDSs at k=32")
-        del Dk, e32, rec, prov, av, sq2, e2
+        del Dk, e32, rec, prov, av, sq2, e2, start, gemm, got
         print("kernels: byte-equal to their plain versions "
-              f"(K5 and K8b at k=1..128 x {len(gf256.CODECS)} codecs, the row pass, K9a and K3's "
+              f"(K5 and K8b's bit-GEMM at k=1..128 x {len(gf256.CODECS)} codecs, K8b's Leopard "
+              "decode at k=1..128 against its plain version and the bit-GEMM, the row pass, K9a and K3's "
               "column subtrees and finish at k/R = 8/8, 32/4, 128/8 x both codecs, K2 and every K3 "
               "level at k=1..128, K4 from the leaves at n=4k for k=1..128 (one tree, a batch of 8, "
               "given hashes), K8a at k=1..128 x both codecs, K8c/K5b and batched K2/K3 at k=32)")
@@ -2707,7 +2745,9 @@ def main() -> int:
         scratch = eds.clone()
         scratch[unknown_cells] = upload(
             rng.integers(0, 256, (int(unknown_cells.sum()), 512), dtype=np.uint8))
-        scratch_plain = scratch.clone()
+        # K8b's Leopard kernel, its bit-GEMM and their plain versions, each on
+        # its own copy
+        scratch_plain, scratch_gemm, scratch_gemm_plain = (scratch.clone() for _ in range(3))
         # K8b's yardstick: its bit-GEMM (the unknown rows of each D, lifted,
         # against the known cells' bit planes) as one fp16 torch.bmm, exact for
         # 0/1 operands and sums <= 8k (torch._int_mm takes no batch)
@@ -2875,12 +2915,24 @@ def main() -> int:
                 None,
                 bound(N25 * k + N25 * n2 * k, decode_matrix_ops(k, N25), INT32_OPS_PER_S),
             ),
+            # Leopard's decode, which the path runs (no D)
             "rs_decode_axes": (
-                lambda: rs.decode_axes_cuda(scratch, D25, known25, axes25, False, codec),
-                lambda: rs.decode_axes_plain(scratch_plain, D25, known25, axes25, False, codec),
+                lambda: rs.decode_axes_cuda(scratch, None, known25, axes25, False, codec),
+                lambda: rs.decode_axes_fft_plain(scratch_plain, known25, axes25, False),
                 lambda: torch.bmm(Dh, Xh),
-                # the k known cells read and the k unknown ones written per axis, D and
-                # the index tables read once
+                # the k known cells read and the k unknown ones written per axis, the
+                # index tables read once
+                bound(2 * N25 * k * 512 + N25 * (k + 4), leopard_decode_ops(k, N25),
+                      INT32_OPS_PER_S),
+            ),
+            # the same function by the bit-GEMM kernel with K8a's matrices
+            "rs_decode_axes_bit_gemm": (
+                lambda: rs.decode_axes_bit_gemm_cuda(scratch_gemm, D25, known25, axes25, False,
+                                                     codec),
+                lambda: rs.decode_axes_plain(scratch_gemm_plain, D25, known25, axes25, False,
+                                             codec),
+                lambda: torch.bmm(Dh, Xh),
+                # as above, and D read once
                 bound(2 * N25 * k * 512 + N25 * n2 * k + N25 * (k + 4),
                       leopard_decode_ops(k, N25), INT32_OPS_PER_S),
             ),
@@ -2926,10 +2978,19 @@ def main() -> int:
                   f"bound {b_ms:.4f} ms ({b_by}), library "
                   f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} | {smi}")
         # K5's and K5b's two kernels at k = 64 and 128 (8 squares for K5b), the
-        # FFT (leopard-ff8) and the bit-GEMM given leopard's E, GPU time
-        # (queued), in turns: FFT, bit-GEMM, bit-GEMM, FFT, FFT, bit-GEMM
+        # FFT (leopard-ff8) and the bit-GEMM given leopard's E, and K8b's two,
+        # Leopard's decode and the bit-GEMM with K8a's matrices, on the 2k rows
+        # of a 25 % mask at k = 64 and 128; GPU time (queued), in turns: FFT,
+        # bit-GEMM, bit-GEMM, FFT, FFT, bit-GEMM
         sq64 = upload(rng.integers(0, 256, (64, 64, 512), dtype=np.uint8))
         sq8_64 = upload(rng.integers(0, 256, (8, 64, 64, 512), dtype=np.uint8))
+        eds64 = rs.extend_cuda(sq64, codec)
+        known64, axes64, segs64 = rs._schedule_tensors(
+            rs._simulate_schedule(rng.random((128, 128)) >= 0.25, 64), dev)
+        check(segs64 == [(0, 128, False)], f"the k=64 25 % mask's schedule is {segs64}")
+        D64 = rs.decode_matrices_cuda(known64, 64, codec)
+        dec64, dec64_gemm, dec128_gemm = eds64.clone(), eds64.clone(), eds.clone()
+        one_row, one_row_gemm = eds.clone(), eds.clone()  # one row, as a deep-peel phase
         turn_pairs = {
             "rs_extend k=64": (lambda: rs.extend_cuda(sq64, codec),
                                lambda: rs.extend_bit_gemm_cuda(sq64, codec)),
@@ -2939,17 +3000,36 @@ def main() -> int:
                                            lambda: rs.extend_batched_bit_gemm_cuda(sq8_64, codec)),
             "rs_extend_batched n=8 k=128": (lambda: rs.extend_batched_cuda(sq8, codec),
                                             lambda: rs.extend_batched_bit_gemm_cuda(sq8, codec)),
+            "rs_decode_axes 2k rows k=64": (
+                lambda: rs.decode_axes_cuda(dec64, None, known64, axes64, False, codec),
+                lambda: rs.decode_axes_bit_gemm_cuda(dec64_gemm, D64, known64, axes64, False,
+                                                     codec)),
+            "rs_decode_axes 2k rows k=128": (
+                lambda: rs.decode_axes_cuda(scratch, None, known25, axes25, False, codec),
+                lambda: rs.decode_axes_bit_gemm_cuda(dec128_gemm, D25, known25, axes25, False,
+                                                     codec)),
+            "rs_decode_axes 1 row k=128": (
+                lambda: rs.decode_axes_cuda(one_row, None, known25[:1], axes25[:1], False, codec),
+                lambda: rs.decode_axes_bit_gemm_cuda(one_row_gemm, D25[:1], known25[:1],
+                                                     axes25[:1], False, codec)),
         }
-        results["k5_in_turns"] = {}
+        results["k5_in_turns"], results["k8b_in_turns"] = {}, {}
         for what, fns in turn_pairs.items():
             got = {"fft": [], "bit_gemm": []}
             for turn in ("fft", "bit_gemm", "bit_gemm", "fft", "fft", "bit_gemm"):
                 got[turn].append(time_ms(fns[turn == "bit_gemm"], queued=True))
-            results["k5_in_turns"][what] = got
+            results["k8b_in_turns" if what.startswith("rs_decode") else "k5_in_turns"][what] = got
             ratio = statistics.median(got["bit_gemm"]) / statistics.median(got["fft"])
             print(f"{what}, GPU time in turns: FFT {', '.join(f'{v:.4f}' for v in got['fft'])} ms, "
                   f"bit-GEMM {', '.join(f'{v:.4f}' for v in got['bit_gemm'])} ms (bit-GEMM / FFT "
                   f"{ratio:.2f}x) | {smi}")
+        for name, got, want in (("rs_decode_axes", dec64, eds64),
+                                ("rs_decode_axes_bit_gemm", dec64_gemm, eds64),
+                                ("rs_decode_axes_bit_gemm", dec128_gemm, eds),
+                                ("rs_decode_axes", one_row, eds),
+                                ("rs_decode_axes_bit_gemm", one_row_gemm, eds)):
+            compare(name, got, want, "the rows decoded in turns against the codeword")
+        del eds64, known64, axes64, D64, dec64, dec64_gemm, dec128_gemm, one_row, one_row_gemm
         del sq64, sq8_64, turn_pairs
         # K7b's table mode on the same 1,024 cells (the range proofs' mode), and
         # its latency floor: an empty launch and a launch with one load that the
@@ -3098,7 +3178,7 @@ def main() -> int:
         floors = {
             "rs_extend_bit_gemm": bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
             "rs_extend_batched_bit_gemm": 8 * bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
-            "rs_decode_axes": N25 * bit_gemm_ops(8 * k, 8 * k, 512),
+            "rs_decode_axes_bit_gemm": N25 * bit_gemm_ops(8 * k, 8 * k, 512),
             "rs_col_parity_partial": R9 * bit_gemm_ops(8 * k, 8 * rows9, n2 * 512),
         }
         results["tensor_core_floor"] = {}
@@ -3121,6 +3201,21 @@ def main() -> int:
               f"{2 * fft_sass['instructions'] / (4 * k):.2f} a parity byte, "
               f"{2 * fft_sass['instructions'] / (k * (k.bit_length() - 1)):.2f} a butterfly word; "
               f"opcodes {fft_sass['most_common']}; LDL {fft_sass['LDL']} STL {fft_sass['STL']}")
+        # K8b's Leopard kernel, its k = 128 instances (2k = 256 points), one a
+        # launch shape: 2^C threads a column decode 4 bytes of each of the k
+        # erased positions
+        results["rs_decode_axes_leopard_kernel"] = {}
+        for c, shape in ((3, "66 axes or more"), (4, "9-65 axes"), (5, "at most 8 axes")):
+            name = f"rs_leopard_decode_kernelILj8ELj{c}E"
+            dec_res, dec_sass = kernel_resources(name), kernel_sass_mix(name)
+            results["rs_decode_axes_leopard_kernel"][shape] = {"resources": dec_res,
+                                                               "sass": dec_sass}
+            print(f"rs_decode_axes Leopard kernel, k=128, {1 << c} threads a column ({shape}; "
+                  f"cuobjdump): resources {dec_res}; SASS {dec_sass['instructions']} instructions a "
+                  f"thread, {(1 << c) * dec_sass['instructions'] / (4 * k):.2f} a decoded byte; "
+                  f"opcodes {dec_sass['most_common']}; PRMT {dec_sass['PRMT']} LDS "
+                  f"{dec_sass['LDS']} LDG {dec_sass['LDG']} STG {dec_sass['STG']} LDL "
+                  f"{dec_sass['LDL']} STL {dec_sass['STL']}")
         # the row level stacks behind proofs, namespace data, BEFPs and DAS misses
         # (ops/nmt.py eds_row_level_stack: K2's row-set mode, then K3) at R = 1, 5
         # and 2k rows of the k = 128 EDS, as issued and GPU time.  Beside them,
@@ -3187,6 +3282,10 @@ def main() -> int:
         # the outputs of the timed calls at the main path's k = 128 shapes
         compare("rs_decode_axes", scratch, scratch_plain, "k=128 rows of the 25 % mask")
         check(torch.equal(scratch, eds), "K8b did not restore the k=128 codeword's unknown cells")
+        compare("rs_decode_axes_bit_gemm", scratch_gemm, scratch_gemm_plain,
+                "k=128 rows of the 25 % mask")
+        check(torch.equal(scratch_gemm, eds),
+              "K8b's bit-GEMM did not restore the k=128 codeword's unknown cells")
         for name, got, want, expect in zip(("mismatch", "provided_mismatch"),
                                            rs.repair_verdicts_cuda(eds, rec25, prov25, av25),
                                            rs.repair_verdicts_plain(eds, rec25, prov25, av25),
@@ -3226,7 +3325,7 @@ def main() -> int:
                                             "plain_ms": vmap_plain_ms, "bound_ms": vmap_bound,
                                             "bound_by": vmap_by}
         del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out
-        del scratch, scratch_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
+        del scratch, scratch_plain, scratch_gemm, scratch_gemm_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
         del tops, coeffs9, g_cols9, partials9, slabs9, outs9, bits9
 
     # K5's launches by C entry over the paths run in this process (phases 3
@@ -3286,7 +3385,7 @@ def main() -> int:
               f"extension launches {extend_launches} != {block_launches(2 * len(blocks))}")
         ext_entries = {e: c for e, c in entries_since(ext_entries0).items() if c}
         check(ext_entries.get("ctt_rs_leopard_extend") == extend_launches["rs_extend"]
-              and not any(ext_entries.get(e) for _, es in BIT_GEMM_K5.values() for e in es),
+              and not any(ext_entries.get(e) for _, es, _ in BIT_GEMM_FORMS.values() for e in es),
               f"the extension path's K5 launches by C entry {ext_entries}: not all the FFT's")
 
         plain_out = []
@@ -3544,6 +3643,8 @@ def main() -> int:
               f"repair; phases {sorted(set(repair_stats.items()))}; launches {repair_launches}")
         for name in REPAIR_KERNELS:
             check(repair_launches[name] > 0, f"kernel {name} was not launched on the repair path")
+        for name in LAGRANGE_ONLY_KERNELS:
+            check(repair_launches[name] == 0, f"kernel {name} was launched on the repair path")
         check(repair_stats[(128, "deep peel")] > 4 and repair_stats[(128, "25% cells")] == 1,
               f"unexpected phase counts {repair_stats}")
         # medians of warm calls per mask at k = 128 (outside the counted run)
@@ -3634,7 +3735,7 @@ def main() -> int:
         check(fraud.detect_bad_encoding(full) is None, "fraud detected in an honest block")
         for name in FRAUD_KERNELS:
             check(fraud_launches[name] > 0, f"kernel {name} was not launched on the fraud path")
-        for name in OFF_PATH_KERNELS:
+        for name in (*OFF_PATH_KERNELS, *LAGRANGE_ONLY_KERNELS):
             check(fraud_launches[name] == 0, f"kernel {name} was launched on the fraud path")
         detect_ms, build_ms = [], []
         for _ in range(REPAIR_RUNS):
@@ -4050,6 +4151,9 @@ def main() -> int:
         for name in REPAIR_KERNELS:
             check(hr["launches"]["repair"][name] > 0,
                   f"kernel {name} was not launched by phase 4k's card repairs")
+        for name in LAGRANGE_ONLY_KERNELS:
+            check(hr["launches"]["repair"][name] == 0,
+                  f"kernel {name} was launched by phase 4k's card repairs")
         check(set(hr["launches"]["testnode_host"].values()) == {0},
               "the host TestNode's height launched a kernel")
         med = {side: {k: statistics.median(v) for k, v in hr[f"{side}_ms"].items()}
@@ -4097,15 +4201,16 @@ def main() -> int:
         results["tools"] = {name: {"wall_s": t["wall_s"], "summaries": t["summaries"]}
                             for name, t in tp["twins"].items()}
 
-    # every K5 launch of the paths in this process went to the FFT kernel
+    # every K5 and K8b launch of the paths in this process went to the
+    # Leopard kernels
     path_entries = entries_since(entries_before)
     bit_gemm_launches = {name: sum(path_entries.get(e, 0) for e in es)
-                         for name, (_, es) in BIT_GEMM_K5.items()}
+                         for name, (_, es, _) in BIT_GEMM_FORMS.items()}
     check(not any(bit_gemm_launches.values()),
-          f"a path launched K5's bit-GEMM kernel under leopard-ff8: {path_entries}")
-    print(f"K5's launches by C entry over the paths in this process: "
-          f"{json.dumps({e: path_entries.get(e, 0) for e in FFT_K5_ENTRIES})} (the FFT kernel), "
-          f"{json.dumps(bit_gemm_launches)} (the bit-GEMM kernel)")
+          f"a path launched a bit-GEMM kernel under leopard-ff8: {path_entries}")
+    print(f"K5's and K8b's launches by C entry over the paths in this process: "
+          f"{json.dumps({e: path_entries.get(e, 0) for e in LEOPARD_ENTRIES})} (the Leopard "
+          f"kernels), {json.dumps(bit_gemm_launches)} (the bit-GEMM kernels)")
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,
              sharded_launches, app_launches, app_mesh_launches, devnet_launches, service_launches,
              network_launches, host_launches, tools_launches)
@@ -4124,7 +4229,7 @@ def main() -> int:
                 "max_abs_err": errs[name],
                 **perf[name],
             }
-            for name in (*kernels.KERNELS, *BIT_GEMM_K5)
+            for name in (*kernels.KERNELS, *BIT_GEMM_FORMS)
         ]}
         results.update(line)
     else:

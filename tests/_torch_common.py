@@ -203,6 +203,8 @@ def twin(tmp_path_factory):
     t.twin_rs_leopard_extend.argtypes = [_P, _P, _P, I]
     t.twin_rs_leopard_extend_batched.argtypes = [_P, _P, _P, I, I]
     t.twin_rs_leopard_extend_rows.argtypes = [_P, _P, _P, I, I]
+    t.twin_rs_leopard_decode_tables.argtypes = [_P, _P, I, _P, LL]
+    t.twin_rs_leopard_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
     return t
 
 
@@ -212,7 +214,8 @@ _TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
 # twins that return the C entry's verdict on its arguments (0: launched)
 _CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_leaf_digests_rows",
                   "twin_nmt_reduce_levels", "twin_rfc6962_levels", "twin_rs_decode_matrices",
-                  "twin_das_proof_gather", "twin_das_cell_gather", "twin_xor_reduce_scatter")
+                  "twin_das_proof_gather", "twin_das_cell_gather", "twin_xor_reduce_scatter",
+                  "twin_rs_leopard_decode_axes")
 
 
 class _Launched(dict):
