@@ -180,6 +180,72 @@ void twin_leo_encode(const ctt::LeoAxisSet* s, const uint32_t* tab, int k, uint3
   }
 }
 
+// K5's FFT over half h given its tables, out of line: the partial's
+// instances of one k share it.
+template <uint32_t LOG_K>
+__attribute__((noinline)) void twin_leo_half_fft_at(uint32_t (&x)[1u << (LOG_K - 1)],
+                                                    const uint32_t* fft, uint32_t h) {
+  ctt::leo_half_fft_at<LOG_K>(x, fft, h);
+}
+
+template <uint32_t LOG_K, uint32_t LOG_M>
+__attribute__((noinline)) void twin_leo_partial_ifft(const uint8_t* p, uint64_t stride,
+                                                     const uint32_t* tab, uint32_t j0, uint32_t h,
+                                                     uint32_t (&x)[1u << (LOG_K - 1)]) {
+  ctt::leo_partial_ifft<LOG_K, LOG_M>(p, stride, tab, j0, h, x);
+}
+
+// The blocks of one rs_leopard_partial_kernel launch one after another,
+// each word column's two threads in turn (at m = k K5's encode, its cross
+// step over both halves as twin_leo_axes takes it).
+template <uint32_t LOG_K, uint32_t LOG_M>
+void twin_leo_partial(const uint8_t* top, uint8_t* partial, const uint32_t* tab, uint32_t j0,
+                      uint32_t n) {
+  constexpr uint32_t K = 1u << LOG_K, M = 1u << LOG_M;
+  const uint64_t row = 2ull * K * ctt::kLeoShare;
+  for (uint32_t b = 0; b < n; ++b)
+    for (uint32_t c = 0; c < 2 * K; ++c)
+      for (uint32_t w = 0; w < ctt::kLeoWords; ++w) {
+        const uint8_t* in = top + b * M * row + c * ctt::kLeoShare + 4 * w;
+        uint8_t* out = partial + b * K * row + c * ctt::kLeoShare + 4 * w;
+        if constexpr (LOG_K == 0) {
+          memcpy(out, in, 4);
+        } else {
+          uint32_t x[2][K / 2];
+          if constexpr (LOG_M == LOG_K) {
+            uint32_t t[5];
+            for (uint32_t h = 0; h < 2; ++h) {
+              ctt::leo_half_load<LOG_K>(in, row, h, x[h]);
+              ctt::leo_half_ifft<LOG_K>(x[h], tab, h);
+            }
+            ctt::leo_load_group(ctt::leo_cross_group(tab, K), t);
+            for (uint32_t i = 0; i < K / 2; ++i) {
+              const uint32_t a0 = x[0][i], a1 = x[1][i];
+              x[0][i] = ctt::leo_cross_word(a0, a1, t);
+              x[1][i] = ctt::leo_cross_word(a1, a0, t);
+            }
+          } else {
+            for (uint32_t h = 0; h < 2; ++h)
+              twin_leo_partial_ifft<LOG_K, LOG_M>(in, row, tab, j0, h, x[h]);
+          }
+          for (uint32_t h = 0; h < 2; ++h) {
+            twin_leo_half_fft_at<LOG_K>(
+                x[h], tab + ctt::kLeoGroupWords * ctt::leo_partial_fft_group(K, M), h);
+            ctt::leo_half_store<LOG_K>(out, row, h, x[h]);
+          }
+        }
+      }
+}
+
+template <uint32_t LOG_K, uint32_t LOG_M = 0>
+void twin_leo_partial_m(uint32_t log_m, const uint8_t* top, uint8_t* partial, const uint32_t* tab,
+                        uint32_t j0, uint32_t n) {
+  if constexpr (LOG_M <= LOG_K) {
+    if (log_m == LOG_M) return twin_leo_partial<LOG_K, LOG_M>(top, partial, tab, j0, n);
+    twin_leo_partial_m<LOG_K, LOG_M + 1>(log_m, top, partial, tab, j0, n);
+  }
+}
+
 // The derivative of rs_leopard_decode_kernel over a column's 2^C threads
 // in lockstep: at each word M every thread's partners' word M is taken
 // before any thread overwrites its own (the kernel's shuffles).
@@ -770,6 +836,37 @@ int twin_rs_leopard_decode_axes(uint8_t* eds, const uint8_t* known, const int32_
     case 6: twin_leo_decode_k<6>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
     case 7: twin_leo_decode_k<7>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
     case 8: twin_leo_decode_k<8>(eds, known, axes, tab, gexp, glog, na, as, ps); break;
+    default: return 1;
+  }
+  return 0;
+}
+
+// K9a under leopard-ff8 (rs_leopard_partial.cu).  The shard's tables, as
+// ctt_rs_leopard_partial_tables: 0, or 1 where the C entry refuses.
+int twin_rs_leopard_partial_tables(const uint8_t* gexp, const uint8_t* glog, int k, int m, int j0,
+                                   uint32_t* out, long long out_bytes) {
+  if (ctt::leo_partial_bad_shard(k, m, j0) ||
+      out_bytes < static_cast<long long>(ctt::leo_partial_table_bytes(uint32_t(k), uint32_t(m))))
+    return 1;
+  ctt::leo_partial_tables(gexp, glog, uint32_t(k), uint32_t(m), uint32_t(j0), out);
+  return 0;
+}
+
+// top uint8[n, m, 2k, 512] -> partial uint8[n, k, 2k, 512], as
+// ctt_rs_leopard_col_parity_partial launches it: 0, or 1 where it refuses.
+int twin_rs_leopard_col_parity_partial(const uint8_t* top, uint8_t* partial, const uint32_t* tab,
+                                       int k, int m, int j0, int n) {
+  if (ctt::leo_partial_bad_shard(k, m, j0) || n < 0 || n > 65535) return 1;
+  const uint32_t log_m = ctt::log2_exact(uint64_t(m)), j = uint32_t(j0), z = uint32_t(n);
+  switch (ctt::log2_exact(uint64_t(k))) {
+    case 0: twin_leo_partial_m<0>(log_m, top, partial, tab, j, z); break;
+    case 1: twin_leo_partial_m<1>(log_m, top, partial, tab, j, z); break;
+    case 2: twin_leo_partial_m<2>(log_m, top, partial, tab, j, z); break;
+    case 3: twin_leo_partial_m<3>(log_m, top, partial, tab, j, z); break;
+    case 4: twin_leo_partial_m<4>(log_m, top, partial, tab, j, z); break;
+    case 5: twin_leo_partial_m<5>(log_m, top, partial, tab, j, z); break;
+    case 6: twin_leo_partial_m<6>(log_m, top, partial, tab, j, z); break;
+    case 7: twin_leo_partial_m<7>(log_m, top, partial, tab, j, z); break;
     default: return 1;
   }
   return 0;

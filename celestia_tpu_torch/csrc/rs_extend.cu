@@ -3,8 +3,10 @@
 // package's bit-GEMM form.  Under the lagrange-gf256 codec K5, K5b and
 // K5's row pass run this file's kernel; under leopard-ff8 they run
 // Leopard's FFT (rs_leopard.cu), and this kernel given leopard's encode
-// matrix is the yardstick chip_smoke.py holds that one against.  K9a and
-// K8b (rs_decode.cu) run the bit-GEMM under both codecs.
+// matrix is the yardstick chip_smoke.py holds that one against.  K9a below
+// and K8b (rs_decode.cu) run the bit-GEMM under lagrange-gf256 alone; under
+// leopard-ff8 they run Leopard's forms (rs_leopard_partial.cu,
+// rs_leopard_decode.cu), and these kernels are their yardsticks.
 //
 // Replaces: celestia_tpu/ops/rs.py:64 `_extend` (with `unpack_bits` :36,
 // `pack_bits` :44, `matmul_gf2` :52, `_row_parity` :58; jit `_extend_fn`
@@ -41,7 +43,8 @@
 // kernel over n row axes, each row's Q0 half copied beside its parity.
 // Not a new kernel; its launches count as K5's.
 //
-// K9a `rs_col_parity_partial` (ctt_rs_col_parity_partial) replaces
+// K9a `rs_col_parity_partial` (ctt_rs_col_parity_partial; under
+// lagrange-gf256, rs_leopard_partial.cu under leopard-ff8) replaces
 // celestia_tpu/parallel/sharded.py:78-87: the `g_cols` dynamic slice of the
 // bit-expanded encode matrix and the int32 matmul of a shard's bit planes,
 // (G[:, 8 j0 : 8 (j0 + k/R)] @ bits) & 1, packed.  A shard holding rows

@@ -1,6 +1,7 @@
 // K5 under leopard-ff8: Leopard's O(k log k) encode of one axis, as
 // per-thread code shared by the kernel (rs_leopard.cu) and the g++ CPU twin
-// (cpu_twin.cpp), and the function that builds its skew tables.
+// (cpu_twin.cpp), and the function that builds its skew tables; below, K9a's
+// pruned encode of a row shard's column partial (rs_leopard_partial.cu).
 //
 // The map, per axis of k data shares (Leopard's high-rate layout: data at
 // the coset k ^ [0, k), parity at the coset [0, k)):
@@ -204,12 +205,21 @@ CTT_HD void leo_half_ifft(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab,
   }
 }
 
+// The FFT's layers given its own tables `fft` (its k - 1 groups in
+// leo_group order from the FFT's first): K5's after its IFFT's, K9a's
+// after its shard's (leo_partial_fft_group).
 template <uint32_t LOG_K, uint32_t J = LOG_K - 1>
-CTT_HD void leo_half_fft(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
+CTT_HD void leo_half_fft_at(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* fft, uint32_t h) {
   if constexpr (J > 0) {
-    leo_half_layer<LOG_K, J - 1, true>(x, tab, h);
-    leo_half_fft<LOG_K, J - 1>(x, tab, h);
+    constexpr uint32_t K = 1u << LOG_K;
+    leo_part_layer<LOG_K - 1, J - 1, true>(x, fft + kLeoGroupWords * (K - (K >> (J - 1))), h);
+    leo_half_fft_at<LOG_K, J - 1>(x, fft, h);
   }
+}
+
+template <uint32_t LOG_K>
+CTT_HD void leo_half_fft(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t h) {
+  leo_half_fft_at<LOG_K>(x, tab + kLeoGroupWords * ((1u << LOG_K) - 1), h);
 }
 
 // The tables of the cross step's skew (the IFFT's last layer, group 0).
@@ -260,5 +270,152 @@ struct LeoAxisSet {
   uint8_t* out;
   uint64_t as, ps, oas, ops;
 };
+
+// K9a under leopard-ff8: a shard's column-parity partial (rs_leopard_partial.cu).
+// The shard holds data rows j0 .. j0 + m - 1 of each column codeword (m =
+// k/R a power of two, j0 a multiple of m); its partial is the parity of
+// Leopard's encode of the column with the other k - m data rows zero, so
+// the R shards' partials XOR to the parity (the encode is linear).  Layer
+// j of the IFFT pairs positions inside aligned groups of 2^(j+1), so:
+// - the layers with 2^j < m act inside the shard's block alone: the
+//   block's own IFFT, (m/2) log2 m butterflies, with the skews of the
+//   block's groups (leo_partial_block_ifft);
+// - each later layer doubles the nonzero span, and every one of its 2^j
+//   butterflies has one zero operand: with the span in the lower half of
+//   its group (bit j of j0 clear) b = a, a ^= s*a; in the upper half a =
+//   s*b.  Kept in registers in position order, span word v becomes the
+//   lower word s*v ^ (v if bit j of j0 is clear) and the upper word v:
+//   one multiply a word (leo_partial_spread);
+// - the IFFT's last layer and the FFT's first (group 0, skew 0) fold into
+//   one top step, as K5's cross step does, and with one half zero it needs
+//   no exchange: the half h that holds the block (bit log2 k - 1 of j0)
+//   gets v ^ s*v, the other s*v (leo_partial_top);
+// - the FFT over the k parity points is K5's (leo_half_fft_at).
+// At k = 128, m = 16 a column takes 32 + 112 + 448 word multiplies against
+// a full encode's 896.  Both threads of a word column run the block's IFFT
+// and spread on the same m loaded words, which leaves no lane idle and
+// needs no shuffle; they part at the top step into K5's halves.  m = k is
+// K5's encode (the tables are then K5's).
+
+// Whether (k, m, j0) is no shard the partial kernel takes: k a power of
+// two <= 128, m a power of two <= k, j0 a multiple of m with j0 + m <= k.
+CTT_HD bool leo_partial_bad_shard(int k, int m, int j0) {
+  return k < 1 || log2_exact(static_cast<uint64_t>(k)) > kLeoMaxLogK || m < 1 || m > k ||
+         (m & (m - 1)) || j0 < 0 || j0 % m || j0 + m > k;
+}
+
+// Skew groups of a shard's partial: the block's m - 1, one a later IFFT
+// layer (log2 k - log2 m, the top step's last), then the FFT's k - 1.
+CTT_HD uint32_t leo_partial_fft_group(uint32_t k, uint32_t m) {
+  return (m - 1) + (log2_exact(k) - log2_exact(m));
+}
+CTT_HD uint32_t leo_partial_groups(uint32_t k, uint32_t m) {
+  return k > 1 ? leo_partial_fft_group(k, m) + (k - 1) : 0;
+}
+CTT_HD uint32_t leo_partial_table_bytes(uint32_t k, uint32_t m) {
+  return leo_partial_groups(k, m) * kLeoGroupWords * 4;
+}
+
+// The 6 words of each group of the partial of the shard at j0 (m rows): the
+// IFFT's layer j < log2 m has m >> (j + 1) groups (from m - (m >> j)), its
+// layer j >= log2 m one (at m - 1 + j - log2 m), each group's skew that of
+// its place in the k-share IFFT; then the FFT's k - 1 groups, as K5's.
+CTT_HD void leo_partial_tables(const uint8_t* gexp, const uint8_t* glog, uint32_t k, uint32_t m,
+                               uint32_t j0, uint32_t* out) {
+  uint8_t skew[8][256];
+  leo_skews(gexp, glog, skew);
+  const uint32_t log_k = log2_exact(k), log_m = log2_exact(m);
+  for (uint32_t j = 0; j < log_k; ++j) {
+    const uint32_t span = 2u << j, base = j0 & ~(span - 1);
+    for (uint32_t g = 0; g < (j < log_m ? m >> (j + 1) : 1u); ++g, out += kLeoGroupWords)
+      leo_mul_tables(skew[j][(k ^ (base + g * span)) & 255u], gexp, glog, out);
+  }
+  for (uint32_t j = 0; j < log_k; ++j)
+    for (uint32_t g = 0; g < (k >> (j + 1)); ++g, out += kLeoGroupWords)
+      leo_mul_tables(skew[j][(g << (j + 1)) & 255u], gexp, glog, out);
+}
+
+// The block's IFFT layers J < log2 m over words 0 .. m - 1 of x.
+template <uint32_t LOG_H, uint32_t LOG_M, uint32_t J = 0>
+CTT_HD void leo_partial_block_ifft(uint32_t (&x)[1u << LOG_H], const uint32_t* tab) {
+  if constexpr (J < LOG_M) {
+    constexpr uint32_t M = 1u << LOG_M, dist = 1u << J;
+#pragma unroll
+    for (uint32_t g = 0; g < M / (2 * dist); ++g) {
+      uint32_t t[5];
+      leo_load_group(tab + kLeoGroupWords * (M - (M >> J) + g), t);
+#pragma unroll
+      for (uint32_t i = 0; i < dist; ++i) {
+        uint32_t& a = x[2 * dist * g + i];
+        uint32_t& b = x[2 * dist * g + i + dist];
+        b ^= a;
+        a ^= leo_mul_word(b, t);
+      }
+    }
+    leo_partial_block_ifft<LOG_H, LOG_M, J + 1>(x, tab);
+  }
+}
+
+// IFFT layer J >= log2 m over the span x[0 .. 2^J), into x[0 .. 2^(J+1)):
+// `keep` all ones where the span is its group's lower half, else zero.
+template <uint32_t LOG_H, uint32_t J>
+CTT_HD void leo_partial_spread(uint32_t (&x)[1u << LOG_H], const uint32_t t[5], uint32_t keep) {
+#pragma unroll
+  for (uint32_t i = 0; i < (1u << J); ++i) {
+    const uint32_t v = x[i];
+    x[i + (1u << J)] = v;
+    x[i] = leo_mul_word(v, t) ^ (v & keep);
+  }
+}
+
+// The IFFT's layers J = log2 m .. log2 k - 2 of the shard at j0.
+template <uint32_t LOG_K, uint32_t LOG_M, uint32_t J = LOG_M>
+CTT_HD void leo_partial_spreads(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab,
+                                uint32_t j0) {
+  if constexpr (J + 1 < LOG_K) {
+    uint32_t t[5];
+    leo_load_group(tab + kLeoGroupWords * ((1u << LOG_M) - 1 + J - LOG_M), t);
+    leo_partial_spread<LOG_K - 1, J>(x, t, (j0 >> J) & 1u ? 0u : ~0u);
+    leo_partial_spreads<LOG_K, LOG_M, J + 1>(x, tab, j0);
+  }
+}
+
+// The top step on the span of k/2 words: half h's words after the IFFT's
+// last layer and the FFT's first.
+template <uint32_t LOG_K, uint32_t LOG_M>
+CTT_HD void leo_partial_top(uint32_t (&x)[1u << (LOG_K - 1)], const uint32_t* tab, uint32_t j0,
+                            uint32_t h) {
+  uint32_t t[5];
+  leo_load_group(tab + kLeoGroupWords * (((1u << LOG_M) - 1) + (LOG_K - 1 - LOG_M)), t);
+  const uint32_t keep = ((j0 >> (LOG_K - 1)) & 1u) == h ? ~0u : 0u;
+#pragma unroll
+  for (uint32_t i = 0; i < (1u << (LOG_K - 1)); ++i) x[i] = leo_mul_word(x[i], t) ^ (x[i] & keep);
+}
+
+// The shard's m words of a word column: the 4 bytes at p + i * stride.
+template <uint32_t LOG_H, uint32_t LOG_M>
+CTT_HD void leo_partial_load(const uint8_t* p, uint64_t stride, uint32_t (&x)[1u << LOG_H]) {
+#pragma unroll
+  for (uint32_t i = 0; i < (1u << LOG_M); ++i) {
+    const uint8_t* q = p + i * stride;
+#ifdef __CUDA_ARCH__
+    x[i] = *reinterpret_cast<const uint32_t*>(q);
+#else
+    memcpy(&x[i], q, 4);
+#endif
+  }
+}
+
+// Half h's k/2 words of a word column's partial before its FFT, m < k:
+// the block loaded, its IFFT, the spread, the top step.
+template <uint32_t LOG_K, uint32_t LOG_M>
+CTT_HD void leo_partial_ifft(const uint8_t* p, uint64_t stride, const uint32_t* tab, uint32_t j0,
+                             uint32_t h, uint32_t (&x)[1u << (LOG_K - 1)]) {
+  static_assert(LOG_M < LOG_K, "m = k is K5's encode");
+  leo_partial_load<LOG_K - 1, LOG_M>(p, stride, x);
+  leo_partial_block_ifft<LOG_K - 1, LOG_M>(x, tab);
+  leo_partial_spreads<LOG_K, LOG_M>(x, tab, j0);
+  leo_partial_top<LOG_K, LOG_M>(x, tab, j0, h);
+}
 
 }  // namespace ctt

@@ -13,8 +13,9 @@ built.  A failed build raises; nothing falls back.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0.  A host
-entry (``ctt_rs_leopard_tables``, K5's skew tables, and
-``ctt_rs_leopard_decode_tables``, K8b's) runs on the CPU and launches
+entry (``ctt_rs_leopard_tables``, K5's skew tables,
+``ctt_rs_leopard_decode_tables``, K8b's, and
+``ctt_rs_leopard_partial_tables``, K9a's) runs on the CPU and launches
 nothing: :func:`host_call`.  Each
 kernel keeps a plain integer count of its launches (:func:`launch_counts`),
 which ``chip_smoke.py`` reads to show that the main path went through it.
@@ -64,15 +65,18 @@ _SIGNATURES = {
     "ctt_rs_leopard_extend_batched": (_P, _P, _P, _I, _I, _P),
     "ctt_rs_leopard_extend_rows": (_P, _P, _P, _I, _I, _P),
     "ctt_rs_leopard_decode_axes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ctt_rs_leopard_col_parity_partial": (_P, _P, _P, _I, _I, _I, _I, _P),
     # host entries (no stream; :func:`host_call`)
     "ctt_rs_leopard_tables": (_P, _P, _I, _P, _LL),
     "ctt_rs_leopard_decode_tables": (_P, _P, _I, _P, _LL),
+    "ctt_rs_leopard_partial_tables": (_P, _P, _I, _I, _I, _P, _LL),
 }
 
 # kernel name -> C entry; the names chip_smoke.py and PERF.md report.  K5
-# and K5b launch ``ctt_rs_leopard_extend*`` and K8b
-# ``ctt_rs_leopard_decode_axes`` under leopard-ff8 (ops/rs.py picks the
-# entry by codec); their launches count under these names.
+# and K5b launch ``ctt_rs_leopard_extend*``, K8b
+# ``ctt_rs_leopard_decode_axes`` and K9a ``ctt_rs_leopard_col_parity_partial``
+# under leopard-ff8 (ops/rs.py picks the entry by codec); their launches
+# count under these names.
 KERNELS = {
     "sha256_batch": "ctt_sha256_batch",
     "nmt_leaf_digests": "ctt_nmt_leaf_digests",

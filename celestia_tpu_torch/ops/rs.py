@@ -32,24 +32,26 @@ selection").
 ``rs_extend_batched`` on the card).  The sharded extension
 (parallel/sharded.py, K9) runs K5's row pass on a shard's rows
 (:func:`extend_rows`), its column-parity partial (K9a
-``rs_col_parity_partial``, :func:`col_parity_partial`) and the XOR of the
-partials' slabs, read where they lie (K9b ``xor_reduce_slabs``,
-:func:`xor_reduce_scatter`).  The repair half (``rsmt2d.Repair``,
-:func:`repair_square_device`) peels the availability mask on the host
-(:func:`_simulate_schedule`, bools only), then on the square's device
-decodes the solvable axes of each phase and orientation in place (K8b
-``rs_decode_axes``), re-extends Q0 (K5), flags the cells that disagree
-(K8c ``rs_repair_verdicts``) and hashes the axis roots (K2 + K3), then
-fetches the verdicts once.  K8b's kernel is the codec's, as K5's: under
-``leopard-ff8`` Leopard's O(k log k) erasure decode from each axis's k
-known positions (``csrc/rs_leopard_decode.cu``, its plain version
+``rs_col_parity_partial``, :func:`col_parity_partial`; its kernel the
+codec's, as K5's: under ``leopard-ff8`` Leopard's encode with the shard's
+zero rows pruned, ``csrc/rs_leopard_partial.cu``; under ``lagrange-gf256``
+the bit-GEMM) and the XOR of the partials' slabs, read where they lie (K9b
+``xor_reduce_slabs``, :func:`xor_reduce_scatter`).  The repair half
+(``rsmt2d.Repair``, :func:`repair_square_device`) peels the availability
+mask on the host (:func:`_simulate_schedule`, bools only), then on the
+square's device decodes the solvable axes of each phase and orientation in
+place (K8b ``rs_decode_axes``), re-extends Q0 (K5), flags the cells that
+disagree (K8c ``rs_repair_verdicts``) and hashes the axis roots (K2 + K3),
+then fetches the verdicts once.  K8b's kernel is the codec's, as K5's:
+under ``leopard-ff8`` Leopard's O(k log k) erasure decode from each axis's
+k known positions (``csrc/rs_leopard_decode.cu``, its plain version
 :func:`decode_axes_fft_plain`); under ``lagrange-gf256`` every Lagrange
 decode matrix built in one launch first (K8a ``rs_decode_matrices``) and
 the bit-GEMM (``csrc/rs_decode.cu``, its plain version the JAX package's
 GF(2) lift, :func:`_bit_expand_dev`).  On CPU tensors the same host loop
-runs the plain versions.  :func:`repair_square` is the JAX
-package's host repair on the native library: Leopard's erasure decoder
-under ``leopard-ff8``, the Lagrange matrices and a GF matmul under
+runs the plain versions.  :func:`repair_square` is the JAX package's host
+repair on the native library: Leopard's erasure decoder under
+``leopard-ff8``, the Lagrange matrices and a GF matmul under
 ``lagrange-gf256``, a native re-extension and root pass to check.
 """
 
@@ -419,17 +421,59 @@ def extend_rows(rows: torch.Tensor, codec: str, out: torch.Tensor = None) -> tor
     return extend_rows_cuda(rows, codec, out)
 
 
-def partial_coefficients(k: int, j0: int, n_in: int, codec: str, device) -> tuple:
-    """K9a's coefficients for the shard whose rows start at ``j0``, on
-    ``device``: on the card the shard's column slice of
-    ``gf256.encode_matrix(k, codec)`` (uint8[k, n_in]) and the codec's
-    (exp, log) tables; on the CPU the same slice of the bit-expanded matrix,
-    ``G[:, 8 j0 : 8 (j0 + n_in)]`` (JAX's ``g_cols``, sharded.py:83)."""
-    device = torch.device(device)
+def _check_shard(k: int, j0: int, n_in: int) -> None:
     if not (0 <= j0 and n_in >= 1 and j0 + n_in <= k):
         raise ValueError(f"rows {j0}..{j0 + n_in - 1} are not rows of a square of {k}")
+
+
+def partial_coefficients(k: int, j0: int, n_in: int, codec: str, device) -> tuple:
+    """K9a's coefficients for the shard whose rows start at ``j0``, on
+    ``device``.  On the CPU the shard's column slice of the bit-expanded
+    matrix, ``(G[:, 8 j0 : 8 (j0 + n_in)],)`` (JAX's ``g_cols``,
+    sharded.py:83).  On the card the codec and its form's constants,
+    which :func:`col_parity_partial_cuda` takes: under leopard-ff8 the
+    shard's skew tables and j0 (:func:`leopard_partial_coefficients`),
+    under lagrange-gf256 the shard's column slice of the encode matrix and
+    the field tables (:func:`bit_gemm_partial_coefficients`)."""
+    device = torch.device(device)
+    _check_shard(k, j0, n_in)
     if device.type == "cpu":
         return (encode_matrix_bits_tensor(k, codec, "cpu")[:, 8 * j0 : 8 * (j0 + n_in)],)
+    if _fft_form(codec):
+        return (codec, *leopard_partial_coefficients(k, j0, n_in, device))
+    return (codec, *bit_gemm_partial_coefficients(k, j0, n_in, codec, device))
+
+
+def _leopard_partial_table_bytes(k: int, n_in: int) -> int:
+    """Bytes of the FFT form's tables for a shard of n_in rows of k
+    (csrc/rs_leopard.cuh ``leo_partial_table_bytes``; at least 1)."""
+    groups = (n_in - 1) + (k.bit_length() - n_in.bit_length()) + (k - 1) if k > 1 else 0
+    return max(1, groups * _LEO_GROUP_BYTES)
+
+
+def leopard_partial_coefficients(k: int, j0: int, n_in: int, device) -> tuple:
+    """The FFT form's constants for the shard at ``j0`` of ``n_in`` rows
+    (a power of two dividing j0): its skew tables
+    (``ctt_rs_leopard_partial_tables``, whose function the g++ twin runs
+    too: the block's n_in - 1 groups, one a later IFFT layer, the FFT's k
+    - 1, 24 bytes each) as a uint8 tensor on ``device``, and j0."""
+    _check_shard(k, j0, n_in)
+    if not is_power_of_two(n_in) or j0 % n_in:
+        raise ValueError(f"the FFT form takes a power-of-two shard at a multiple of its rows, "
+                         f"got rows {j0}..{j0 + n_in - 1}")
+    exp, log = (np.ascontiguousarray(a, dtype=np.uint8)
+                for a in gf256.field_tables(gf256.CODEC_LEOPARD))
+    out = np.zeros(_leopard_partial_table_bytes(k, n_in), dtype=np.uint8)
+    kernels.host_call("ctt_rs_leopard_partial_tables", exp.ctypes.data, log.ctypes.data, k, n_in,
+                      j0, out.ctypes.data, out.nbytes)
+    return torch.from_numpy(out).to(device), j0
+
+
+def bit_gemm_partial_coefficients(k: int, j0: int, n_in: int, codec: str, device) -> tuple:
+    """The bit-GEMM form's constants for the shard at ``j0``, on
+    ``device``: the shard's column slice of ``gf256.encode_matrix(k,
+    codec)`` (uint8[k, n_in]) and the codec's (exp, log) tables."""
+    _check_shard(k, j0, n_in)
     E = np.ascontiguousarray(gf256.encode_matrix(k, codec)[:, j0 : j0 + n_in], dtype=np.uint8)
     exp, log = gf256.field_tables(codec)
     return tuple(
@@ -457,35 +501,76 @@ def col_parity_partial_plain(top: torch.Tensor, g_cols: torch.Tensor) -> torch.T
     return pack_bits(matmul_gf2(g_cols, bits)).transpose(1, 2).contiguous()
 
 
-def col_parity_partial_cuda(top: torch.Tensor, Es: torch.Tensor, exp: torch.Tensor,
-                            log: torch.Tensor) -> torch.Tensor:
-    """Launch K9a ``rs_col_parity_partial``: top uint8[n, n_in, 2k, 512] on
-    the card with the shard's slice ``Es`` uint8[k, n_in] of the encode
-    matrix -> partial uint8[n, k, 2k, 512]."""
-    k, n_in = Es.shape
+def _partial_out(top: torch.Tensor, k: int, n_in: int) -> torch.Tensor:
+    """Check a shard's top rows on the card for a K9a launch and allocate
+    its partial uint8[n, k, 2k, 512]."""
     if not is_power_of_two(k) or k > 128 or _check_top(top, k) != n_in:
-        raise ValueError(f"top {tuple(top.shape)} and Es {tuple(Es.shape)} disagree")
+        raise ValueError(f"top {tuple(top.shape)} is no shard of {n_in} rows of a square of {k}")
     n = top.shape[0]
     kernels.check_cuda_tensor(top, "top", (n, n_in, 2 * k, SHARE_SIZE))
     _check_aligned(top, "top")
+    return torch.empty((n, k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=top.device)
+
+
+def col_parity_partial_fft_cuda(top: torch.Tensor, tab: torch.Tensor, j0: int) -> torch.Tensor:
+    """Launch K9a ``rs_col_parity_partial`` in its leopard-ff8 form,
+    Leopard's O(k log k) encode with the shard's zero rows pruned
+    (``ctt_rs_leopard_col_parity_partial``, csrc/rs_leopard_partial.cu):
+    top uint8[n, n_in, 2k, 512] on the card, the shard's rows from ``j0``,
+    with its :func:`leopard_partial_coefficients` tables ``tab`` ->
+    partial uint8[n, k, 2k, 512]."""
+    if top.dim() != 4:
+        raise ValueError(f"top must be (n, n_in, 2k, 512), got {tuple(top.shape)}")
+    k, n_in = top.shape[2] // 2, top.shape[1]
+    partial = _partial_out(top, k, n_in)
+    kernels.check_cuda_tensor(tab, "tab", (_leopard_partial_table_bytes(k, n_in),))
+    if tab.device != top.device:
+        raise ValueError(f"tab is on {tab.device}, top on {top.device}")
+    if top.shape[0]:
+        kernels.launch(
+            "rs_col_parity_partial", top.device, top.data_ptr(), partial.data_ptr(),
+            tab.data_ptr(), k, n_in, j0, top.shape[0], entry="ctt_rs_leopard_col_parity_partial",
+        )
+    return partial
+
+
+def col_parity_partial_bit_gemm_cuda(top: torch.Tensor, Es: torch.Tensor, exp: torch.Tensor,
+                                     log: torch.Tensor) -> torch.Tensor:
+    """Launch K9a ``rs_col_parity_partial`` in its bit-GEMM form
+    (``ctt_rs_col_parity_partial``, csrc/rs_extend.cu) whatever the codec:
+    top uint8[n, n_in, 2k, 512] on the card with the shard's slice ``Es``
+    uint8[k, n_in] of the encode matrix -> partial uint8[n, k, 2k, 512].
+    What :func:`col_parity_partial_cuda` runs under lagrange-gf256; under
+    leopard-ff8 the yardstick ``chip_smoke.py`` holds the FFT form
+    against, on no path."""
+    k, n_in = Es.shape
+    partial = _partial_out(top, k, n_in)
     for t, name in ((Es, "Es"), (exp, "exp"), (log, "log")):
         kernels.check_cuda_tensor(t, name)
         if t.device != top.device:
             raise ValueError(f"{name} is on {t.device}, top on {top.device}")
-    partial = torch.empty((n, k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=top.device)
-    if n:
+    if top.shape[0]:
         kernels.launch(
             "rs_col_parity_partial", top.device, top.data_ptr(), partial.data_ptr(),
-            Es.data_ptr(), exp.data_ptr(), log.data_ptr(), k, n_in, n,
+            Es.data_ptr(), exp.data_ptr(), log.data_ptr(), k, n_in, top.shape[0],
         )
     return partial
+
+
+def col_parity_partial_cuda(top: torch.Tensor, codec: str, *constants) -> torch.Tensor:
+    """Launch K9a in ``codec``'s form with the form's ``constants`` (the
+    card's :func:`partial_coefficients` after its codec): the FFT form
+    under leopard-ff8, the bit-GEMM under lagrange-gf256."""
+    if _fft_form(codec):
+        return col_parity_partial_fft_cuda(top, *constants)
+    return col_parity_partial_bit_gemm_cuda(top, *constants)
 
 
 def col_parity_partial(top: torch.Tensor, coefficients: tuple) -> torch.Tensor:
     """A shard's share of every column-parity row: top uint8[n, n_in, 2k,
     512] -> uint8[n, k, 2k, 512], with the shard's
-    :func:`partial_coefficients`: K9a on a CUDA tensor, the plain version
-    on a CPU tensor."""
+    :func:`partial_coefficients` on top's device: K9a in the codec's form
+    on a CUDA tensor, the plain bit-lift on a CPU tensor."""
     if top.device.type == "cpu":
         return col_parity_partial_plain(top, *coefficients)
     return col_parity_partial_cuda(top, *coefficients)

@@ -204,6 +204,19 @@ def leopard_extend_ops(k: int) -> int:
     return 3 * k * butterflies * (512 // 4) * 3
 
 
+def leopard_partial_ops(k: int, R: int) -> int:
+    """32-bit operations of the least-work form of the R row shards'
+    column-parity partials (K9a under leopard-ff8), counted low as
+    ``leopard_extend_ops`` counts the extension: per shard and column
+    codeword of the 2k, the IFFT inside the shard's block of m = k/R rows,
+    (m/2)*log2(m) butterflies at 3 operations per 4-byte word; the k - m
+    butterflies that spread it over the k points, each with one zero
+    operand, at 1 (the multiply); and the FFT's (k/2)*log2(k) at 3."""
+    m = k // R
+    full = 3 * ((m // 2) * (m.bit_length() - 1) + (k // 2) * (k.bit_length() - 1))
+    return R * 2 * k * (full + (k - m)) * (512 // 4)
+
+
 def leopard_decode_ops(k: int, axes: int) -> int:
     """32-bit operations of the least-work Leopard erasure decode of
     ``axes`` codewords, counted low as ``leopard_extend_ops`` counts the

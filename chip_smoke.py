@@ -30,16 +30,23 @@ default runs every phase and every check:
    1..128 and K5's row pass and K9a (n_in = k/R down to 1) for both
    codecs; under leopard-ff8 the FFT kernel of K5, K5b (3 squares) and
    the row pass (k + 3 rows) at every k = 1..128 against the plain path and
-   against the bit-GEMM kernel given leopard's encode matrix; K8b's
+   against the bit-GEMM kernel given leopard's encode matrix; K9a's
+   Leopard form (the pruned encode) at every k = 1..128 and every R = 1..k
+   on each shard of a batch of 2 against its plain version and the
+   bit-GEMM, the R partials' XOR against the parity rows, and under both
+   codecs through the sharded path's dispatch (the codec's C entry alone
+   launched); K8b's
    bit-GEMM (K8a's matrices) at every k = 1..128 for both codecs and,
    under leopard-ff8, its Leopard decode against its plain version and the
    bit-GEMM, on k + 3, 20 and 2 axes a k (its three launch shapes), rows
    and columns, the unknown cells garbage; each kernel's
    time as the host issues it and its GPU time (queued behind a sleep)
-   beside its bound, plain and library times, K5's, K5b's and K8b's two
-   kernels timed in turns, the bit-GEMM kernels' share of their
-   tensor-core floor, the FFT kernel's and the Leopard decode's registers,
-   spills and SASS opcode mix; K4's per-level latency, the slope of its GPU
+   beside its bound, plain and library times, K5's, K5b's, K8b's and K9a's
+   two kernels timed in turns (K9a over 8 shards at k = 64 and 128), the
+   bit-GEMM kernels' share of their tensor-core floor, the FFT kernel's,
+   the Leopard decode's and K9a's Leopard kernel's registers, spills and
+   SASS opcode mix (more than 128 registers or a spill in K9a's k = 128
+   instances fails the phase); K4's per-level latency, the slope of its GPU
    time at batch 1 over n = 2..1024 leaves and over n = 2..32 (warp 0
    alone: half of it is one compression's latency in the kernel), and K3's
    and K4's dependency floor (their levels' chain of compressions at that
@@ -239,6 +246,7 @@ from celestia_tpu_torch.utils.devprof import (  # noqa: E402
     decode_matrix_ops,
     leopard_decode_ops,
     leopard_extend_ops,
+    leopard_partial_ops,
 )
 
 REPLACES = {
@@ -266,10 +274,11 @@ SOURCES = {
     "rs_decode_matrices": "celestia_tpu_torch/csrc/rs_decode.cu",
     "rs_decode_axes": "celestia_tpu_torch/csrc/rs_leopard_decode.cu",
     "rs_repair_verdicts": "celestia_tpu_torch/csrc/rs_decode.cu",
-    "rs_col_parity_partial": "celestia_tpu_torch/csrc/rs_extend.cu",
+    "rs_col_parity_partial": "celestia_tpu_torch/csrc/rs_leopard_partial.cu",
     "xor_reduce_slabs": "celestia_tpu_torch/csrc/rs_sharded.cu",
 }
-# K5, K5b and K8b run Leopard's kernels (the FFT, the erasure decode) under
+# K5, K5b, K8b and K9a run Leopard's kernels (the FFT, the erasure decode,
+# the pruned encode) under
 # leopard-ff8, the chain's codec and the main path's, and the bit-GEMM
 # kernels under lagrange-gf256: the kernels line reports the Leopard forms
 # under the launch counters' names and the bit-GEMM ones under these, each
@@ -281,12 +290,15 @@ BIT_GEMM_FORMS = {
                                    "celestia_tpu_torch/csrc/rs_extend.cu"),
     "rs_decode_axes_bit_gemm": ("rs_decode_axes", ("ctt_rs_decode_axes",),
                                 "celestia_tpu_torch/csrc/rs_decode.cu"),
+    "rs_col_parity_partial_bit_gemm": ("rs_col_parity_partial", ("ctt_rs_col_parity_partial",),
+                                       "celestia_tpu_torch/csrc/rs_extend.cu"),
 }
 for _name, (_kernel, _, _source) in BIT_GEMM_FORMS.items():
     REPLACES[_name] = REPLACES[_kernel]
     SOURCES[_name] = _source
 LEOPARD_ENTRIES = ("ctt_rs_leopard_extend", "ctt_rs_leopard_extend_batched",
-                   "ctt_rs_leopard_extend_rows", "ctt_rs_leopard_decode_axes")
+                   "ctt_rs_leopard_extend_rows", "ctt_rs_leopard_decode_axes",
+                   "ctt_rs_leopard_col_parity_partial")
 # the kernels each path must launch
 EXTEND_KERNELS = ("nmt_leaf_digests", "nmt_combine_level", "rfc6962_root", "rs_extend")
 SERVE_KERNELS = ("das_proof_gather",)
@@ -2605,6 +2617,40 @@ def main() -> int:
         del s, s3, rows, fft, gemm
         print("K5 under leopard-ff8 (Leopard's FFT kernel): one square, a batch of 3 and the row "
               "pass byte-equal to the plain path and to the bit-GEMM kernel at k=1..128")
+        # K9a's FFT form (leopard-ff8) at every k and every R (n_in = k/R down to
+        # 1): each shard of a batch of 2 squares' top rows (Q0 | Q1) against its
+        # plain version and the bit-GEMM given leopard's E, and the R partials'
+        # XOR against the squares' parity rows
+        k9a_shards = 0
+        for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+            e2 = rs.extend_batched_cuda(upload(rng.integers(0, 256, (2, kk, kk, 512),
+                                                            dtype=np.uint8)), leo)
+            Gk = rs.encode_matrix_bits_tensor(kk, leo, str(dev))
+            R = 1
+            while R <= kk:
+                m = kk // R
+                acc = torch.zeros((2, kk, 2 * kk, 512), dtype=torch.uint8, device=dev)
+                for d in range(R):
+                    what = f"shard {d} of {R} (n_in={m}) at k={kk}, batch of 2"
+                    top = e2[:, d * m : (d + 1) * m].contiguous()
+                    fft = rs.col_parity_partial_cuda(
+                        top, *rs.partial_coefficients(kk, d * m, m, leo, dev))
+                    gemm = rs.col_parity_partial_bit_gemm_cuda(
+                        top, *rs.bit_gemm_partial_coefficients(kk, d * m, m, leo, dev))
+                    plain = rs.col_parity_partial_plain(
+                        top, Gk[:, 8 * d * m : 8 * (d + 1) * m].contiguous())
+                    compare("rs_col_parity_partial", fft, plain, what)
+                    compare("rs_col_parity_partial_bit_gemm", gemm, plain, what)
+                    compare("rs_col_parity_partial", fft, gemm, f"against the bit-GEMM, {what}")
+                    acc ^= fft
+                    k9a_shards += 1
+                compare("rs_col_parity_partial", acc, e2[:, kk:],
+                        f"the {R} partials' XOR against the parity rows, k={kk}, batch of 2")
+                R *= 2
+        del e2, Gk, acc, top, fft, gemm, plain
+        print(f"K9a under leopard-ff8 (Leopard's pruned encode): {k9a_shards} shards at k=1..128, "
+              "every R from 1 to k, a batch of 2, byte-equal to the plain path and to the bit-GEMM "
+              "kernel, every R's partials XOR to the parity rows")
         # the repair kernels and the batched extension (K8a at k = 4, 32, 128;
         # K8b at every k; K8c and K5b at k = 32), K5's row pass and K9a, and the
         # batched K2/K3, both codecs
@@ -2653,7 +2699,9 @@ def main() -> int:
                             compare("rs_decode_axes", got, gemm, f"against the bit-GEMM, {what}")
                 if kk == 32:
                     e32 = ek
-            # K5's row pass and K9a on every shard, down to one input a shard
+            # K5's row pass and K9a on every shard, down to one input a shard;
+            # K9a through the sharded path's dispatch (rs.col_parity_partial),
+            # which launches the codec's kernel and no other
             for kk, R in ((8, 8), (32, 4), (128, 8)):
                 rows_r = kk // R
                 ek = rs.extend_cuda(upload(rng.integers(0, 256, (kk, kk, 512), dtype=np.uint8)), codec)
@@ -2665,13 +2713,22 @@ def main() -> int:
                             rs.extend_rows_cuda(mine[:, :kk].contiguous(), codec), mine,
                             f"row pass of shard {d} of {R} at k={kk} codec={codec}")
                     top = mine[None]
-                    parts.append(rs.col_parity_partial_cuda(
-                        top, *rs.partial_coefficients(kk, d * rows_r, rows_r, codec, dev)))
-                    compare("rs_col_parity_partial", parts[-1], rs.col_parity_partial_plain(
-                        top, Gk[:, 8 * d * rows_r : 8 * (d + 1) * rows_r].contiguous()),
-                        f"shard {d} of {R} (n_in={rows_r}) at k={kk} codec={codec}")
-                compare("rs_col_parity_partial", rs.xor_reduce_slabs_plain(torch.stack(parts))[0],
-                        ek[kk:], f"the {R} partials' XOR against the parity rows, k={kk} codec={codec}")
+                    before = kernels.entry_launch_counts()
+                    parts.append(rs.col_parity_partial(
+                        top, rs.partial_coefficients(kk, d * rows_r, rows_r, codec, dev)))
+                    after = kernels.entry_launch_counts()
+                    k9a_entry = ("ctt_rs_leopard_col_parity_partial"
+                                 if codec == gf256.CODEC_LEOPARD else "ctt_rs_col_parity_partial")
+                    check({e: c - before.get(e, 0) for e, c in after.items()
+                           if c != before.get(e, 0)} == {k9a_entry: 1},
+                          f"K9a under {codec} launched {after} (before {before}), not {k9a_entry}")
+                    compare(k5("rs_col_parity_partial", codec), parts[-1],
+                            rs.col_parity_partial_plain(
+                                top, Gk[:, 8 * d * rows_r : 8 * (d + 1) * rows_r].contiguous()),
+                            f"shard {d} of {R} (n_in={rows_r}) at k={kk} codec={codec}")
+                compare(k5("rs_col_parity_partial", codec),
+                        rs.xor_reduce_slabs_plain(torch.stack(parts))[0], ek[kk:],
+                        f"the {R} partials' XOR against the parity rows, k={kk} codec={codec}")
                 # K3's column subtrees over each shard's top and bottom rows (one
                 # launch each, none at k/R = 1), then the finish over the 2R
                 # gathered nodes a column: the EDS's column roots
@@ -2784,7 +2841,7 @@ def main() -> int:
         # K5's row pass on each shard's rows, K9a's partials (which XOR to the
         # parity rows), K9b over the partials' slabs in place, K2 over its windows
         R9, rows9 = SHARDS, k // SHARDS
-        tops, coeffs9, g_cols9, partials9 = [], [], [], []
+        tops, coeffs9, gemm_coeffs9, g_cols9, partials9 = [], [], [], [], []
         for d in range(R9):
             got = rs.extend_rows_cuda(sq[d * rows9 : (d + 1) * rows9], codec)
             compare("rs_extend", got, rs.extend_rows_plain(sq[d * rows9 : (d + 1) * rows9], codec),
@@ -2794,6 +2851,7 @@ def main() -> int:
             top = eds[d * rows9 : (d + 1) * rows9][None]  # (1, k/R, 2k, 512): Q0 | Q1 rows
             tops.append(top)
             coeffs9.append(rs.partial_coefficients(k, d * rows9, rows9, codec, dev))
+            gemm_coeffs9.append(rs.bit_gemm_partial_coefficients(k, d * rows9, rows9, codec, dev))
             g_cols9.append(G[:, 8 * d * rows9 : 8 * (d + 1) * rows9].contiguous())
             partials9.append(rs.col_parity_partial_cuda(top, *coeffs9[d]))
             compare("rs_col_parity_partial", partials9[d],
@@ -2944,13 +3002,22 @@ def main() -> int:
                 bound(3 * n2 * n2 * 512 + 3 * n2 * n2, 0, INT32_OPS_PER_S),
             ),
             # K9a and K9b over all R = 8 shards of a k = 128 square, one call each
+            # (K9a the path's Leopard form, then its bit-GEMM given leopard's E)
             "rs_col_parity_partial": (
                 lambda: [rs.col_parity_partial_cuda(t, *c) for t, c in zip(tops, coeffs9)],
                 lambda: [rs.col_parity_partial_plain(t, g) for t, g in zip(tops, g_cols9)],
                 lambda: [torch._int_mm(g, b) for g, b in zip(g_cols9, bits9)],
                 # the top rows read once (16 MiB), R partials written (128 MiB); the
-                # column codewords' share (2k of 3k) of the Leopard least-work form
-                bound(k * n2 * 512 + R9 * k * n2 * 512, leopard_extend_ops(k) * 2 // 3,
+                # R shards' pruned Leopard transforms, the least-work form
+                bound(k * n2 * 512 + R9 * k * n2 * 512, leopard_partial_ops(k, R9),
+                      INT32_OPS_PER_S),
+            ),
+            "rs_col_parity_partial_bit_gemm": (
+                lambda: [rs.col_parity_partial_bit_gemm_cuda(t, *c)
+                         for t, c in zip(tops, gemm_coeffs9)],
+                lambda: [rs.col_parity_partial_plain(t, g) for t, g in zip(tops, g_cols9)],
+                lambda: [torch._int_mm(g, b) for g, b in zip(g_cols9, bits9)],
+                bound(k * n2 * 512 + R9 * k * n2 * 512, leopard_partial_ops(k, R9),
                       INT32_OPS_PER_S),
             ),
             "xor_reduce_slabs": (
@@ -2991,6 +3058,14 @@ def main() -> int:
         D64 = rs.decode_matrices_cuda(known64, 64, codec)
         dec64, dec64_gemm, dec128_gemm = eds64.clone(), eds64.clone(), eds.clone()
         one_row, one_row_gemm = eds.clone(), eds.clone()  # one row, as a deep-peel phase
+        # K9a's two forms at k = 64, R = 8 over the 8 shards of the k = 64 EDS
+        # (and at k = 128 over the timings' tops): Leopard's pruned encode and
+        # the bit-GEMM given leopard's E
+        rows64 = 64 // R9
+        tops64 = [eds64[d * rows64 : (d + 1) * rows64][None] for d in range(R9)]
+        k9a64 = [rs.partial_coefficients(64, d * rows64, rows64, codec, dev) for d in range(R9)]
+        k9a64_gemm = [rs.bit_gemm_partial_coefficients(64, d * rows64, rows64, codec, dev)
+                      for d in range(R9)]
         turn_pairs = {
             "rs_extend k=64": (lambda: rs.extend_cuda(sq64, codec),
                                lambda: rs.extend_bit_gemm_cuda(sq64, codec)),
@@ -3012,13 +3087,24 @@ def main() -> int:
                 lambda: rs.decode_axes_cuda(one_row, None, known25[:1], axes25[:1], False, codec),
                 lambda: rs.decode_axes_bit_gemm_cuda(one_row_gemm, D25[:1], known25[:1],
                                                      axes25[:1], False, codec)),
+            f"rs_col_parity_partial {R9} shards k=64": (
+                lambda: [rs.col_parity_partial_cuda(t, *c) for t, c in zip(tops64, k9a64)],
+                lambda: [rs.col_parity_partial_bit_gemm_cuda(t, *c)
+                         for t, c in zip(tops64, k9a64_gemm)]),
+            f"rs_col_parity_partial {R9} shards k=128": (
+                lambda: [rs.col_parity_partial_cuda(t, *c) for t, c in zip(tops, coeffs9)],
+                lambda: [rs.col_parity_partial_bit_gemm_cuda(t, *c)
+                         for t, c in zip(tops, gemm_coeffs9)]),
         }
-        results["k5_in_turns"], results["k8b_in_turns"] = {}, {}
+        in_turns = {"rs_extend": "k5_in_turns", "rs_decode_axes": "k8b_in_turns",
+                    "rs_col_parity_partial": "k9a_in_turns"}
+        for key in in_turns.values():
+            results[key] = {}
         for what, fns in turn_pairs.items():
             got = {"fft": [], "bit_gemm": []}
             for turn in ("fft", "bit_gemm", "bit_gemm", "fft", "fft", "bit_gemm"):
                 got[turn].append(time_ms(fns[turn == "bit_gemm"], queued=True))
-            results["k8b_in_turns" if what.startswith("rs_decode") else "k5_in_turns"][what] = got
+            results[in_turns[what.split()[0].replace("_batched", "")]][what] = got
             ratio = statistics.median(got["bit_gemm"]) / statistics.median(got["fft"])
             print(f"{what}, GPU time in turns: FFT {', '.join(f'{v:.4f}' for v in got['fft'])} ms, "
                   f"bit-GEMM {', '.join(f'{v:.4f}' for v in got['bit_gemm'])} ms (bit-GEMM / FFT "
@@ -3030,7 +3116,11 @@ def main() -> int:
                                 ("rs_decode_axes_bit_gemm", one_row_gemm, eds)):
             compare(name, got, want, "the rows decoded in turns against the codeword")
         del eds64, known64, axes64, D64, dec64, dec64_gemm, dec128_gemm, one_row, one_row_gemm
-        del sq64, sq8_64, turn_pairs
+        for d in range(R9):
+            compare("rs_col_parity_partial", rs.col_parity_partial_cuda(tops64[d], *k9a64[d]),
+                    rs.col_parity_partial_bit_gemm_cuda(tops64[d], *k9a64_gemm[d]),
+                    f"shard {d} of {R9} at k=64 (timed in turns) against the bit-GEMM")
+        del sq64, sq8_64, turn_pairs, tops64, k9a64, k9a64_gemm
         # K7b's table mode on the same 1,024 cells (the range proofs' mode), and
         # its latency floor: an empty launch and a launch with one load that the
         # store waits on (gather.dependent_load_probe), timed as gpu_ms is
@@ -3179,7 +3269,7 @@ def main() -> int:
             "rs_extend_bit_gemm": bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
             "rs_extend_batched_bit_gemm": 8 * bit_gemm_ops(8 * k, 8 * k, 3 * k * 512),
             "rs_decode_axes_bit_gemm": N25 * bit_gemm_ops(8 * k, 8 * k, 512),
-            "rs_col_parity_partial": R9 * bit_gemm_ops(8 * k, 8 * rows9, n2 * 512),
+            "rs_col_parity_partial_bit_gemm": R9 * bit_gemm_ops(8 * k, 8 * rows9, n2 * 512),
         }
         results["tensor_core_floor"] = {}
         for name, ops in floors.items():
@@ -3216,6 +3306,28 @@ def main() -> int:
                   f"opcodes {dec_sass['most_common']}; PRMT {dec_sass['PRMT']} LDS "
                   f"{dec_sass['LDS']} LDG {dec_sass['LDG']} STG {dec_sass['STG']} LDL "
                   f"{dec_sass['LDL']} STL {dec_sass['STL']}")
+        # K9a's Leopard kernel, its k = 128 instances, one an m = k/R: a
+        # column's two threads write 4 bytes of each of the k parity positions
+        # of the shard's partial; in those of R = 8 (m = 16, the sharded path's)
+        # and R = 4 (m = 32, the App's mesh leg) more than 128 registers or a
+        # spill fails the phase
+        results["rs_col_parity_partial_leopard_kernel"] = {}
+        for lg_m in range(8):
+            name = f"rs_leopard_partial_kernelILj7ELj{lg_m}E"
+            k9a_res, k9a_sass = kernel_resources(name), kernel_sass_mix(name)
+            results["rs_col_parity_partial_leopard_kernel"][f"m={1 << lg_m}"] = {
+                "resources": k9a_res, "sass": k9a_sass}
+            print(f"rs_col_parity_partial Leopard kernel, k=128, m={1 << lg_m} (cuobjdump): "
+                  f"resources {k9a_res}; SASS {k9a_sass['instructions']} instructions a thread, "
+                  f"{2 * k9a_sass['instructions'] / (4 * k):.2f} a partial byte; opcodes "
+                  f"{k9a_sass['most_common']}; PRMT {k9a_sass['PRMT']} LDS {k9a_sass['LDS']} LDG "
+                  f"{k9a_sass['LDG']} STG {k9a_sass['STG']} LDL {k9a_sass['LDL']} STL "
+                  f"{k9a_sass['STL']}")
+            check(lg_m not in (4, 5) or (
+                      k9a_res.get("REG", 256) <= 128 and not k9a_res.get("STACK")
+                      and not k9a_res.get("LOCAL") and not k9a_sass["LDL"] and not k9a_sass["STL"]),
+                  f"K9a's k=128, m={1 << lg_m} instance needs at most 128 registers and no "
+                  f"spill: {k9a_res}")
         # the row level stacks behind proofs, namespace data, BEFPs and DAS misses
         # (ops/nmt.py eds_row_level_stack: K2's row-set mode, then K3) at R = 1, 5
         # and 2k rows of the k = 128 EDS, as issued and GPU time.  Beside them,
@@ -3326,10 +3438,11 @@ def main() -> int:
                                             "bound_by": vmap_by}
         del bits, q0_bits, G, entry, eds_k, grid_k, levels_k, tree_k, lib_select, g_out
         del scratch, scratch_plain, scratch_gemm, scratch_gemm_plain, Dh, Xh, rec25, prov25, sq8, bits8, e8, D25, unknown_cells
-        del tops, coeffs9, g_cols9, partials9, slabs9, outs9, bits9
+        del tops, coeffs9, gemm_coeffs9, g_cols9, partials9, slabs9, outs9, bits9
 
-    # K5's launches by C entry over the paths run in this process (phases 3
-    # to 4l): the chain's codec runs the FFT kernel, never the bit-GEMM
+    # K5's, K8b's and K9a's launches by C entry over the paths run in this
+    # process (phases 3 to 4l): the chain's codec runs the Leopard kernels,
+    # never the bit-GEMM
     entries_before = kernels.entry_launch_counts()
 
     def entries_since(before: dict) -> dict:
@@ -4201,14 +4314,14 @@ def main() -> int:
         results["tools"] = {name: {"wall_s": t["wall_s"], "summaries": t["summaries"]}
                             for name, t in tp["twins"].items()}
 
-    # every K5 and K8b launch of the paths in this process went to the
+    # every K5, K8b and K9a launch of the paths in this process went to the
     # Leopard kernels
     path_entries = entries_since(entries_before)
     bit_gemm_launches = {name: sum(path_entries.get(e, 0) for e in es)
                          for name, (_, es, _) in BIT_GEMM_FORMS.items()}
     check(not any(bit_gemm_launches.values()),
           f"a path launched a bit-GEMM kernel under leopard-ff8: {path_entries}")
-    print(f"K5's and K8b's launches by C entry over the paths in this process: "
+    print(f"K5's, K8b's and K9a's launches by C entry over the paths in this process: "
           f"{json.dumps({e: path_entries.get(e, 0) for e in LEOPARD_ENTRIES})} (the Leopard "
           f"kernels), {json.dumps(bit_gemm_launches)} (the bit-GEMM kernels)")
     paths = (extend_launches, serve_launches, repair_launches, fraud_launches, catchup_launches,

@@ -162,19 +162,44 @@ CSRC = Path(__file__).resolve().parents[1] / "celestia_tpu_torch" / "csrc"
 _P = ctypes.c_void_p
 
 
+TWIN_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas")
+
+
+def build_twin(gxx: str) -> Path:
+    """The twin library, built by g++ once per checkout and source digest
+    (cpu_twin.cpp, the headers, the flags) under a file lock, into a
+    temporary name that is then renamed into place: the parallel workers
+    of one run, and each of their modules, load the one build."""
+    import fcntl
+    import hashlib
+
+    h = hashlib.sha256(" ".join(TWIN_FLAGS).encode())
+    for src in [CSRC / "cpu_twin.cpp", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = Path(__file__).resolve().parents[1] / "build" / "torch_twin"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"libtwin-{h.hexdigest()[:16]}.so"
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+            try:
+                subprocess.run([gxx, *TWIN_FLAGS, str(CSRC / "cpu_twin.cpp"), "-o", str(tmp)],
+                               check=True, capture_output=True)
+                os.replace(tmp, lib)
+            finally:
+                tmp.unlink(missing_ok=True)
+    return lib
+
+
 @pytest.fixture(scope="module")
-def twin(tmp_path_factory):
-    """The twin library, built by g++ once a module."""
+def twin():
+    """The twin library (:func:`build_twin`), loaded once a module."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available to build the CPU twin")
-    lib = tmp_path_factory.mktemp("twin") / "libtwin.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         str(CSRC / "cpu_twin.cpp"), "-o", str(lib)],
-        check=True, capture_output=True,
-    )
-    t = ctypes.CDLL(str(lib))
+    t = ctypes.CDLL(str(build_twin(gxx)))
     LL, I = ctypes.c_longlong, ctypes.c_int
     t.twin_sha256_batch.argtypes = [_P, _P, LL, I, I]
     t.twin_nmt_leaf_digests.argtypes = [_P, _P, I]
@@ -205,6 +230,8 @@ def twin(tmp_path_factory):
     t.twin_rs_leopard_extend_rows.argtypes = [_P, _P, _P, I, I]
     t.twin_rs_leopard_decode_tables.argtypes = [_P, _P, I, _P, LL]
     t.twin_rs_leopard_decode_axes.argtypes = [_P, _P, _P, _P, _P, _P, I, I, I]
+    t.twin_rs_leopard_partial_tables.argtypes = [_P, _P, I, I, I, _P, LL]
+    t.twin_rs_leopard_col_parity_partial.argtypes = [_P, _P, _P, I, I, I, I]
     return t
 
 
@@ -215,7 +242,7 @@ _TWIN_OF = {"ctt_nmt_leaf_digests": "twin_nmt_leaf_digests_window",
 _CHECKED_TWINS = ("twin_nmt_leaf_digests_window", "twin_nmt_leaf_digests_rows",
                   "twin_nmt_reduce_levels", "twin_rfc6962_levels", "twin_rs_decode_matrices",
                   "twin_das_proof_gather", "twin_das_cell_gather", "twin_xor_reduce_scatter",
-                  "twin_rs_leopard_decode_axes")
+                  "twin_rs_leopard_decode_axes", "twin_rs_leopard_col_parity_partial")
 
 
 class _Launched(dict):

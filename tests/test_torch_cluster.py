@@ -196,7 +196,23 @@ def test_rollups_equal_jax_on_seeded_clients(seed, node_id):
     assert any("propagation_ms" in v for r in rows for v in r["validators"])
 
 
-def test_cluster_health_over_a_jax_and_a_port_server():
+@pytest.fixture
+def fresh_faults():
+    """Both packages' fault stats empty before and after the test: a test
+    that poisons a device entry on purpose (the JAX package's device-plane
+    tests) leaves its degradations in the process, and a server started
+    after it reports them as its own."""
+    from celestia_tpu.utils import faults as jax_faults
+    from celestia_tpu_torch.utils import faults
+
+    for mod in (jax_faults, faults):
+        mod.reset_stats()
+    yield
+    for mod in (jax_faults, faults):
+        mod.reset_stats()
+
+
+def test_cluster_health_over_a_jax_and_a_port_server(fresh_faults):
     """One JAX and one port node on one genesis, each behind its own
     package's server: each package's rollup over both sees two reachable
     peers at one height and app hash, and the port's peer carries the JAX

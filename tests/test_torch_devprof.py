@@ -297,7 +297,7 @@ def test_traced_run_validates_with_device_spans_under_host_spans():
 
 
 def test_cost_table_equals_the_formulas_chip_smoke_imports():
-    for name in ("compressions", "leopard_extend_ops", "leopard_decode_ops",
+    for name in ("compressions", "leopard_extend_ops", "leopard_decode_ops", "leopard_partial_ops",
                  "decode_matrix_ops", "bit_gemm_ops", "bound", "SHA_OPS_PER_COMPRESSION",
                  "INT32_OPS_PER_S"):
         assert getattr(chip_smoke, name) is getattr(devprof, name), name

@@ -687,9 +687,9 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     launched = route_launches_to_twin(monkeypatch, twin)
 
     def coefficients(k, j0, n_in, codec, device):
-        E = gf256.encode_matrix(k, codec)[:, j0 : j0 + n_in]
-        return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8))
-                     for a in (E, *gf256.field_tables(codec)))
+        # the card's form on a CPU tensor: the codec and its FFT tables
+        # (ctt_rs_leopard_partial_tables through the twin), then j0
+        return (codec, *rs.leopard_partial_coefficients(k, j0, n_in, device))
 
     monkeypatch.setattr(rs, "extend_rows", rs.extend_rows_cuda)
     monkeypatch.setattr(rs, "partial_coefficients", coefficients)
@@ -714,6 +714,7 @@ def test_twin_runs_the_sharded_card_path(twin, monkeypatch, R):
     # the log2(2R) finishing levels on the one device; one K4 launch from
     # the axis roots (no K1)
     assert collectives.staged_bytes() == 0
+    assert launched.entries["ctt_rs_leopard_col_parity_partial"] == R
     assert launched == {
         "rs_extend": R, "rs_col_parity_partial": R, "xor_reduce_slabs": 1,
         "nmt_leaf_digests": 2 * R,
